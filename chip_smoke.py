@@ -4,34 +4,76 @@ and check it end to end.
 
     python3 chip_smoke.py
 
-Phases (no failure is caught; any failed check exits non-zero):
+Phases (no failure is caught; any failed check exits non-zero).  Every
+phase that drives a path sets every kernel's launch counter to 0 just
+before the path and reads the counters just after it:
 
   1. build — every CUDA source under ``src/repro_torch/csrc`` is compiled by
-     ``nvcc`` (all started together), with its ptxas report;
-  2. serve (the main path) — ``repro_torch.launch.serve.main`` builds a
-     32,768-vector d = 128 index on the host (m = 16, ef_construction = 64,
-     o = 4) and serves 256 queries of the paper's mixed workload (in-range
-     fractions 2^-10 .. 2^0) on the card, k = 10, width = 64, for vec_dtype
-     {f32, int8, bf16} x visited {bitmap, hash} x compact {none, (8, 8)},
-     each through the CUDA kernel and through the plain torch version.
-     Checks per configuration: the kernel's launch counter rose (counters
-     are zeroed just before this phase and read just after it); kernel and
-     plain runs agree under the tie rule (``compare_results``: ids, DC and
-     hops equal, dists within 1e-5 of the terms, differing queries only as
-     tie flips, at most 2%); f32 recall@10 >= 0.90; int8 within 0.03 and
-     bf16 within 0.01 of f32;
-  3. trace — ``torch.profiler`` over one warm f32 bitmap batch: device busy
-     time (union of kernel/copy spans), wall time, the device's idle share
-     and the top kernels (trace in ``build/serve_trace.json``);
-  4. kernels — each kernel against its plain version on the card at the
-     serving shapes (B in {8, 256}, K = 17, D = 128, n = 32,768) and at a
-     deployment-size table (n = 2^21 rows x D = 128, 1 GiB in f32; B = 128,
-     K = 48), in f32/bf16/int8, tolerance rtol 1e-5 + atol 1e-5*|v|*|q|;
-     median time per launch (CUDA events over 20 launches, 5 rounds, after
-     warm-up, a fresh id set per launch) beside the plain version's and the
-     bound (bytes this run's ids need over 3.35 TB/s, or flops over 67
-     TFLOP/s f32, whichever is larger);
-  5. report — the kernels JSON line, then the ok line last.
+     ``nvcc`` (one process per source, all started together), with its
+     ptxas report;
+  2. host-built serve (the first slice's path) — ``repro_torch.launch.
+     serve.main`` builds an 8,192-vector d = 128 index on the host with
+     ``--build-backend ops`` (the host search, every hop's distances
+     through the ``gather_norm_dot`` kernel on the card; m = 16,
+     ef_construction = 64, o = 4) and serves 256 queries of the paper's
+     mixed workload (in-range fractions 2^-10 .. 2^0), k = 10, width = 64,
+     for vec_dtype {f32, int8, bf16} x visited {bitmap, hash} x compact
+     {none, (8, 8)}, each through the kernel and through the plain torch
+     version.  Checks: the kernel was launched by the build and in every
+     kernel configuration; kernel and plain runs agree under the tie rule
+     (``compare_results``: ids, DC and hops equal, dists within 1e-5 of the
+     terms, differing queries only as tie flips, at most 2%); f32
+     recall@10 >= 0.90; int8 within 0.03 and bf16 within 0.01 of f32;
+  3. device build + ingest (this slice's main path) — ``serve.main`` with
+     ``--build-backend device`` builds N_DEVICE vectors (d = 128, the same
+     parameters, micro-batch 128, f32) on the card, serves the 256 queries
+     through pipeline {fused, reference} x visited {bitmap, hash} x compact
+     {none, (8, 8)}, each through the kernels and the plain versions, then
+     ingests 4,096 more vectors with the device backend, refreshes the
+     snapshot incrementally and re-serves.  Checks: ``gather_norm_dot``
+     launched by the build and the ingest, by every fused kernel run and
+     by no reference run; ``batched_dot`` launched by every reference
+     kernel run and by no fused run; kernel vs plain and reference vs
+     fused agree under the tie rule, before and after the ingest; the
+     compacted runs (hop chunks replayed as CUDA graphs) equal the eager
+     lock-step runs bitwise through the kernels, and through the plain
+     versions too unless this run shows that the plain versions' results
+     depend on the batch size (compaction shrinks the batch; their einsum
+     goes to cuBLAS): then under the tie rule; f32 recall@10 >= 0.90
+     before and after the ingest.  Then, on the device-built index, one
+     8-hop chunk captured as a CUDA graph (``_GraphedChunk``) against the
+     eager ``_run_hops`` from the same state, for every pipeline x visited
+     x backend of a serving search and for a construction search: state
+     bitwise equal, times of both, and the captured chunks' shared memory
+     pool in bytes;
+  4. int8 device build — ``--build-backend device --vec-dtype int8`` at
+     n = 8,192, served fused through the kernel: its recall@10 within 0.03
+     of phase 2's f32 recall on the same workload;
+  5. trace — ``torch.profiler`` over one warm batch of each pipeline,
+     lock-step and compacted, on the device-built index, and over one
+     device-build micro-batch of 128 inserts: wall time, device busy time
+     (union of kernel/copy spans), the device's idle share, device-to-host
+     copies (host syncs) and the top device ops (traces in
+     ``build/*_trace.json``).  The wrappers count only the launches they
+     make, not those of replayed CUDA graphs, so each traced run also
+     checks that the kernel events the profiler recorded equal the
+     wrappers' launches plus one per replayed hop (``GRAPH_REPLAYS``);
+  6. kernels — each kernel against its plain version on the card, with
+     tolerance rtol 1e-5 + atol 1e-5*|v|*|q|: ``gather_norm_dot`` at the
+     serving shapes (B in {8, 256}, K = 17, D = 128, n = 32,768) and a
+     deployment-size table (n = 2^21 x D = 128; B = 128, K = 48), in
+     f32/bf16/int8; ``batched_dot`` at B in {8, 256}, K = 17, D = 128,
+     B = 128, K = 48, D = 128, and D in {24, 33} (the scalar tail).  Median
+     time per launch (CUDA events over 20 launches, 5 rounds, after
+     warm-up) beside the plain version's, ``torch.bmm``'s for
+     ``batched_dot`` (the one PyTorch call for the same function), and the
+     bound (bytes over 3.35 TB/s or flops over 67 TFLOP/s f32, whichever is
+     larger);
+  7. report — the kernels JSON line, then the ok line last.
+
+N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
+at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
+PERF.md), takes at most 300 s: 2^16 (~217 s); 2^17 would take ~434 s.
 
 Needs one card; exits non-zero without CUDA or outside a checkout of the
 repository, before printing any result.
@@ -53,10 +95,38 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 TIE_FLIP_SHARE = 0.02
+N_HOST = 8192  # host-built (ops) serve phase
+N_DEVICE = 65536  # device-build phase (see the module docstring)
+N_INGEST = 4096
+QUERIES = 256
+COMMON = ["--dim", "128", "--queries", str(QUERIES), "--k", "10",
+          "--width", "64", "--m", "16", "--ef-construction", "64",
+          "--o", "4", "--build-batch", "128", "--device", "cuda"]
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+def reset_counts() -> None:
+    from repro_torch.core.device_search import GRAPH_REPLAYS
+    from repro_torch.kernels import launch_counters
+
+    for c in (*launch_counters(), GRAPH_REPLAYS):
+        for key in c:
+            c[key] = 0
+
+
+def read_replays() -> dict:
+    from repro_torch.core.device_search import GRAPH_REPLAYS
+
+    return dict(GRAPH_REPLAYS)
+
+
+def read_counts() -> dict:
+    from repro_torch.kernels import launch_counters
+
+    return {k: v for c in launch_counters() for k, v in c.items()}
 
 
 def phase_build() -> None:
@@ -69,33 +139,46 @@ def phase_build() -> None:
         print(f"--- nvcc {name}.cu ---\n{log.strip()}")
 
 
-def phase_serve(launches: dict) -> dict:
+def _scale(out: dict, snap=None) -> float:
+    """|v|^2 + |q|^2 bound of a distance's terms (the tie rule's scale)."""
+    snap = snap or out["snapshot"]
+    wl = out["workload"]
+    return float(snap.sq_norms.max() + (wl.queries**2).sum(1).max())
+
+
+def _agree(tag: str, a, b, scale: float) -> int:
     from repro_torch.core.device_search import compare_results
+
+    rep = compare_results(a, b, scale=scale)
+    if rep["faults"] or len(rep["tie_flips"]) > TIE_FLIP_SHARE * QUERIES:
+        fail(f"{tag}: results differ {rep}")
+    return len(rep["tie_flips"])
+
+
+def phase_host_serve() -> dict:
     from repro_torch.launch import serve
 
-    args = ["--n", "32768", "--dim", "128", "--queries", "256", "--k", "10",
-            "--width", "64", "--m", "16", "--ef-construction", "64",
-            "--o", "4", "--vec-dtype", "f32", "int8", "bf16",
+    args = ["--n", str(N_HOST), *COMMON, "--build-backend", "ops",
+            "--vec-dtype", "f32", "int8", "bf16",
             "--visited", "bitmap", "hash", "--compact", "none", "8,8",
-            "--backend", "cuda", "ref", "--device", "cuda"]
-    for key in launches:
-        launches[key] = 0
+            "--backend", "cuda", "ref"]
+    reset_counts()
     out = serve.main(args)
-    main_path = dict(launches)
-    snap, wl = out["snapshot"], out["workload"]
-    scale = float(snap.sq_norms.max() + (wl.queries**2).sum(1).max())
+    counts = read_counts()
+    if out["build_launches"]["gather_norm_dot"] <= 0:
+        fail("ops build: gather_norm_dot was never launched")
+    scale = _scale(out)
     runs = {(r["vec_dtype"], r["visited"], r["compact"], r["backend"]): r
             for r in out["runs"]}
     for (vd, vis, comp, backend), run in runs.items():
         if backend != "cuda":
             continue
-        tag = f"{vd}/{vis}/compact={comp}"
-        if run["launches"] <= 0:
+        tag = f"host {vd}/{vis}/compact={comp}"
+        if run["launches"]["gather_norm_dot"] <= 0:
             fail(f"{tag}: gather_norm_dot was never launched")
         plain = runs[(vd, vis, comp, "ref")]
-        rep = compare_results(run["result"], plain["result"], scale=scale)
-        if rep["faults"] or len(rep["tie_flips"]) > TIE_FLIP_SHARE * 256:
-            fail(f"{tag}: kernel vs plain results {rep}")
+        flips = _agree(f"{tag} kernel vs plain", run["result"],
+                       plain["result"], scale)
         f32 = runs[("f32", vis, comp, "cuda")]["recall"]
         if vd == "f32" and run["recall"] < 0.90:
             fail(f"{tag}: f32 recall@10 {run['recall']:.4f} < 0.90")
@@ -106,39 +189,258 @@ def phase_serve(launches: dict) -> dict:
         print(f"ok {tag}: recall@10 {run['recall']:.4f}, "
               f"{run['qps']:.1f} QPS (plain {plain['qps']:.1f}), hops "
               f"p50 {run['hops_p50']:.0f} p99 {run['hops_p99']:.0f}, "
-              f"launches {run['launches']}, tie flips "
-              f"{len(rep['tie_flips'])}")
-    print(f"main-path launches: {main_path}")
-    return {"launches": main_path, "out": out}
+              f"launches {run['launches']}, tie flips {flips}")
+    print(f"host-built serve path launches: {counts}")
+    return {"launches": counts, "out": out,
+            "f32_recall": runs[("f32", "bitmap", None, "cuda")]["recall"]}
 
 
-def phase_trace(out: dict) -> None:
+def _check_device_runs(runs: list, scale: float, when: str,
+                       plain_bitwise: bool) -> None:
+    by = {(r["pipeline"], r["visited"], r["compact"], r["backend"]): r
+          for r in runs}
+    for (pipe, vis, comp, backend), run in by.items():
+        tag = f"device-built {when} {pipe}/{vis}/compact={comp}/{backend}"
+        if run["recall"] < 0.90:
+            fail(f"{tag}: f32 recall@10 {run['recall']:.4f} < 0.90")
+        own, other = (("batched_dot", "gather_norm_dot")
+                      if pipe == "reference"
+                      else ("gather_norm_dot", "batched_dot"))
+        n = run["launches"]
+        if backend == "cuda" and (n[own] <= 0 or n[other] != 0):
+            fail(f"{tag}: launches {n} (expected {own} only)")
+        if backend == "ref" and any(n.values()):
+            fail(f"{tag}: the plain run launched kernels {n}")
+        if comp is not None:  # compacted (graph replays) vs lock-step
+            eager = by[(pipe, vis, None, backend)]["result"]
+            if backend == "ref" and not plain_bitwise:
+                # shown by plain_batch_dependence: the plain versions'
+                # cuBLAS products round differently once compaction has
+                # shrunk the batch, so only the tie rule holds
+                _agree(f"{tag} compacted vs lock-step", run["result"], eager,
+                       scale)
+            elif not all((a == b).all() for a, b in zip(run["result"],
+                                                         eager)):
+                fail(f"{tag}: compacted (CUDA graph) results differ from "
+                     "the lock-step eager loop")
+        if backend != "cuda":
+            continue
+        plain = by[(pipe, vis, comp, "ref")]
+        flips = _agree(f"{tag} kernel vs plain", run["result"],
+                       plain["result"], scale)
+        line = (f"ok {tag}: recall@10 {run['recall']:.4f}, "
+                f"{run['qps']:.1f} QPS (plain {plain['qps']:.1f}), mean DC "
+                f"{run['mean_dc']:.1f}, hops p50 {run['hops_p50']:.0f} p99 "
+                f"{run['hops_p99']:.0f}, launches {n}, tie flips vs plain "
+                f"{flips}")
+        if pipe == "reference":
+            fused = by[("fused", vis, comp, "cuda")]
+            line += (", tie flips vs fused "
+                     f"{_agree(tag + ' vs fused', run['result'], fused['result'], scale)}")
+        print(line)
+
+
+def plain_batch_dependence(di) -> bool:
+    """Whether the plain versions give a row the same bits at every batch
+    size the compaction driver runs (and under CUDA-graph capture): one
+    draw of 256 x 17 candidates on the device-built table through
+    ``gather_norm_dot_ref`` and ``batched_dot_ref`` (the plain evals of the
+    two pipelines), and through the kernels, whose rows are independent."""
+    from repro_torch.kernels.distance import batched_dot
+    from repro_torch.kernels.gather_distance import gather_norm_dot
+    from repro_torch.kernels.ref import batched_dot_ref, gather_norm_dot_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    n_live = int(torch.isfinite(di.attrs).sum())
+    ids = torch.randint(0, n_live, (256, 17), device="cuda", generator=gen)
+    q = torch.randn(256, di.vectors.shape[1], device="cuda", generator=gen)
+    rows = di.vectors[ids]
+    fns = {  # name -> (is the plain version, fn of the batch size)
+        "gather_norm_dot_ref": (True, lambda b: gather_norm_dot_ref(
+            di.vectors, ids[:b], q[:b])),
+        "batched_dot_ref": (True, lambda b: (batched_dot_ref(rows[:b],
+                                                             q[:b]),)),
+        "gather_norm_dot": (False, lambda b: gather_norm_dot(
+            di.vectors, ids[:b], q[:b])),
+        "batched_dot": (False, lambda b: (batched_dot(rows[:b], q[:b]),)),
+    }
+    plain_same = True
+    for name, (plain, fn) in fns.items():
+        full = fn(256)
+        diffs, max_err = {}, 0.0
+        for b in (8, 16, 32, 64, 128):
+            part = fn(b)
+            diffs[b] = sum(int((p != f[:b]).sum()) for p, f in zip(part, full))
+            max_err = max(max_err, *(float((p.double() - f[:b].double())
+                                           .abs().max())
+                                     for p, f in zip(part, full)))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = fn(256)
+        graph.replay()
+        torch.cuda.synchronize()
+        cap = sum(int((c != f).sum()) for c, f in zip(captured, full))
+        print(f"{name}: elements differing from the B = 256 result, by "
+              f"batch size {diffs} (max abs diff {max_err}); captured vs "
+              f"eager at B = 256: {cap}")
+        if cap or (not plain and any(diffs.values())):
+            fail(f"{name}: rows change under capture or with the batch size")
+        if plain and any(diffs.values()):
+            plain_same = False
+    return plain_same
+
+
+def _fresh(st):
+    from repro_torch.core.device_search import _STATE_TENSORS
+
+    return st._replace(**{f: getattr(st, f).clone() for f in _STATE_TENSORS})
+
+
+def _chunk_pair(tag: str, di, cfg, st, h: int = 8) -> None:
+    """One ``h``-hop chunk from state ``st``: the eager ``_run_hops`` and a
+    captured ``_GraphedChunk`` must leave bitwise the same state; prints
+    the median of 5 timed runs of each."""
+    from repro_torch.core import device_search as tds
+
+    eager = tds._run_hops(di, _fresh(st), cfg, h)  # warms every op up
+    chunk = tds._GraphedChunk(di, cfg, _fresh(st), h)
+    graphed = chunk.run(_fresh(st))
+    for f in tds._STATE_TENSORS:
+        if not torch.equal(getattr(eager, f), getattr(graphed, f)):
+            fail(f"{tag}: replayed chunk differs from the eager loop in {f}")
+
+    def timed(fn) -> float:
+        ts = []
+        for _ in range(5):
+            s = _fresh(st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(s)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts) * 1e3
+
+    e_ms = timed(lambda s: tds._run_hops(di, s, cfg, h))
+    g_ms = timed(chunk.run)
+    active = int(st.active.sum())
+    print(f"ok {tag}: {h}-hop chunk, B = {st.res_i.shape[0]} ({active} "
+          f"active), replay == eager bitwise; eager {e_ms:.3f} ms, replay "
+          f"{g_ms:.3f} ms")
+
+
+def check_graphs(idx, snap, wl) -> None:
+    """Captured chunks against the eager loop from the same states: serving
+    searches (pipeline x visited x backend, 8 hops in) and a construction
+    search of 128 members over the whole layer span."""
+    import itertools
+
+    import numpy as np
+
+    from repro_torch.core import device_search as tds
+
+    di = tds.to_device_index(snap, vec_dtype="f32", device="cuda")
+    q, r = tds.pad_queries(
+        torch.as_tensor(wl.queries, device="cuda"),
+        torch.as_tensor(wl.ranges, dtype=torch.float32, device="cuda"))
+    for pipeline, visited, backend in itertools.product(
+            ("fused", "reference"), ("bitmap", "hash"), ("cuda", "ref")):
+        cfg = tds.hop_cfg(k=10, width=64, m=snap.m, o=snap.o,
+                          backend=backend, pipeline=pipeline, visited=visited)
+        st = tds._init_state(di, q, r, cfg)
+        st = tds._run_hops(di, st, cfg, 9)  # the seed iteration + 8 hops
+        _chunk_pair(f"serve {pipeline}/{visited}/{backend}", di, cfg, st)
+
+    rng = np.random.default_rng(3)
+    pick = rng.choice(idx.store.n, 128, replace=False)
+    targets = idx.store.vectors[pick] + 0.01 * rng.standard_normal(
+        (128, idx.dim)).astype(np.float32)
+    val = idx.store.attrs[pick]
+    ranges = np.stack([val - 500.0, val + 500.0], axis=1)
+    for backend in ("cuda", "ref"):
+        prep = tds._prep_build_inputs(
+            idx._arena.device_index(), targets, ranges, pick, 0,
+            idx.graph.top, None, None, width=64, m=idx.params.m,
+            o=idx.params.o, metric="l2", seed_width=None, backend=backend,
+            visited="hash", visited_bits=None, visited_fp=0.02,
+            visited_hashes=2, merge="auto", max_hops=None)
+        st = tds._init_build_state(prep.di, *prep.args, prep.cfg)
+        _chunk_pair(f"build search/{backend}", prep.di, prep.cfg, st)
+
+
+def phase_device_build() -> dict:
+    from repro_torch.launch import serve
+
+    args = ["--n", str(N_DEVICE), *COMMON, "--build-backend", "device",
+            "--pipeline", "fused", "reference",
+            "--visited", "bitmap", "hash", "--compact", "none", "8,8",
+            "--backend", "cuda", "ref", "--ingest", str(N_INGEST)]
+    reset_counts()
+    out = serve.main(args)
+    counts = read_counts()
+    for what, n in (("build", out["build_launches"]),
+                    ("ingest", out["ingest_launches"])):
+        if n["gather_norm_dot"] <= 0 or n["batched_dot"] != 0:
+            fail(f"device {what}: launches {n}")
+    replays = read_replays()
+    from repro_torch.core.device_search import graph_cache_stats, to_device_index
+
+    graphs = graph_cache_stats()
+    plain_bitwise = plain_batch_dependence(
+        to_device_index(out["snapshot"], vec_dtype="f32", device="cuda"))
+    _check_device_runs(out["runs"], _scale(out), "before ingest",
+                       plain_bitwise)
+    _check_device_runs(out["ingest_runs"],
+                       _scale(out, out["snapshot_after"]), "after ingest",
+                       plain_bitwise)
+    check_graphs(out["index"], out["snapshot_after"], out["workload"])
+    st = out["build_stats"]
+    print(f"device build: n = {N_DEVICE}, {out['build_s']:.2f} s, "
+          f"{out['inserts_per_s']:.1f} inserts/s, {st.searches} searches, "
+          f"DC {st.dc}, arena {out['arena_bytes']} bytes; ingest "
+          f"{N_INGEST} in {out['ingest_s']:.2f} s "
+          f"({N_INGEST / out['ingest_s']:.1f} inserts/s)")
+    print(f"device-build path launches: {counts}; graph replays {replays}; "
+          f"{graphs['graphs']} captured chunks cached in a shared pool of "
+          f"{graphs['pool_bytes']} bytes "
+          f"(memory reserved {torch.cuda.memory_reserved()} bytes)")
+    return {"launches": counts, "replays": replays, "out": out}
+
+
+def phase_int8_build(f32_recall: float) -> dict:
+    from repro_torch.launch import serve
+
+    args = ["--n", str(N_HOST), *COMMON, "--build-backend", "device",
+            "--vec-dtype", "int8", "--backend", "cuda"]
+    reset_counts()
+    out = serve.main(args)
+    counts = read_counts()
+    run = out["runs"][0]
+    if out["build_launches"]["gather_norm_dot"] <= 0:
+        fail("int8 device build: gather_norm_dot was never launched")
+    if run["recall"] < f32_recall - 0.03:
+        fail(f"int8 device build: recall {run['recall']:.4f} more than 0.03 "
+             f"below f32 {f32_recall:.4f}")
+    print(f"ok int8 device build: n = {N_HOST}, {out['build_s']:.2f} s "
+          f"({out['inserts_per_s']:.1f} inserts/s), recall@10 "
+          f"{run['recall']:.4f} (f32 {f32_recall:.4f}), launches {counts}")
+    return {"launches": counts, "out": out}
+
+
+def _trace(fn, name: str) -> dict:
+    """Profile one call of ``fn``: wall, device busy (union of device
+    spans), idle share, device-to-host copies and the top device ops."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core.device_search import (
-        device_search, pad_queries, to_device_index,
-    )
-
-    snap, wl = out["snapshot"], out["workload"]
-    di = to_device_index(snap, vec_dtype="f32", device="cuda")
-    q, r = pad_queries(torch.as_tensor(wl.queries, device="cuda"),
-                       torch.as_tensor(wl.ranges, dtype=torch.float32,
-                                       device="cuda"))
-
-    def batch():
-        return device_search(di, q, r, k=10, width=64, m=snap.m, o=snap.o,
-                             backend="cuda")
-
-    batch()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        batch()
+        fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     outdir = os.path.join(HERE, "build")  # tens of MB: kept out of git
     os.makedirs(outdir, exist_ok=True)
-    path = os.path.join(outdir, "serve_trace.json")
+    path = os.path.join(outdir, f"{name}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)
@@ -146,9 +448,7 @@ def phase_trace(out: dict) -> None:
            if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
-        print(f"trace: wall {wall * 1e3:.1f} ms; device time not measured "
-              "(the profiler recorded no device activity)")
-        return
+        fail(f"trace {name}: the profiler recorded no device activity")
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                    for e in dev)
     busy, end = 0.0, -1.0  # union of device intervals, us
@@ -160,32 +460,102 @@ def phase_trace(out: dict) -> None:
     for e in dev:
         t, c = by_name.get(e["name"], (0.0, 0))
         by_name[e["name"]] = (t + float(e["dur"]), c + 1)
-    gnd = sum(t for k, (t, _) in by_name.items() if "gather_norm_dot" in k)
-    n_launch = sum(c for _, c in by_name.values())
-    print(f"trace (f32 bitmap, B=256, one batch): wall {wall * 1e3:.3f} ms, "
-          f"device busy {busy / 1e3:.3f} ms, idle share "
-          f"{1 - busy / 1e6 / wall:.4f}, {n_launch} device ops, "
-          f"gather_norm_dot {gnd / 1e3:.3f} ms "
-          f"({gnd / busy:.4f} of busy)")
+    dtoh = sum(c for k, (_, c) in by_name.items() if "DtoH" in k)
+    n_ops = sum(c for _, c in by_name.values())
+    print(f"trace {name}: wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / 1e6 / wall:.4f}, "
+          f"{n_ops} device ops, {dtoh} device-to-host copies")
+    kernels = {}
+    for k in ("gather_norm_dot", "batched_dot"):
+        t = sum(v[0] for kk, v in by_name.items() if k in kk)
+        c = sum(v[1] for kk, v in by_name.items() if k in kk)
+        kernels[k] = c
+        if c:
+            print(f"  {k}: {t / 1e3:.3f} ms over {c} kernel events "
+                  f"({t / c:.2f} us each, {t / busy:.4f} of busy)")
     for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {t / 1e3:9.3f} ms {c:6d}x  {k[:100]}")
+    return {"wall_s": wall, "busy_s": busy / 1e6, "ops": n_ops,
+            "dtoh": dtoh, "kernels": kernels}
 
 
-def _time_ms(fn, n_ids: int) -> float:
+def _traced_launches(fn, name: str) -> dict:
+    """Trace ``fn`` and hold the profiler's kernel events against the
+    wrappers' launches plus one per hop that a replayed graph ran (each
+    hop evaluates its candidates with one kernel launch)."""
+    before, rep0 = read_counts(), read_replays()
+    tr = _trace(fn, name)
+    wrapped = {k: v - before[k] for k, v in read_counts().items()}
+    hops = read_replays()["hops"] - rep0["hops"]
+    if sum(tr["kernels"].values()) != sum(wrapped.values()) + hops:
+        fail(f"trace {name}: kernel events {tr['kernels']} != wrapper "
+             f"launches {wrapped} + replayed hops {hops}")
+    print(f"  kernel events {tr['kernels']} = wrapper launches {wrapped} + "
+          f"{hops} replayed hops")
+    return {"run": name, "kernel_events": tr["kernels"],
+            "wrapper_launches": wrapped, "replayed_hops": hops}
+
+
+def phase_trace(out: dict) -> dict:
+    import numpy as np
+
+    from repro_torch.core.datasets import make_attrs, make_vectors
+    from repro_torch.core.device_search import (
+        device_search, pad_queries, to_device_index,
+    )
+
+    snap, wl, idx = out["snapshot_after"], out["workload"], out["index"]
+    di = to_device_index(snap, vec_dtype="f32", device="cuda")
+    q, r = pad_queries(torch.as_tensor(wl.queries, device="cuda"),
+                       torch.as_tensor(wl.ranges, dtype=torch.float32,
+                                       device="cuda"))
+    traced = {}
+    for pipeline in ("fused", "reference"):
+        for compact in (None, (8, 8)):
+            def batch(pipeline=pipeline, compact=compact):
+                return device_search(di, q, r, k=10, width=64, m=snap.m,
+                                     o=snap.o, backend="cuda",
+                                     pipeline=pipeline, compact=compact)
+
+            batch()  # a chunk shape's first sight runs eagerly ...
+            batch()  # ... and its second captures the graph
+            name = (f"serve_{pipeline}"
+                    + ("_compact" if compact is not None else ""))
+            traced[name] = _traced_launches(batch, name)
+
+    vecs = make_vectors(128, snap.vectors.shape[1], seed=7)
+    attrs = make_attrs(vecs, seed=7) + float(np.max(snap.attrs)) + 1.0
+    n_searches = idx.build_stats.searches
+    traced["device_build_batch"] = _traced_launches(
+        lambda: idx.insert_batch(vecs, attrs, batch_size=128,
+                                 backend="device"), "device_build_batch")
+    print(f"  (one micro-batch of 128 inserts: "
+          f"{idx.build_stats.searches - n_searches} member searches)")
+    return traced
+
+
+def _time_ms(fn, n_in: int) -> float:
     """Median per-launch ms of ``fn(i)`` over 5 rounds of 20 launches."""
     for i in range(3):
-        fn(i % n_ids)
+        fn(i % n_in)
     rounds = []
     for _ in range(5):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for i in range(20):
-            fn(i % n_ids)
+            fn(i % n_in)
         end.record()
         torch.cuda.synchronize()
         rounds.append(start.elapsed_time(end) / 20)
     return statistics.median(rounds)
+
+
+def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
 
 
 def _quantize(f32: torch.Tensor, vec_dtype: str):
@@ -199,17 +569,20 @@ def _quantize(f32: torch.Tensor, vec_dtype: str):
     return slab.to(torch.int8), scales
 
 
-def phase_kernels() -> dict:
+def _check_close(name: str, got, exp, atol) -> float:
+    err = (got.double() - exp.double()).abs()
+    if bool((err > 1e-5 * exp.double().abs() + 1e-5 * atol).any()):
+        fail(f"{name}: max err {float(err.max())}")
+    return float(err.max())
+
+
+def kernels_gather(gen) -> dict:
     from repro_torch.kernels.gather_distance import gather_norm_dot
     from repro_torch.kernels.ref import gather_norm_dot_ref
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's
-    torch.backends.cudnn.allow_tf32 = False  # einsums stay full f32
-    gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = [(32768, 8, 17, 128), (32768, 256, 17, 128),
               (2**21, 128, 48, 128)]
-    cases = []
-    max_err = 0.0
+    cases, max_err = [], 0.0
     for n, B, K, D in shapes:
         f32 = torch.randn(n, D, device="cuda", generator=gen)
         for vd in ("f32", "bf16", "int8"):
@@ -222,12 +595,9 @@ def phase_kernels() -> dict:
             torch.cuda.synchronize()
             vn = rv.double().sqrt()
             qn = q.double().norm(dim=1)[:, None]
-            for got, exp, atol in ((kd, rd, vn * qn), (kv, rv, vn * vn)):
-                err = (got.double() - exp.double()).abs()
-                if bool((err > 1e-5 * exp.double().abs() + 1e-5 * atol).any()):
-                    fail(f"gather_norm_dot {vd} n={n} B={B} K={K}: max err "
-                         f"{float(err.max())}")
-                max_err = max(max_err, float(err.max()))
+            tag = f"gather_norm_dot {vd} n={n} B={B} K={K}"
+            max_err = max(max_err, _check_close(tag, kd, rd, vn * qn),
+                          _check_close(tag, kv, rv, vn * vn))
             ms = _time_ms(lambda i: gather_norm_dot(table, ids[i], q,
                                                     scales=scales), 20)
             plain_ms = _time_ms(lambda i: gather_norm_dot_ref(
@@ -236,22 +606,48 @@ def phase_kernels() -> dict:
             nbytes = (rows * D * table.element_size()
                       + (rows * 4 if scales is not None else 0)
                       + B * K * 8 + B * D * 4 + 2 * B * K * 4)
-            flops = 4 * B * K * D
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOPS * 1e3
-            case = {"vec_dtype": vd, "n": n, "B": B, "K": K, "D": D,
-                    "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "bytes": nbytes}
-            cases.append(case)
-            print(f"gather_norm_dot {vd:4s} n={n:7d} B={B:3d} K={K} D={D}: "
-                  f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us), bound "
-                  f"{case['bound_ms'] * 1e3:.3f} us ({case['bound_by']}, "
-                  f"{nbytes} B)")
+            bound_ms, bound_by = _bound(nbytes, 4 * B * K * D)
+            cases.append({"vec_dtype": vd, "n": n, "B": B, "K": K, "D": D,
+                          "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": None})
+            print(f"{tag} D={D}: {ms * 1e3:.2f} us (plain "
+                  f"{plain_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.3f} us "
+                  f"({bound_by}, {nbytes} B)")
             del table, scales
         del f32
         torch.cuda.empty_cache()
+    return {"cases": cases, "max_abs_err": max_err}
+
+
+def kernels_batched_dot(gen) -> dict:
+    from repro_torch.kernels.distance import batched_dot
+    from repro_torch.kernels.ref import batched_dot_ref
+
+    shapes = [(8, 17, 128), (256, 17, 128), (128, 48, 128),
+              (256, 17, 24), (256, 17, 33)]
+    cases, max_err = [], 0.0
+    for B, K, D in shapes:
+        vs = [torch.randn(B, K, D, device="cuda", generator=gen)
+              for _ in range(20)]
+        q = torch.randn(B, D, device="cuda", generator=gen)
+        got = batched_dot(vs[0], q)
+        exp = batched_dot_ref(vs[0], q)
+        torch.cuda.synchronize()
+        atol = vs[0].double().norm(dim=2) * q.double().norm(dim=1)[:, None]
+        tag = f"batched_dot B={B} K={K} D={D}"
+        max_err = max(max_err, _check_close(tag, got, exp, atol))
+        ms = _time_ms(lambda i: batched_dot(vs[i], q), 20)
+        plain_ms = _time_ms(lambda i: batched_dot_ref(vs[i], q), 20)
+        lib_ms = _time_ms(lambda i: torch.bmm(vs[i], q[:, :, None]), 20)
+        bound_ms, bound_by = _bound((B * K * D + B * D + B * K) * 4,
+                                    2 * B * K * D)
+        cases.append({"B": B, "K": K, "D": D, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by})
+        print(f"{tag}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
+              f"torch.bmm {lib_ms * 1e3:.2f} us), bound "
+              f"{bound_ms * 1e3:.3f} us ({bound_by})")
     return {"cases": cases, "max_abs_err": max_err}
 
 
@@ -260,8 +656,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on the "
               "card", file=sys.stderr)
         return 1
-    from repro_torch.kernels.gather_distance import LAUNCHES
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -269,23 +663,41 @@ def main() -> int:
     print(f"card: {smi}")
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    t_start = time.time()
     phase_build()
-    served = phase_serve(LAUNCHES)
-    phase_trace(served["out"])
-    kern = phase_kernels()
-    main_case = next(c for c in kern["cases"] if c["vec_dtype"] == "f32"
-                     and c["B"] == 256 and c["K"] == 17)
-    report = {"kernels": [{
-        "name": "gather_norm_dot", "route": "cuda",
-        "source": "src/repro_torch/csrc/gather_norm_dot.cu",
-        "replaces": "src/repro/kernels/gather_distance.py:123",
-        "launches": served["launches"]["gather_norm_dot"],
-        "max_abs_err": kern["max_abs_err"],
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None,
-        "shape": {k: main_case[k] for k in ("vec_dtype", "n", "B", "K", "D")},
-    }]}
+    host = phase_host_serve()
+    device = phase_device_build()
+    phase_int8_build(host["f32_recall"])
+    traced = phase_trace(device["out"])
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions'
+    torch.backends.cudnn.allow_tf32 = False  # einsums stay full f32
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gnd = kernels_gather(gen)
+    bd = kernels_batched_dot(gen)
+    g_main = next(c for c in gnd["cases"] if c["vec_dtype"] == "f32"
+                  and c["B"] == 256 and c["K"] == 17)
+    b_main = next(c for c in bd["cases"] if c["B"] == 256 and c["K"] == 17
+                  and c["D"] == 128)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    report = {"kernels": [
+        {"name": "gather_norm_dot", "route": "cuda",
+         "source": "src/repro_torch/csrc/gather_norm_dot.cu",
+         "replaces": "src/repro/kernels/gather_distance.py:123",
+         "launches": device["launches"]["gather_norm_dot"],
+         "traced": traced["serve_fused_compact"],
+         "max_abs_err": gnd["max_abs_err"],
+         **{k: g_main[k] for k in keys},
+         "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
+        {"name": "batched_dot", "route": "cuda",
+         "source": "src/repro_torch/csrc/batched_dot.cu",
+         "replaces": "src/repro/kernels/distance.py:38",
+         "launches": device["launches"]["batched_dot"],
+         "traced": traced["serve_reference_compact"],
+         "max_abs_err": bd["max_abs_err"],
+         **{k: b_main[k] for k in keys},
+         "shape": {k: b_main[k] for k in ("B", "K", "D")}},
+    ]}
+    print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f}s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,11 +26,11 @@ gets the same bits:
     2^32 after every step; the 32x32-bit multiply is split into 16-bit
     halves so no int64 product overflows.
   * **Visited words** — int64 tensors holding the uint32 word values, so
-    shifts and masks never meet a sign bit.  The bitmap marks with an
-    accumulating ``index_put_`` (a selected id's bit is unset, so add ==
-    OR); the blocked-Bloom filter OR-combines the masks of lanes sharing a
-    word with a loop over K (torch has no bitwise-or reduction) and writes
-    with a ``scatter_`` (lanes sharing a word write identical values).
+    shifts and masks never meet a sign bit.  The bitmap marks with a
+    ``scatter_add_`` (a selected id's bit is unset, so add == OR); the blocked-Bloom filter OR-combines the masks of lanes sharing a
+    word through 32 bit planes (torch has no bitwise-or reduction) and
+    writes with a ``scatter_`` (lanes sharing a word write identical
+    values).
   * **Packed sort keys** — dedupe ``id*(F+1)+rank`` and admission
     ``rank*(F+1)+pos`` keys are int64, so one stable ``torch.sort`` path
     covers every table size (JAX needs a two-key lexsort once n*(F+1)
@@ -61,8 +61,19 @@ is farther than the current worst of a full result set (Alg. 2 line 6).
 Out-of-range vertices are never distance-evaluated; per-query DC and hop
 counters are returned for parity tests.
 
-``pipeline="reference"`` (the pre-refactor hop over a materialized gather,
-with the ``batched_dot`` kernel) is ROADMAP A9 and raises until then.
+Pipelines (``pipeline=``): ``"fused"`` (the default) runs the stages
+above; ``"reference"`` runs the pre-refactor hop of
+``core.hop_reference`` — all-pairs dedupe + ``torch.topk`` admission, the
+rehash mark of the selected ids, a materialized [B, K, d] gather through
+the ``batched_dot`` CUDA kernel with cached norms, and a stable full-width
+sort merge.  Both give the same ids, DC and hops (the parity oracle); the
+reference pipeline takes f32 slabs only.
+
+Build half (``build_search``): one micro-batch's per-layer construction
+search of ``WoWIndex.insert_batch(backend="device")`` over the
+``DeviceBuildArena`` — the same hop body, seeded with the host-sampled
+window entries and the Thm-3.1 carry (``_init_build_state``), run through
+the chunked compaction driver, read back once per (micro-batch, layer).
 """
 from __future__ import annotations
 
@@ -74,6 +85,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels.ops import BACKENDS, gather_norm_dot, merge_src_indices
+from .hop_reference import dedupe_pairwise, eval_materialized, merge_full_sort
 from .snapshot import Snapshot
 from .store import VEC_DTYPES, quantize_rows
 
@@ -82,6 +94,7 @@ _BIG = 2**30
 _MASK32 = 0xFFFFFFFF
 _MIN_BUCKET = 8  # smallest compaction bucket
 MERGE_METHODS = ("auto", "sort", "scatter", "onehot")
+PIPELINES = ("fused", "reference")
 
 
 class DeviceIndex(NamedTuple):
@@ -242,6 +255,7 @@ class HopCfg(NamedTuple):
     metric: str
     max_hops: int
     backend: str
+    pipeline: str  # "fused" | "reference"
     visited: str  # "bitmap" | "hash"
     v_words: int  # hash-filter words per query (0 for bitmap)
     v_hashes: int
@@ -372,7 +386,6 @@ def _visited_mark(vstate: torch.Tensor, sel_ids: torch.Tensor,
                   sel_valid: torch.Tensor, cfg: HopCfg) -> torch.Tensor:
     """Insert the selected ids [B, K] into the filter, in place; returns
     ``vstate``."""
-    B, K = sel_ids.shape
     trash = vstate.shape[1] - 1
     sel_ids = sel_ids.long()
     if cfg.visited == "bitmap":
@@ -381,8 +394,7 @@ def _visited_mark(vstate: torch.Tensor, sel_ids: torch.Tensor,
         w = (sel_ids >> 5).masked_fill(~sel_valid, trash)
         b = (torch.ones_like(sel_ids) << (sel_ids & 31)).masked_fill(
             ~sel_valid, 0)
-        rows = torch.arange(B, device=vstate.device)[:, None].expand(B, K)
-        vstate.index_put_((rows, w), b, accumulate=True)
+        vstate.scatter_add_(1, w, b)
         return vstate
     word, mask = _hash_wordmask(sel_ids, trash, cfg.v_hashes)
     return _visited_mark_hash(vstate, word, mask, sel_valid)
@@ -395,14 +407,18 @@ def _visited_mark_hash(vstate: torch.Tensor, word: torch.Tensor,
     in place.  Marking must be an OR (probe bits of an unvisited id may
     already be set): OR-combine the masks of lanes sharing a word, merge
     with the current words, write back with a ``scatter_`` — lanes sharing
-    a word write identical values."""
+    a word write identical values.  torch has no bitwise-or reduction, so
+    the masks are split into 32 bit planes, OR-ed with ``any`` over the
+    lanes sharing a word, and packed back (distinct bits: the sum is the
+    OR)."""
     trash = vstate.shape[1] - 1
     w = word.masked_fill(~sel_valid, trash)
     mask = mask.masked_fill(~sel_valid, 0)
     eqw = w[:, :, None] == w[:, None, :]  # [B, K, K] (tiny)
-    comb = torch.zeros_like(mask)
-    for j in range(w.shape[1]):  # torch has no bitwise-or reduction
-        comb = comb | (mask[:, j:j + 1] * eqw[:, :, j])
+    bit = torch.arange(32, device=mask.device)
+    planes = ((mask[:, :, None] >> bit) & 1) > 0  # [B, K, 32]
+    hit = (eqw[:, :, :, None] & planes[:, None, :, :]).any(dim=2)
+    comb = (hit.long() << bit).sum(dim=2)  # [B, K]
     cur = torch.gather(vstate, 1, w)
     vstate.scatter_(1, w, cur | comb)
     return vstate
@@ -577,11 +593,24 @@ def _select_candidates(di: DeviceIndex, cfg: HopCfg, st: HopState,
 
     elig = unvis & inr & include[:, :, None] & act[:, None, None]  # [B,L,m]
     rank = ((st.l_d[:, None, None] - lev) * m + col).masked_fill(~elig, _BIG)
-    ids_f, rank_f = _dedupe_sorted(nbc.reshape(B, F), rank.reshape(B, F), F)
-    sel_ids, sel_rank, sel_valid = _admit(ids_f, rank_f, F, K)
+    if cfg.pipeline == "reference":
+        ids_f, rank_f = dedupe_pairwise(nbc.reshape(B, F), rank.reshape(B, F))
+        # the K best (smallest) ranks; eligible ranks are injective over
+        # slots and every tie is at _BIG (masked below), so the admitted
+        # set and its order match ``lax.top_k``'s
+        sel_rank, sel_pos = torch.topk(rank_f, K, dim=1, largest=False,
+                                       sorted=True)
+        sel_valid = sel_rank < _BIG
+        sel_ids = torch.gather(ids_f, 1, sel_pos).masked_fill(~sel_valid, 0)
+    else:
+        ids_f, rank_f = _dedupe_sorted(nbc.reshape(B, F), rank.reshape(B, F),
+                                       F)
+        sel_ids, sel_rank, sel_valid = _admit(ids_f, rank_f, F, K)
 
     # ---- mark visited ----
-    if probe_cache is None:
+    if probe_cache is None or cfg.pipeline == "reference":
+        # bitmap mode, or the oracle pipeline (kept on the rehash path so
+        # parity tests exercise cached-vs-recomputed probes)
         _visited_mark(st.vstate, sel_ids, sel_valid, cfg)
     else:
         # reuse the probe positions the visited TEST computed: a selected
@@ -595,11 +624,23 @@ def _select_candidates(di: DeviceIndex, cfg: HopCfg, st: HopState,
     return sel_ids, sel_valid
 
 
+def _eval(di: DeviceIndex, idc: torch.Tensor, queries: torch.Tensor,
+          cfg: HopCfg):
+    """-> (dots, |v|^2) of the clipped candidate ids [B, K]: the fused
+    gather kernel (``gather_norm_dot``, dequant in registers), or for the
+    reference pipeline a materialized gather + the ``batched_dot`` kernel
+    with the cached norms."""
+    if cfg.pipeline == "reference":
+        return eval_materialized(di.vectors, di.sq_norms, idc, queries,
+                                 cfg.backend)
+    return gather_norm_dot(di.vectors, idc, queries,
+                           scales=_gather_scales(di), backend=cfg.backend)
+
+
 def _hop_body(di: DeviceIndex, cfg: HopCfg, st: HopState) -> HopState:
     """One iteration of the hop loop over the whole (current) batch.
     Updates ``st.vstate`` in place (an inactive row marks only its trash
     word); every other field is a new tensor."""
-    B, _ = st.queries.shape
     L, n, m = di.neighbors.shape
     W = st.res_d.shape[1]
     K = min(m + 1, L * m)
@@ -626,16 +667,15 @@ def _hop_body(di: DeviceIndex, cfg: HopCfg, st: HopState) -> HopState:
         act = st.active & ~done
         s = torch.gather(st.res_i, 1, i_star[:, None])[:, 0].masked_fill(
             ~act, 0)
-        res_e2 = st.res_e.clone()
-        res_e2[torch.arange(B, device=dev), i_star] = True
-        res_e2 = torch.where(act[:, None], res_e2, st.res_e)
+        # mark the popped slot expanded (an elementwise compare, so the hop
+        # copies nothing from the host and can be captured in a CUDA graph)
+        popped = torch.arange(W, device=dev)[None, :] == i_star[:, None]
+        res_e2 = torch.where(act[:, None], st.res_e | popped, st.res_e)
         sel_ids, sel_valid = _select_candidates(di, cfg, st, act, s)
 
-    # ---- fused gather + distance evaluation (the CUDA kernel) ----
+    # ---- distance evaluation (the CUDA kernels) ----
     idc = sel_ids.clamp(0, n - 1)
-    dots, v2 = gather_norm_dot(di.vectors, idc, st.queries,
-                               scales=_gather_scales(di),
-                               backend=cfg.backend)
+    dots, v2 = _eval(di, idc, st.queries, cfg)
     if cfg.metric == "l2":
         dd = (v2 - 2.0 * dots + st.q2[:, None]).clamp(min=0.0)
     else:
@@ -646,9 +686,14 @@ def _hop_body(di: DeviceIndex, cfg: HopCfg, st: HopState) -> HopState:
     # ---- merge into the sorted fixed-width result set ----
     new_i = sel_ids.masked_fill(~sel_valid, -1)
     new_e = ~sel_valid  # invalid entries act as expanded padding
-    nres_d, nres_i, nres_e = _merge_sorted(
-        st.res_d, st.res_i, res_e2, dd, new_i, new_e, W, method=cfg.merge
-    )
+    if cfg.pipeline == "reference":
+        nres_d, nres_i, nres_e = merge_full_sort(
+            st.res_d, st.res_i, res_e2, dd, new_i, new_e, W
+        )
+    else:
+        nres_d, nres_i, nres_e = _merge_sorted(
+            st.res_d, st.res_i, res_e2, dd, new_i, new_e, W, method=cfg.merge
+        )
 
     # ---- commit only for queries that worked this hop ----
     a2 = act[:, None]
@@ -674,6 +719,105 @@ def _run_hops(di: DeviceIndex, st: HopState, cfg: HopCfg, h: int) -> HopState:
     return st
 
 
+class _GraphedChunk:
+    """``h`` hop iterations captured once as a CUDA graph and replayed.
+
+    The hop loop is host-bound (a few hundred small torch ops per hop, see
+    PERF.md), so the compaction driver replays whole chunks instead of
+    dispatching their ops one by one.  The graph reads its inputs from
+    static copies of a ``HopState`` and the index tensors' fixed addresses
+    (part of the cache key), and runs exactly ``h`` hops: a hop after every
+    query terminated changes nothing but ``t``, so the results are those of
+    the eager ``_run_hops``, which stops at the first all-inactive hop.
+
+    Capturing launches nothing and a replay goes past the kernel wrappers,
+    so neither adds to their ``LAUNCHES``; ``GRAPH_REPLAYS`` counts the
+    replays and the hops they ran.  Every graph captures into one shared
+    memory pool: the static inputs live outside it and ``run`` clones the
+    outputs before any other replay can start, so graphs may reuse each
+    other's intermediates as long as replays run one at a time on one
+    stream, as here."""
+
+    def __init__(self, di: DeviceIndex, cfg: HopCfg, st: HopState, h: int):
+        self.static = st._replace(**{
+            f: getattr(st, f).clone() for f in _STATE_TENSORS})
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, pool=_graph_pool()):
+            out = self.static
+            for _ in range(h):
+                out = _hop_body(di, cfg, out)
+        self.out = out
+        self.h = h
+
+    def run(self, st: HopState) -> HopState:
+        for f in _STATE_TENSORS:
+            getattr(self.static, f).copy_(getattr(st, f))
+        self.graph.replay()
+        GRAPH_REPLAYS["chunks"] += 1
+        GRAPH_REPLAYS["hops"] += self.h
+        # clone: the next replay overwrites the graph's outputs
+        return self.out._replace(t=st.t + self.h, **{
+            f: getattr(self.out, f).clone() for f in _STATE_TENSORS})
+
+
+_STATE_TENSORS = tuple(f for f in HopState._fields if f != "t")
+GRAPH_REPLAYS = {"chunks": 0, "hops": 0}  # replays and the hops they ran
+_GRAPH_CACHE: dict = {}  # key -> _GraphedChunk, or None once seen
+_GRAPH_CACHE_SIZE = 128
+_GRAPH_POOL = None  # the memory pool every captured chunk shares
+
+
+def _graph_pool():
+    global _GRAPH_POOL
+    if _GRAPH_POOL is None:
+        _GRAPH_POOL = torch.cuda.graph_pool_handle()
+    return _GRAPH_POOL
+
+
+def graph_cache_stats() -> dict:
+    """Captured chunks held by the cache and the device bytes their shared
+    pool has reserved (0 before the first capture)."""
+    pool = _GRAPH_POOL
+    nbytes = 0
+    if pool is not None:
+        nbytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+    return {"graphs": sum(c is not None for c in _GRAPH_CACHE.values()),
+            "pool_bytes": nbytes}
+
+
+def _graph_key(di: DeviceIndex, cfg: HopCfg, st: HopState, h: int):
+    def sig(t):
+        return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+
+    return (h, cfg, tuple(sig(t) for t in di),
+            tuple((tuple(getattr(st, f).shape), getattr(st, f).dtype)
+                  for f in _STATE_TENSORS))
+
+
+def _run_chunk(di: DeviceIndex, st: HopState, cfg: HopCfg, h: int) -> HopState:
+    """One chunk of the compaction driver: on the card, a captured CUDA
+    graph of ``h`` hops from a shape's second chunk on (the first runs
+    eagerly, which also warms every op up for the capture, and a shape
+    seen once is never captured); ``_run_hops`` elsewhere, for the seed
+    iteration and where the global cap would end the chunk early.  The
+    cache keeps the ``_GRAPH_CACHE_SIZE`` most recently used shapes."""
+    if (not st.res_i.is_cuda or st.t < 1
+            or st.t + h > cfg.max_hops + 1):
+        return _run_hops(di, st, cfg, h)
+    key = _graph_key(di, cfg, st, h)
+    if key not in _GRAPH_CACHE:
+        if len(_GRAPH_CACHE) >= _GRAPH_CACHE_SIZE:
+            del _GRAPH_CACHE[next(iter(_GRAPH_CACHE))]  # oldest first
+        _GRAPH_CACHE[key] = None
+        return _run_hops(di, st, cfg, h)
+    chunk = _GRAPH_CACHE.pop(key)  # re-insert: most recently used last
+    if chunk is None:
+        chunk = _GraphedChunk(di, cfg, st, h)
+    _GRAPH_CACHE[key] = chunk
+    return chunk.run(st)
+
+
 def _compact_rows(st: HopState, idx: torch.Tensor, act_n: int) -> HopState:
     """Gather surviving rows into the next bucket (rows >= act_n are
     padding duplicates, forced inactive)."""
@@ -695,7 +839,8 @@ def _drive_chunked(di, st: HopState, cfg: HopCfg, compact: tuple[int, int],
 
     Phase 1 runs ``compact[0]`` iterations on the full bucket; every later
     phase compacts the still-active queries into the next bucket
-    (``_bucket_ceil``) and runs ``compact[1]`` more.  Finished queries are
+    (``_bucket_ceil``) and runs ``compact[1]`` more, each chunk a replayed
+    CUDA graph on the card (``_run_chunk``).  Finished queries are
     harvested at chunk boundaries, where ``active`` is read to the host
     (the chunk-boundary sync).  ``t0`` is the state's initial iteration
     counter.  Returns host ``(ids[B, k], dists[B, k], dc[B], hops[B])``.
@@ -715,7 +860,7 @@ def _drive_chunked(di, st: HopState, cfg: HopCfg, compact: tuple[int, int],
     t_planned = t0  # upper bound on st.t, tracked host-side
     harvests = []  # (dst rows, bucket rows, result tensors), read post-loop
     while True:
-        st = _run_hops(di, st, cfg, h)
+        st = _run_chunk(di, st, cfg, h)
         t_planned += h
         act = st.active.cpu().numpy()  # the chunk-boundary sync point
         real = orig < B
@@ -771,6 +916,275 @@ def _search_chunked(di, queries, ranges, cfg: HopCfg,
     return SearchResult(*_drive_chunked(di, st, cfg, compact, B, 0))
 
 
+def _init_build_state(di: DeviceIndex, queries, ranges, eps, l_lo, l_hi,
+                      seed_i, seed_d, valid, cfg: HopCfg) -> HopState:
+    """Construction-search init: entry/landing override + carry-seeded beams.
+
+    Unlike the serving ``_init_state`` the caller supplies everything the
+    snapshot's unique-value tables would otherwise derive: the layer span
+    ``[l_lo, l_hi]`` (insertion layer up to the top, Alg. 1 line 5), the
+    host-sampled window entry ``eps`` (Alg. 1 line 7) and the Thm-3.1 carry
+    ``(seed_i, seed_d)`` — already-evaluated candidates whose distances are
+    known, so they preload the beam with no DC and no re-discovery hops.
+    Members with a non-empty carry skip the entry evaluation; the rest
+    evaluate their entry here (the hop-0 fold, hoisted out of the loop),
+    and the state starts at ``t = 1`` so ``_hop_body`` never runs its seed
+    iteration.  ``queries`` are prepared (cosine-normalised) rows."""
+    B, _ = queries.shape
+    L, n, m = di.neighbors.shape
+    W = max(cfg.width, cfg.k)
+    dev = queries.device
+    queries = queries.float()
+    q2 = (queries * queries).sum(dim=1)
+    ranges = ranges.float()
+    # carry sorted ascending by distance (stable; invalid lanes +inf), the
+    # nearest W preloading the beam — exactly the host path's preload
+    seed_i = seed_i.long()
+    sd = torch.where(seed_i >= 0, seed_d.float(), _INF)
+    sd_s, order = torch.sort(sd, dim=1, stable=True)
+    si_s = torch.gather(seed_i, 1, order)
+    S = min(seed_i.shape[1], W)
+    res_d = torch.full((B, W), _INF, device=dev)
+    res_d[:, :S] = sd_s[:, :S]
+    res_i = torch.full((B, W), -1, dtype=torch.int64, device=dev)
+    res_i[:, :S] = torch.where(torch.isfinite(sd_s[:, :S]), si_s[:, :S],
+                               torch.full_like(si_s[:, :S], -1))
+    has_seed = res_i[:, 0] >= 0
+    epc = eps.long().clamp(0, n - 1)
+    dots, v2 = _eval(di, epc[:, None], queries, cfg)
+    if cfg.metric == "l2":
+        d_ep = (v2[:, 0] - 2.0 * dots[:, 0] + q2).clamp(min=0.0)
+    else:
+        d_ep = 1.0 - dots[:, 0]
+    use_ep = valid & ~has_seed
+    res_d[:, 0] = torch.where(use_ep, d_ep, res_d[:, 0])
+    res_i[:, 0] = torch.where(use_ep, epc, res_i[:, 0])
+    res_e = res_i < 0  # valid entries unexpanded; padding reads expanded
+    v_words = ((n + 31) // 32) if cfg.visited == "bitmap" else cfg.v_words
+    vstate = torch.zeros((B, v_words + 1), dtype=torch.int64, device=dev)
+    # mark exactly the preloaded beam (kept seeds + entries), as the host
+    # does; the carry is id-deduped, so the bitmap's add is an OR
+    _visited_mark(vstate, res_i.clamp(min=0), res_i >= 0, cfg)
+    return HopState(
+        queries=queries,
+        q2=q2,
+        x=ranges[:, 0],
+        y=ranges[:, 1],
+        l_d=l_hi.long(),
+        l_min=l_lo.long(),
+        ep=epc,
+        res_d=res_d,
+        res_i=res_i,
+        res_e=res_e,
+        vstate=vstate,
+        active=valid,
+        dc=use_ep.long(),  # the entry evaluation, host-identical
+        hops=torch.zeros(B, dtype=torch.int64, device=dev),
+        t=1,  # the entry fold already happened: skip the seed hop
+    )
+
+
+def _build_search_core(di, queries, ranges, eps, l_lo, l_hi, seed_i, seed_d,
+                       valid, cfg):
+    """Init + lock-step hop loop of one construction search (every
+    per-member trajectory is row-independent).  -> device
+    ``(res_i, res_d, dc, hops)``."""
+    st = _init_build_state(di, queries, ranges, eps, l_lo, l_hi, seed_i,
+                           seed_d, valid, cfg)
+    st = _run_hops(di, st, cfg, cfg.max_hops + 1)
+    return st.res_i, st.res_d, st.dc, st.hops
+
+
+class _BuildPrep(NamedTuple):
+    """Device-ready construction-search inputs (see ``_prep_build_inputs``):
+    ``args`` is the positional tuple ``_build_search_core`` consumes after
+    ``di`` (targets, ranges, eps, lo, hi, seed ids/dists, valid)."""
+
+    di: DeviceIndex  # layer-span-sliced view
+    args: tuple
+    cfg: HopCfg
+    B: int  # real (unpadded) member count
+
+
+def _prep_build_inputs(
+    di: DeviceIndex,
+    targets: np.ndarray,
+    ranges: np.ndarray,
+    eps: np.ndarray,
+    l_lo: int,
+    l_hi: int,
+    seed_ids: np.ndarray | None,
+    seed_d: np.ndarray | None,
+    *,
+    width: int,
+    m: int,
+    o: int,
+    metric: str,
+    seed_width: int | None,
+    backend: str,
+    visited: str,
+    visited_bits: int | None,
+    visited_fp: float,
+    visited_hashes: int,
+    merge: str,
+    max_hops: int | None,
+) -> _BuildPrep:
+    """Host-side prep of one construction search: seed truncation, pow2
+    batch padding, static config, and the layer-span slice of the neighbor
+    tensor.  Per-member
+    trajectories are independent of the padded batch size."""
+    targets = np.asarray(targets, np.float32)
+    B = targets.shape[0]
+    W = int(width)
+    if max_hops is None:
+        max_hops = _default_max_hops(W)
+    C = int(seed_width) if seed_width else (
+        seed_ids.shape[1] if seed_ids is not None and seed_ids.ndim == 2 else 0
+    )
+    # the init keeps only the W nearest seeds (the host preload's S =
+    # min(C, W)); truncating host-side shrinks the device-side seed sort
+    # from the full carry width to W
+    if seed_ids is not None and seed_ids.ndim == 2 and seed_ids.shape[1] > W:
+        so = np.argsort(
+            np.where(seed_ids >= 0, seed_d, np.inf), axis=1, kind="stable"
+        )[:, :W]
+        seed_ids = np.take_along_axis(seed_ids, so, 1)
+        seed_d = np.take_along_axis(seed_d, so, 1)
+    C = max(min(C, W), 1)
+    Bp = _pow2ceil(max(B, _MIN_BUCKET))
+    si = np.full((Bp, C), -1, np.int64)
+    sdp = np.full((Bp, C), np.inf, np.float32)
+    if seed_ids is not None and seed_ids.size:
+        S = min(seed_ids.shape[1], C)
+        si[:B, :S] = seed_ids[:, :S]
+        sdp[:B, :S] = seed_d[:, :S]
+    tp = np.zeros((Bp, targets.shape[1]), np.float32)
+    tp[:B] = targets
+    rp = np.zeros((Bp, 2), np.float32)
+    rp[:B] = np.asarray(ranges, np.float32)
+    rp[B:] = (1.0, 0.0)
+    ep = np.zeros(Bp, np.int64)
+    ep[:B] = np.asarray(eps, np.int64)
+    valid = np.arange(Bp) < B
+    v_words = 0
+    if visited == "hash":
+        if visited_bits is None:
+            visited_bits = visited_filter_bits(
+                W, m, max_hops, fp=visited_fp, hashes=visited_hashes
+            )
+        else:
+            visited_bits = _pow2ceil(max(int(visited_bits), 1024))
+        v_words = visited_bits // 32
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; registered: "
+                         f"{BACKENDS}")
+    cfg = HopCfg(
+        k=W, width=W, m=m, o=o, metric=metric, max_hops=int(max_hops),
+        backend=backend, pipeline="fused", visited=visited,
+        v_words=v_words, v_hashes=int(visited_hashes), merge=merge,
+    )
+    # layer-span slicing: a search over [l_lo, l_hi] only ever gathers
+    # those layers' rows, so slice the neighbor tensor to a pow2-quantised
+    # span ending at l_hi (extra lower layers are masked by l_min) — the
+    # per-hop sort/mask width then scales with the sweep, not the full
+    # layer count
+    L_all = di.neighbors.shape[0]
+    span_q = min(_pow2ceil(int(l_hi) - int(l_lo) + 1), int(l_hi) + 1)
+    base = int(l_hi) + 1 - span_q
+    if base > 0 or span_q < L_all:
+        di = di._replace(neighbors=di.neighbors[base : int(l_hi) + 1])
+    lo = np.full(Bp, int(l_lo) - base, np.int64)
+    hi = np.full(Bp, int(l_hi) - base, np.int64)
+    dev = di.vectors.device
+
+    def _t(a):
+        return torch.from_numpy(a).to(dev)
+
+    args = (_t(tp), _t(rp), _t(ep), _t(lo), _t(hi), _t(si), _t(sdp),
+            _t(valid))
+    return _BuildPrep(di=di, args=args, cfg=cfg, B=B)
+
+
+def _finish_build_search(
+    res_i, res_d, dc, hops, B: int, deleted: set[int] | None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Device->host readback of one construction search (the one sync per
+    (micro-batch, layer) beyond the hop loop's own): strip the batch
+    padding and mask deleted ids to -1 (they stay traversable in-loop,
+    §3.7), mirroring ``search_candidates_batch``'s contract."""
+
+    def host(a):
+        return a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+
+    res_i = host(res_i)[:B].astype(np.int32)
+    res_d = host(res_d)[:B]
+    dc = host(dc)[:B].astype(np.int32)
+    hops = host(hops)[:B].astype(np.int32)
+    if deleted:
+        dead = (res_i >= 0) & np.isin(
+            res_i, np.fromiter(deleted, dtype=np.int64, count=len(deleted))
+        )
+        res_i = np.where(dead, -1, res_i)
+    return res_i, res_d, dc, hops
+
+
+def build_search(
+    di: DeviceIndex,
+    targets: np.ndarray,
+    ranges: np.ndarray,
+    eps: np.ndarray,
+    l_lo: int,
+    l_hi: int,
+    seed_ids: np.ndarray | None,
+    seed_d: np.ndarray | None,
+    *,
+    width: int,
+    m: int,
+    o: int,
+    metric: str = "l2",
+    seed_width: int | None = None,
+    deleted: set[int] | None = None,
+    backend: str = "auto",
+    visited: str = "hash",
+    visited_bits: int | None = None,
+    visited_fp: float = 0.02,
+    visited_hashes: int = 2,
+    merge: str = "auto",
+    max_hops: int | None = None,
+    compact: tuple[int, int] | None = (8, 8),
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """One micro-batch per-layer candidate search on the device pipeline —
+    the device-resident replacement for the host ``search_candidates_batch``
+    during batched builds.
+
+    ``targets`` [B, d] are prepared member vectors, ``ranges`` [B, 2] the
+    per-member layer windows, ``eps`` [B] host-sampled entries (used only by
+    members with an empty carry) and ``(seed_ids, seed_d)`` the Thm-3.1
+    carry.  ``B`` is padded to a power-of-two bucket.  ``compact`` (default
+    ``(8, 8)``) runs the hop loop as resumable chunks with ragged-batch
+    compaction between them — carry-seeded members finish in a handful of
+    hops, so harvesting them early keeps the lock-step loop from running
+    every member at the straggler's pace; ``None`` = one lock-step loop.
+    Returns host ``(res_i, res_d, dc, hops)`` with deleted ids masked to -1.
+    """
+    prep = _prep_build_inputs(
+        di, targets, ranges, eps, l_lo, l_hi, seed_ids, seed_d,
+        width=width, m=m, o=o, metric=metric, seed_width=seed_width,
+        backend=backend, visited=visited, visited_bits=visited_bits,
+        visited_fp=visited_fp, visited_hashes=visited_hashes, merge=merge,
+        max_hops=max_hops,
+    )
+    if compact is None:
+        out = _build_search_core(prep.di, *prep.args, prep.cfg)
+    else:
+        st = _init_build_state(prep.di, *prep.args, prep.cfg)
+        out = _drive_chunked(
+            prep.di, st, prep.cfg, (int(compact[0]), int(compact[1])),
+            prep.B, 1,
+        )
+    return _finish_build_search(*out, prep.B, deleted)
+
+
 def pad_queries(queries: torch.Tensor, ranges: torch.Tensor):
     """Pad a batch up to its power-of-two bucket (at least 8 rows) with zero
     queries and an inverted (empty) range [1, 0], so pad rows are inactive
@@ -806,12 +1220,7 @@ def hop_cfg(
     """Resolve user-facing serving knobs into the static ``HopCfg``: beam
     width floored at k, the default global hop budget, hash filter sizing
     (budget-derived when ``visited_bits`` is None, pow2 floor otherwise)."""
-    if pipeline == "reference":
-        raise NotImplementedError(
-            "pipeline='reference' (the pre-refactor hop with the batched_dot "
-            "kernel) is not ported yet: ROADMAP A9"
-        )
-    if pipeline != "fused":
+    if pipeline not in PIPELINES:
         raise ValueError(f"unknown pipeline {pipeline!r}")
     if visited not in ("bitmap", "hash"):
         raise ValueError(f"unknown visited filter {visited!r}")
@@ -834,8 +1243,8 @@ def hop_cfg(
         v_words = visited_bits // 32
     return HopCfg(
         k=k, width=W, m=m, o=o, metric=metric, max_hops=int(max_hops),
-        backend=backend, visited=visited, v_words=v_words,
-        v_hashes=int(visited_hashes), merge=merge,
+        backend=backend, pipeline=pipeline, visited=visited,
+        v_words=v_words, v_hashes=int(visited_hashes), merge=merge,
     )
 
 
@@ -860,8 +1269,16 @@ def device_search(
     compact: tuple[int, int] | None = None,
 ) -> SearchResult:
     """Batched device search on the device holding ``di``; see the module
-    docstring for the ``visited``/``compact``/``merge`` semantics.
-    Returns host arrays."""
+    docstring for the ``pipeline``/``visited``/``compact``/``merge``
+    semantics.  Returns host arrays."""
+    if pipeline == "reference" and di.vectors.dtype != torch.float32:
+        # the oracle pipeline materializes di.vectors [B, K, d] and reads
+        # di.sq_norms directly — it has no dequant stage by design (f32 is
+        # the parity oracle; quantized modes are gated against it instead)
+        raise ValueError(
+            "pipeline='reference' requires an f32 vector slab; quantized "
+            f"snapshots (dtype {di.vectors.dtype}) serve via pipeline='fused'"
+        )
     cfg = hop_cfg(
         k=k, width=width, m=m, o=o, metric=metric, max_hops=max_hops,
         backend=backend, pipeline=pipeline, visited=visited,

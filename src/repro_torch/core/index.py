@@ -55,14 +55,14 @@ from .search import (
     search_candidates,
     search_candidates_batch,
 )
-from .snapshot import NeighborSlab
+from .snapshot import DeviceBuildArena, NeighborSlab
 from .store import VEC_DTYPES, BuildStats, SearchStats, VectorStore
 
 #: registered ``insert_batch`` phase-1 engines; an unknown ``backend=``
 #: raises ``ValueError`` naming these (never a silent numpy fall-through).
-#: The reference's "ops", "device" and "sharded" engines come with the
-#: device build (ROADMAP A5, A8).
-INSERT_BACKENDS = ("numpy",)
+#: The reference's "sharded" engine comes with the sharded build (ROADMAP
+#: A8).
+INSERT_BACKENDS = ("numpy", "ops", "device")
 
 _log = logging.getLogger("repro_torch.core.index")
 
@@ -93,8 +93,13 @@ class WoWIndex:
         seed: int = 0,
         compact_threshold: float | None = None,
         vec_dtype: str = "f32",
+        device=None,
     ):
         self.params = WoWParams(m, ef_construction, o, metric, seed)
+        # torch device of the build arena of the "ops"/"device" insert
+        # backends (None = the CUDA card, resolved when the arena is made;
+        # the numpy backend never touches it)
+        self.device = device
         if vec_dtype not in VEC_DTYPES:
             raise ValueError(
                 f"vec_dtype must be one of {VEC_DTYPES}, got {vec_dtype!r}"
@@ -126,9 +131,11 @@ class WoWIndex:
         self._rng = np.random.default_rng(seed)
         # persistent batched-build state (allocated once, delta-maintained —
         # no Theta(n) work inside the micro-batch loop):
-        #   _slab      host top-down neighbor slab
+        #   _slab      host top-down neighbor slab (numpy/ops backends)
+        #   _arena     device-resident frozen snapshot + delta arena
         #   _visited2d generation-stamped [B, n] visited arena (host search)
         self._slab = NeighborSlab()
+        self._arena: DeviceBuildArena | None = None
         self._visited2d = VisitedArena2D()
         # dirty-row tracking for incremental snapshot refresh
         # (take_snapshot(prev=...)): "all" forces a full rebuild; reset by
@@ -270,22 +277,35 @@ class WoWIndex:
         and anything else raises:
 
           * ``"numpy"`` (default) — host BLAS lock-step search
-            (``search_candidates_batch``) over the persistent neighbor slab.
+            (``search_candidates_batch``) over the persistent neighbor slab;
+          * ``"ops"`` — the host search with hop distance evaluation routed
+            through ``repro_torch.kernels.ops.gather_norm_dot`` (the serving
+            path's fused gather kernel dispatch) against the device vector
+            arena;
+          * ``"device"`` — the whole per-layer beam search runs through the
+            ``device_search`` hop pipeline against the device-resident
+            frozen snapshot + delta arena (``DeviceBuildArena``): carry-
+            seeded beams, hashed O(budget) visited filter, fused gather
+            kernel — the device-resident build.
 
-        The reference's "ops", "device" and "sharded" engines (the fused
-        gather kernel on the host search, the accelerator-resident build and
-        its sharded form) come with the device build, ROADMAP A5 and A8.
+        The device arena lives on ``self.device`` (the constructor's
+        ``device=``; None = the CUDA card).  The reference's ``"sharded"``
+        engine comes with the sharded build (ROADMAP A8).
 
-        The neighbor slab and visited arena are allocated once and updated
+        All backends commit identically (phase 2 is the deterministic host
+        reduction) and maintain their arenas incrementally: the neighbor
+        slab, device arena and visited arena are allocated once and updated
         with per-batch deltas / generation stamps — no Theta(n) work inside
         the micro-batch loop.
 
         Returns the new vertex ids.
         """
         if backend not in INSERT_BACKENDS:
+            hint = (" (the sharded build is not ported yet: ROADMAP A8)"
+                    if backend == "sharded" else "")
             raise ValueError(
                 f"unknown insert_batch backend {backend!r}; registered "
-                f"backends: {', '.join(INSERT_BACKENDS)}"
+                f"backends: {', '.join(INSERT_BACKENDS)}{hint}"
             )
         vectors = np.asarray(vectors, dtype=np.float32)
         if vectors.ndim == 1:
@@ -312,7 +332,7 @@ class WoWIndex:
         for s in range(0, len(attrs), batch_size):
             out.append(
                 self._insert_micro_batch(vectors[s : s + batch_size],
-                                         attrs[s : s + batch_size])
+                                         attrs[s : s + batch_size], backend)
             )
         return (np.concatenate(out) if out else np.empty(0, dtype=np.int64))
 
@@ -361,18 +381,36 @@ class WoWIndex:
         )
 
     def _insert_micro_batch(
-        self, vecs: np.ndarray, attrs_b: np.ndarray
+        self,
+        vecs: np.ndarray,
+        attrs_b: np.ndarray,
+        backend: str,
     ) -> np.ndarray:
         p = self.params
         m, o, omega_c = p.m, p.o, p.ef_construction
         B = len(attrs_b)
         if B == 0:
             return np.empty(0, dtype=np.int64)
-        # slab liveness, judged BEFORE this batch mutates anything: a slab
-        # that was in sync at batch start stays maintainable by this
-        # batch's deltas alone
+        # arena resolution, BEFORE liveness is judged: the ops/device
+        # backends own a ``DeviceBuildArena`` of the index's storage mode;
+        # a storage-mode change swaps it, and its next ``ensure`` does one
+        # amortised full upload.
+        if backend in ("ops", "device") and (
+            self._arena is None or self._arena.vec_dtype != self.vec_dtype
+        ):
+            self._arena = DeviceBuildArena(vec_dtype=self.vec_dtype,
+                                           device=self.device)
+        # mirror liveness, judged BEFORE this batch mutates anything: a
+        # mirror that was in sync at batch start stays maintainable by this
+        # batch's deltas alone (even if the other backend drives phase 1),
+        # so backend switches never force full rebuilds.
         g = self.graph
         slab_pre_ok = self._slab.arr is not None and self._slab.version == g.version
+        arena_pre_ok = (
+            self._arena is not None
+            and self._arena.neighbors is not None
+            and self._arena.version == g.version
+        )
         # ---- Lines 2-4 + 18 (attribute side), hoisted batch-wide: register
         # every value first so windows see the post-batch value set.
         vals = [float(a) for a in attrs_b]
@@ -425,11 +463,21 @@ class WoWIndex:
         u_lay_d: list[np.ndarray] = [None] * (top + 1)  # type: ignore[list-item]
         abb = np.arange(B)[:, None]
         slab_full = None
+        arena = None
+        ops_table = None
+        ops_scales = None
         if self.store.n > B:  # the pre-batch graph is non-empty
-            # the graph is frozen during phase 1; the persistent slab is
+            # the graph is frozen during phase 1; the persistent arenas are
             # brought up to date with deltas only (allocation/rebuild is
             # amortised over capacity growth, never per batch)
-            slab_full = self._slab.ensure(self.graph)
+            if backend in ("ops", "device"):
+                arena = self._arena
+                arena.ensure(self)
+                if backend == "ops":
+                    ops_table = arena.vectors  # device-resident [rows, d]
+                    ops_scales = arena.q_scales  # f32[rows] (int8) / None
+            if backend != "device":
+                slab_full = self._slab.ensure(self.graph)
             uw = 0  # used carry width: every [B, C] pass runs on [:, :uw]
             for l in range(top, -1, -1):
                 # window-filter the carry (Alg. 1 line 6, all rows at once)
@@ -482,21 +530,41 @@ class WoWIndex:
                 if need:
                     seeds_i = u_ids[need, :uw] if uw else None
                     seeds_d = u_d[need, :uw] if uw else None
-                    res_i, res_d, dcs, _, _ = search_candidates_batch(
-                        self.store,
-                        self.graph,
-                        targets[need],
-                        np.asarray(eps, dtype=np.int64),
-                        np.stack([wlo[need, l], whi[need, l]], axis=1),
-                        l_min=l,
-                        l_max=top,
-                        width=omega_c,
-                        deleted=self.deleted or None,
-                        slab_cache=slab_full,
-                        seed_ids=seeds_i,
-                        seed_d=seeds_d,
-                        visited_arena=self._visited2d,
-                    )
+                    if backend == "device":
+                        # device-resident phase 1: the hop pipeline over
+                        # the frozen snapshot + delta arena, beams seeded
+                        # with the Thm-3.1 carry
+                        res_i, res_d, dcs, _ = arena.search(
+                            targets[need],
+                            np.stack([wlo[need, l], whi[need, l]], axis=1),
+                            np.asarray(eps, dtype=np.int64),
+                            l,
+                            top,
+                            seeds_i,
+                            seeds_d,
+                            width=omega_c,
+                            seed_width=C,
+                            deleted=self.deleted or None,
+                        )
+                    else:
+                        res_i, res_d, dcs, _, _ = search_candidates_batch(
+                            self.store,
+                            self.graph,
+                            targets[need],
+                            np.asarray(eps, dtype=np.int64),
+                            np.stack([wlo[need, l], whi[need, l]], axis=1),
+                            l_min=l,
+                            l_max=top,
+                            width=omega_c,
+                            deleted=self.deleted or None,
+                            backend=backend,
+                            slab_cache=slab_full,
+                            ops_table=ops_table,
+                            ops_scales=ops_scales,
+                            seed_ids=seeds_i,
+                            seed_d=seeds_d,
+                            visited_arena=self._visited2d,
+                        )
                     self.build_stats.dc += int(dcs.sum())
                     self.build_stats.searches += len(need)
                     # merge found into the carry: id-sort dedupe keeping the
@@ -596,7 +664,7 @@ class WoWIndex:
         # terminal per-vertex prune.
         overflow: dict[tuple[int, int], list[tuple[int, float]]] = {}
         # changed (layer, vertex) rows of this commit — the delta the
-        # persistent slab / snapshot tracker consume
+        # persistent slab / device arena / snapshot tracker consume
         dirty: dict[int, list[np.ndarray]] = {}
         lay = self.graph.layers
         cnt = self.graph.counts
@@ -647,25 +715,35 @@ class WoWIndex:
                 dirty.setdefault(l, []).append(
                     np.asarray([t], dtype=np.int64)
                 )
-        # the slab is delta-maintainable if phase 1 just (re)synced it, or if
-        # it was in sync at batch start and the graph did not regrow
+        # a mirror is delta-maintainable if phase 1 just (re)synced it, or
+        # if it was in sync at batch start and the arenas did not regrow
         slab_live = slab_full is not None or (
             slab_pre_ok
             and self._slab.top == self.graph.top
             and self._slab.cap == self.graph.capacity
         )
-        self._commit_deltas(dirty, slab_live)
+        arena_live = arena is not None or (
+            arena_pre_ok
+            and self._arena.num_layers == self.graph.num_layers
+            and self._arena.cap == self.graph.capacity
+        )
+        self._commit_deltas(
+            dirty, self._arena if arena_live else None, slab_live
+        )
         return vids
 
     def _commit_deltas(
-        self, dirty: dict[int, list[np.ndarray]], slab_live: bool
+        self,
+        dirty: dict[int, list[np.ndarray]],
+        arena: DeviceBuildArena | None,
+        slab_live: bool,
     ) -> None:
         """Post-commit bookkeeping of one micro-batch: bump the graph's
         edge-version stamp (the batched commit scatters into the adjacency
         arenas directly) and propagate the changed-row set to whichever
-        persistent mirrors are live — the host neighbor slab and the
-        incremental-snapshot dirty tracker.  Everything here is O(changed
-        rows)."""
+        persistent mirrors are live — the host neighbor slab, the device
+        delta arena, and the incremental-snapshot dirty tracker.  Everything
+        here is O(changed rows)."""
         dirty_np = {
             l: np.unique(np.concatenate(parts).astype(np.int64))
             for l, parts in dirty.items()
@@ -674,6 +752,8 @@ class WoWIndex:
         self.graph.version += 1
         if slab_live:
             self._slab.apply_deltas(self.graph, dirty_np)
+        if arena is not None:
+            arena.apply_deltas(self, dirty_np)
         tr = self._snap_tracker
         if not tr["all"]:
             for l, rows in dirty_np.items():
@@ -999,7 +1079,7 @@ class WoWIndex:
         re-selected with the vectorised RNG prune.  Deleted vertices' own
         rows are rebuilt too (they remain traversable until compacted
         elsewhere).  Returns the number of rows rebuilt; O(contended rows),
-        with the changed rows propagated to the persistent neighbor slab and
+        with the changed rows propagated to the persistent build arenas and
         snapshot tracker as deltas.
         """
         if not self.deleted or self.store.n == 0:
@@ -1019,14 +1099,20 @@ class WoWIndex:
         )
         uvals.sort()
         u = len(uvals)
-        # slab liveness must be judged BEFORE this pass mutates anything:
-        # a slab already out of sync keeps its stale version and does a
+        # arena liveness must be judged BEFORE this pass mutates anything:
+        # a mirror already out of sync keeps its stale version and does a
         # full (amortised) rebuild at its next ensure instead.
         slab_ok = (
             self._slab.arr is not None
             and self._slab.version == self.graph.version
             and self._slab.top == self.graph.top
             and self._slab.cap == self.graph.capacity
+        )
+        arena_ok = (
+            self._arena is not None
+            and self._arena.version == self.graph.version
+            and self._arena.num_layers == self.graph.num_layers
+            and self._arena.cap == self.graph.capacity
         )
         rebuilt = 0
         dirty: dict[int, list[np.ndarray]] = {}
@@ -1093,7 +1179,11 @@ class WoWIndex:
             rebuilt += R
         if rebuilt:
             self.mutations += 1
-            self._commit_deltas(dirty, slab_ok)
+            self._commit_deltas(
+                dirty,
+                self._arena if arena_ok else None,
+                slab_ok,
+            )
         return rebuilt
 
     # ------------------------------------------------------------- reporting

@@ -304,9 +304,12 @@ def search_candidates_batch(
     early_stop: bool = True,
     backend: str = "numpy",
     slab_cache: np.ndarray | None = None,
+    ops_table=None,
+    ops_scales=None,
     seed_ids: np.ndarray | None = None,
     seed_d: np.ndarray | None = None,
     visited_arena: "VisitedArena2D | None" = None,
+    device=None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Lock-step batched ``SearchCandidates`` (Alg. 2) for B independent
     targets over the *live* host graph — the construction twin of the device
@@ -324,10 +327,12 @@ def search_candidates_batch(
     minor — the device pipeline's dedupe), the per-hop ``c_n <= m`` cap
     admits the best-ranked ``m+1`` survivors, and all members' admitted
     neighbors are distance-evaluated in ONE batched BLAS contraction
-    (``backend="numpy"``, via ``VectorStore.dist_block``).  The reference's
-    ``backend="ops"`` (the same search with the fused gather kernel) is
-    registered but raises ``NotImplementedError``: it comes with the device
-    build (ROADMAP A5).
+    (``backend="numpy"``, via ``VectorStore.dist_block``) or one fused
+    gather+distance kernel dispatch (``backend="ops"``, via
+    ``repro_torch.kernels.ops.gather_norm_dot`` — the serving path's
+    machinery) against ``ops_table`` (the device vector arena, with its
+    int8 ``ops_scales``), or against the store's rows uploaded to
+    ``device`` (``None`` = the CUDA card) when no table is given.
 
     Like the device path, the width-W sorted beam doubles as the candidate
     heap (entries beyond W can never be expanded by the paper's algorithm
@@ -372,22 +377,49 @@ def search_candidates_batch(
     vec_tab = store.vectors
     nrm_tab = store.sq_norms
     metric_l2 = store.metric == "l2"
+    sparse_eval = backend != "ops"
     if backend == "ops":
-        raise NotImplementedError(
-            "search_candidates_batch(backend='ops') is not ported yet; it "
-            "comes with the device build (ROADMAP A5)"
-        )
+        import torch
 
-    def eval_ids(tg_sub, q2_sub, ids_pad):
-        # inlined VectorStore.dist_block against cached q2 (one gather + one
-        # batched BLAS contraction)
-        x = vec_tab[ids_pad]
-        dots = np.einsum("bkd,bd->bk", x, tg_sub)
-        if store.metric == "l2":
-            d = nrm_tab[ids_pad] - 2.0 * dots + q2_sub[:, None]
-            np.maximum(d, 0.0, out=d)
-            return d
-        return 1.0 - dots
+        from .. import resolve_device
+        from ..kernels.ops import gather_norm_dot
+
+        # ops_table caches the device-side copy across the calls of one
+        # frozen-graph phase (a micro-batch insert runs one search per
+        # layer — re-uploading the [n, d] table each time would dominate)
+        if ops_table is not None:
+            table, scales = ops_table, ops_scales
+        else:
+            table = torch.from_numpy(
+                np.ascontiguousarray(store.vectors[:n])).to(
+                    resolve_device(device))
+            scales = None
+        tdev = table.device
+
+        def eval_ids(tg_sub, q2_sub, ids_pad):
+            dots, norms = gather_norm_dot(
+                table,
+                torch.from_numpy(np.asarray(ids_pad, np.int64)).to(tdev),
+                torch.from_numpy(np.ascontiguousarray(tg_sub)).to(tdev),
+                scales=scales,
+            )
+            dots, norms = dots.cpu().numpy(), norms.cpu().numpy()
+            if store.metric == "l2":
+                d = norms - 2.0 * dots + q2_sub[:, None]
+                return np.maximum(d, 0.0)
+            return 1.0 - dots
+    else:
+
+        def eval_ids(tg_sub, q2_sub, ids_pad):
+            # inlined VectorStore.dist_block against cached q2 (one gather +
+            # one batched BLAS contraction)
+            x = vec_tab[ids_pad]
+            dots = np.einsum("bkd,bd->bk", x, tg_sub)
+            if store.metric == "l2":
+                d = nrm_tab[ids_pad] - 2.0 * dots + q2_sub[:, None]
+                np.maximum(d, 0.0, out=d)
+                return d
+            return 1.0 - dots
 
     # ---- compacted working state (the device path's ragged-batch
     # compaction, host edition): every per-hop op runs on the active rows
@@ -582,16 +614,20 @@ def search_candidates_batch(
         ids_f = adm_ids[nb, ncol]
         varr[org[nb].astype(np.int64) * ncap + ids_f] = vcur
         # ---- one batched distance evaluation for the whole hop ----
-        # only the admitted lanes (~40% of the dense [Bc, K] block)
-        xf = vec_tab[ids_f]
-        dotf = np.einsum("nd,nd->n", xf, tg[nb])
-        if metric_l2:
-            df = nrm_tab[ids_f] - 2.0 * dotf + q2c[nb]
-            np.maximum(df, 0.0, out=df)
+        if sparse_eval:
+            # only the admitted lanes (~40% of the dense [Bc, K] block)
+            xf = vec_tab[ids_f]
+            dotf = np.einsum("nd,nd->n", xf, tg[nb])
+            if metric_l2:
+                df = nrm_tab[ids_f] - 2.0 * dotf + q2c[nb]
+                np.maximum(df, 0.0, out=df)
+            else:
+                df = 1.0 - dotf
+            dists = np.full((Bc, kmax), np.inf, dtype=np.float32)
+            dists[nb, ncol] = df
         else:
-            df = 1.0 - dotf
-        dists = np.full((Bc, kmax), np.inf, dtype=np.float32)
-        dists[nb, ncol] = df
+            dists = eval_ids(tg, q2c, adm_ids)
+            dists = np.where(mask, dists, np.inf).astype(np.float32, copy=False)
         dcc += mask.sum(axis=1)
         # ---- stable merge into the sorted width-W beam ----
         cat_d = np.concatenate([rd, dists], axis=1)

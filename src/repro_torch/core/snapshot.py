@@ -45,8 +45,15 @@ Build-path delta arena:
     (capacity/top growth — amortised) or when a mutation bypassed the delta
     protocol (detected via ``LayeredGraph.version``).
 
-The device-resident build arenas of the reference (``DeviceBuildArena``,
-``ShardedBuildArena``) come with the device build (ROADMAP A5, A8).
+  * ``DeviceBuildArena`` — the device-resident twin for
+    ``insert_batch(backend="device"|"ops")``: the vectors, norms, attrs and
+    the ``[L, rows, m]`` adjacency live on the card at pow2 row capacity,
+    uploaded in full only when stale and otherwise updated in place with
+    the batch's appended rows and the commit's changed neighbor rows
+    (``repro_torch.kernels.ops.arena_scatter*``).
+
+The reference's ``ShardedBuildArena`` (the arena replicated over a build
+mesh) comes with the sharded build, ROADMAP A8.
 """
 from __future__ import annotations
 
@@ -409,3 +416,213 @@ class NeighborSlab:
             self.stats["rows_scattered"] += int(rows.size)
         self.version = graph.version
 
+
+
+class DeviceBuildArena:
+    """Device-resident frozen snapshot + delta arena for batched builds.
+
+    Mirrors the host arenas into torch tensors once (at pow2 row capacity),
+    then absorbs each micro-batch with bounded-size in-place scatters: the
+    batch's new vectors/attrs/norms land in the pre-sized tail, and the
+    commit's changed neighbor rows are scattered into the ``[L, rows, m]``
+    adjacency — no per-batch ``np.stack`` and no per-batch O(n) host->device
+    upload.
+
+    ``vec_dtype`` != "f32" stores the vector slab quantized on device (int8
+    with a parallel f32 ``q_scales`` arena, or bf16): full uploads quantize
+    host-side, appends quantize just the new rows, and the fused gather
+    kernel dequantizes in registers.  Per-row quantization keeps
+    incremental scatters bitwise identical to a full re-quantization.
+
+    ``device=None`` is the CUDA card.
+    """
+
+    __slots__ = (
+        "vectors", "sq_norms", "attrs", "neighbors", "cap", "dim", "m", "o",
+        "metric", "num_layers", "version", "n_synced", "stats", "_dummy_u",
+        "_dummy_r", "vec_dtype", "q_scales", "device",
+    )
+
+    def __init__(self, vec_dtype: str = "f32", device=None):
+        from .. import resolve_device
+        from .store import VEC_DTYPES
+
+        if vec_dtype not in VEC_DTYPES:
+            raise ValueError(
+                f"vec_dtype must be one of {VEC_DTYPES}, got {vec_dtype!r}"
+            )
+        self.device = resolve_device(device)
+        self.vec_dtype = vec_dtype
+        self.q_scales = None  # f32[rows] per-row dequant scales (int8 only)
+        self.vectors = None
+        self.sq_norms = None
+        self.attrs = None
+        self.neighbors = None
+        self.cap = 0
+        self.dim = 0
+        self.m = 0
+        self.o = 0
+        self.metric = "l2"
+        self.num_layers = 0
+        self.version = -1
+        self.n_synced = 0
+        self.stats = {
+            "full_uploads": 0,
+            "rows_scattered": 0,
+            "rows_appended": 0,
+            "searches": 0,
+        }
+        self._dummy_u = None
+        self._dummy_r = None
+
+    def nbytes(self) -> int:
+        """Device bytes the arena holds (vectors, scales, norms, attrs,
+        adjacency)."""
+        ts = (self.vectors, self.q_scales, self.sq_norms, self.attrs,
+              self.neighbors)
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    # ------------------------------------------------------------------ sync
+    def ensure(self, index) -> None:
+        """Bring the arena up to the index's pre-batch state: full upload
+        only when stale (capacity/top growth or an untracked mutation),
+        otherwise scatter just the rows appended since the last sync."""
+        import torch
+
+        from ..kernels.ops import arena_scatter
+        from .device_search import _slab_tensor
+        from .store import quantize_rows
+
+        graph, store = index.graph, index.store
+        n = store.n
+        dev = self.device
+        if (
+            self.neighbors is None
+            or self.num_layers != graph.num_layers
+            or self.cap != graph.capacity
+            or self.version != graph.version
+        ):
+            self.cap = graph.capacity
+            self.dim = store.dim
+            self.m = graph.m
+            self.o = index.params.o
+            self.metric = index.params.metric
+            self.num_layers = graph.num_layers
+            # allocate at pow2 row capacity: pad rows carry -1 neighbors
+            # and +inf attrs, so they are unreachable in phase-1 searches
+            rows = _pow2ceil(max(self.cap, 1))
+            vec = np.zeros((rows, self.dim), np.float32)
+            vec[:n] = store.vectors[:n]
+            nrm = np.zeros(rows, np.float32)
+            nrm[:n] = store.sq_norms[:n]
+            att = np.full(rows, np.inf, np.float32)
+            att[:n] = store.attrs[:n]
+            nb = np.full((graph.num_layers, rows, graph.m), -1, np.int32)
+            nb[:, : self.cap] = np.stack(
+                [lay for lay in graph.layers], axis=0
+            )
+            # quantized modes upload the slab in storage dtype (pad rows
+            # are all-zero and quantize to 0)
+            slab, scales = quantize_rows(vec, self.vec_dtype)
+            self.vectors = _slab_tensor(slab, dev)
+            self.q_scales = (None if scales is None
+                             else torch.from_numpy(scales).to(dev))
+            self.sq_norms = torch.from_numpy(nrm).to(dev)
+            self.attrs = torch.from_numpy(att).to(dev)
+            self.neighbors = torch.from_numpy(nb).to(dev)
+            self._dummy_u = torch.zeros(1, dtype=torch.float32, device=dev)
+            self._dummy_r = torch.zeros(1, dtype=torch.int32, device=dev)
+            self.version = graph.version
+            self.n_synced = n
+            self.stats["full_uploads"] += 1
+            return
+        if n > self.n_synced:  # append the new rows into the pre-sized tail
+            ids = np.arange(self.n_synced, n, dtype=np.int64)
+            slab, scales = quantize_rows(store.vectors[ids], self.vec_dtype)
+            arena_scatter(self.vectors, ids, slab)
+            if scales is not None:
+                arena_scatter(self.q_scales, ids, scales)
+            arena_scatter(self.sq_norms, ids, store.sq_norms[ids])
+            arena_scatter(self.attrs, ids,
+                          store.attrs[ids].astype(np.float32))
+            self.stats["rows_appended"] += int(ids.size)
+            self.n_synced = n
+
+    def apply_deltas(self, index, dirty: dict[int, np.ndarray]) -> None:
+        """Scatter the commit's changed (layer, vertex) neighbor rows."""
+        from ..kernels.ops import arena_scatter_layers
+
+        graph = index.graph
+        ls, vs, rows = [], [], []
+        for l, r in dirty.items():
+            if r.size == 0:
+                continue
+            ls.append(np.full(r.size, l, dtype=np.int64))
+            vs.append(r.astype(np.int64))
+            rows.append(graph.layers[l][r])
+        if ls:
+            l_arr = np.concatenate(ls)
+            arena_scatter_layers(self.neighbors, l_arr, np.concatenate(vs),
+                                 np.concatenate(rows))
+            self.stats["rows_scattered"] += int(l_arr.size)
+        self.version = graph.version
+
+    # ---------------------------------------------------------------- search
+    def device_index(self):
+        """View the arena tensors as a ``DeviceIndex`` for the hop loop.
+        Construction searches take explicit entries/landing layers, so the
+        unique-value fields are dummies."""
+        from .device_search import DeviceIndex
+
+        return DeviceIndex(
+            vectors=self.vectors,
+            sq_norms=self.sq_norms,
+            attrs=self.attrs,
+            neighbors=self.neighbors,
+            uvals=self._dummy_u,
+            uval_rep=self._dummy_r,
+            scales=self.q_scales if self.q_scales is not None else self._dummy_u,
+        )
+
+    def search(
+        self,
+        targets: np.ndarray,
+        ranges: np.ndarray,
+        eps: np.ndarray,
+        l_lo: int,
+        l_hi: int,
+        seed_ids: np.ndarray | None,
+        seed_d: np.ndarray | None,
+        width: int,
+        seed_width: int,
+        deleted: set[int] | None = None,
+        backend: str = "auto",
+        visited: str = "hash",
+        visited_bits: int | None = None,
+    ):
+        """Run one per-layer candidate beam search of a micro-batch through
+        the device hop pipeline.  Returns ``(res_i, res_d, dc, hops)`` in
+        host numpy with deleted ids masked out (-1), mirroring
+        ``search_candidates_batch``'s contract."""
+        from .device_search import build_search
+
+        self.stats["searches"] += 1
+        return build_search(
+            self.device_index(),
+            targets,
+            ranges,
+            eps,
+            l_lo,
+            l_hi,
+            seed_ids,
+            seed_d,
+            width=width,
+            m=self.m,
+            o=self.o,
+            metric="l2" if self.metric == "l2" else "cosine",
+            seed_width=seed_width,
+            deleted=deleted,
+            backend=backend,
+            visited=visited,
+            visited_bits=visited_bits,
+        )

@@ -3,6 +3,9 @@
   gather_distance.py  fused candidate gather + dequant + query dot + squared
                       norm (WoW candidate fetch); source
                       ``repro_torch/csrc/gather_norm_dot.cu``
+  distance.py         batched query-candidate dots over gathered rows (the
+                      reference hop pipeline's distance stage); source
+                      ``repro_torch/csrc/batched_dot.cu``
 
 ``ops.py`` holds the dispatch wrappers (CUDA kernel for CUDA tensors, plain
 torch for CPU tensors); ``ref.py`` holds the plain torch versions the tests
@@ -11,4 +14,12 @@ CUDA sources with ``nvcc`` at first use and binds them with ctypes.
 """
 from . import ops, ref
 
-__all__ = ["ops", "ref"]
+__all__ = ["launch_counters", "ops", "ref"]
+
+
+def launch_counters() -> tuple:
+    """The ``LAUNCHES`` dict of every kernel wrapper (name -> launches), so
+    a run can zero them before a path and read them after it."""
+    from . import distance, gather_distance
+
+    return gather_distance.LAUNCHES, distance.LAUNCHES

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "gather_norm_dot": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    "batched_dot": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -11,8 +11,10 @@ device memory.  The source and its design note are in
 
 The wrapper checks what the kernel takes and raises on anything else,
 allocates the outputs, launches on the current stream and raises if the
-launch was refused.  ``LAUNCHES`` counts the launches, so a run can show
-that its main path went through the kernel.
+launch was refused.  ``LAUNCHES`` counts the launches it makes, so a run
+can show that its main path went through the kernel; a call under CUDA-graph
+capture only records a launch, and the graph's replays go past the wrapper
+(``core.device_search.GRAPH_REPLAYS`` counts those).
 """
 from __future__ import annotations
 
@@ -72,7 +74,9 @@ def gather_norm_dot(
                  dots.data_ptr(), v2.data_ptr(), B, K, D, n, stream)
     if err != 0:
         raise RuntimeError(f"gather_norm_dot launch failed: cudaError {err}")
-    LAUNCHES["gather_norm_dot"] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        # under CUDA-graph capture the call only records the launch
+        LAUNCHES["gather_norm_dot"] += 1
     return dots, v2
 
 

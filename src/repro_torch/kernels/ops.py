@@ -12,6 +12,7 @@ back to the plain version.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ref as _ref
@@ -30,6 +31,24 @@ def _use_kernel(backend: str, t: torch.Tensor) -> bool:
                              f"{t.device}")
         return True
     raise ValueError(f"unknown backend {backend!r}; registered: {BACKENDS}")
+
+
+def batched_dot(vecs, queries, backend: str = "auto"):
+    """out[b, k] = <vecs[b, k], queries[b]> over already-gathered rows (the
+    reference hop pipeline's distance stage)."""
+    if _use_kernel(backend, vecs):
+        from .distance import batched_dot as kern
+
+        return kern(vecs.float(), queries.float())
+    return _ref.batched_dot_ref(vecs, queries)
+
+
+def l2_distance(vecs, queries, sq_norms, backend: str = "auto"):
+    if _use_kernel(backend, vecs):
+        from .distance import l2_distance as kern
+
+        return kern(vecs.float(), queries.float(), sq_norms)
+    return _ref.l2_distance_ref(vecs, queries, sq_norms)
 
 
 def gather_dot(table, ids, queries, backend: str = "auto"):
@@ -98,3 +117,41 @@ def merge_src_indices(pos_a, pos_b, W: int, K: int, method: str = "auto"):
             W + torch.arange(K, dtype=torch.float32, device=dev))
         return srcf.long()
     raise ValueError(f"unknown writeback method {method!r}")
+
+
+def _host_rows(rows: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """Host rows -> a tensor of ``like``'s dtype on its device; a bf16
+    slab's rows arrive as their uint16 bit pattern."""
+    rows = np.ascontiguousarray(rows)
+    if rows.dtype == np.uint16:
+        t = torch.from_numpy(rows.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(rows)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def arena_scatter(dst: torch.Tensor, idx, rows) -> torch.Tensor:
+    """Delta update of a device arena, in place: ``dst[idx] = rows`` for
+    host arrays of the changed rows only (distinct ``idx``), never a
+    re-upload.  Returns ``dst``.  (The JAX version pads the index batch to
+    a pow2 bucket by repeating row 0 to bound its compiles; torch needs no
+    such padding, and duplicate targets would make the write order
+    nondeterministic on CUDA.)"""
+    idx = np.asarray(idx, np.int64)
+    if idx.shape[0] == 0:
+        return dst
+    it = torch.from_numpy(idx).to(dst.device)
+    dst.index_copy_(0, it, _host_rows(rows, dst))
+    return dst
+
+
+def arena_scatter_layers(dst: torch.Tensor, lidx, vidx, rows) -> torch.Tensor:
+    """``dst[lidx, vidx] = rows`` for a [L, cap, m] arena, in place (see
+    ``arena_scatter``; the (layer, vertex) pairs are distinct)."""
+    lidx = np.asarray(lidx, np.int64)
+    if lidx.shape[0] == 0:
+        return dst
+    lt = torch.from_numpy(lidx).to(dst.device)
+    vt = torch.from_numpy(np.asarray(vidx, np.int64)).to(dst.device)
+    dst[lt, vt] = _host_rows(rows, dst)
+    return dst

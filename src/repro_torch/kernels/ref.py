@@ -6,6 +6,20 @@ from __future__ import annotations
 import torch
 
 
+def batched_dot_ref(vecs: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """out[b, k] = <vecs[b, k, :], queries[b, :]>."""
+    return torch.einsum("bkd,bd->bk", vecs, queries)
+
+
+def l2_distance_ref(
+    vecs: torch.Tensor, queries: torch.Tensor, sq_norms: torch.Tensor
+) -> torch.Tensor:
+    """out[b, k] = ||vecs[b,k] - queries[b]||^2 via the factorised form."""
+    q2 = (queries * queries).sum(dim=-1)
+    dots = batched_dot_ref(vecs, queries)
+    return (sq_norms - 2.0 * dots + q2[:, None]).clamp(min=0.0)
+
+
 def gather_dot_ref(
     table: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor
 ) -> torch.Tensor:

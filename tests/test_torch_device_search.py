@@ -357,8 +357,9 @@ def test_compare_results_classifies():
 
 def test_unported_options_and_device_policy(served):
     _, tsnap, _, _ = served
-    with pytest.raises(NotImplementedError, match="A9"):
-        tds.hop_cfg(pipeline="reference")
+    assert tds.hop_cfg(pipeline="reference").pipeline == "reference"
+    with pytest.raises(ValueError):
+        tds.hop_cfg(pipeline="bogus")
     with pytest.raises(ValueError):
         tds.hop_cfg(visited="cuckoo")
     with pytest.raises(ValueError):

@@ -5,6 +5,7 @@ numpy in both packages, so everything here is held bitwise."""
 import ml_dtypes
 import numpy as np
 import pytest
+import torch
 
 import repro.core as rc
 from repro.core.snapshot import take_snapshot as ref_take_snapshot
@@ -166,14 +167,27 @@ def test_delete_and_compact_rows_bitwise(workload):
 
 
 def test_unported_build_backends_raise(workload):
+    """The sharded build (ROADMAP A8) and unknown engines raise before any
+    state is touched; the ops engine's default device is the card."""
     idx = tc.WoWIndex(dim=16, m=8, ef_construction=32, o=4, seed=0)
-    for backend in ("ops", "device", "sharded", "bogus"):
-        with pytest.raises(ValueError, match="registered backends: numpy"):
+    for backend in ("sharded", "bogus"):
+        with pytest.raises(ValueError,
+                           match="registered backends: numpy, ops, device"):
             idx.insert_batch(workload.vectors[:10], workload.attrs[:10],
                              backend=backend)
+    with pytest.raises(ValueError, match="ROADMAP A8"):
+        idx.insert_batch(workload.vectors[:10], workload.attrs[:10],
+                         backend="sharded")
+    assert idx.store.n == 0
     idx.insert_batch(workload.vectors[:40], workload.attrs[:40])
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="registered backends: numpy, ops"):
         search_candidates_batch(
             idx.store, idx.graph, workload.vectors[:2], np.zeros(2),
             np.asarray([[0.0, 1e9], [0.0, 1e9]]), 0, idx.graph.top, 16,
-            backend="ops")
+            backend="sharded")
+    if not torch.cuda.is_available():  # device=None means the card
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            search_candidates_batch(
+                idx.store, idx.graph, workload.vectors[:2], np.zeros(2),
+                np.asarray([[0.0, 1e9], [0.0, 1e9]]), 0, idx.graph.top, 16,
+                backend="ops")
