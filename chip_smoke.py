@@ -24,7 +24,7 @@ before the path and reads the counters just after it:
      (``compare_results``: ids, DC and hops equal, dists within 1e-5 of the
      terms, differing queries only as tie flips, at most 2%); f32
      recall@10 >= 0.90; int8 within 0.03 and bf16 within 0.01 of f32;
-  3. device build + ingest (this slice's main path) — ``serve.main`` with
+  3. device build + ingest (the second slice's path) — ``serve.main`` with
      ``--build-backend device`` builds N_DEVICE vectors (d = 128, the same
      parameters, micro-batch 128, f32) on the card, serves the 256 queries
      through pipeline {fused, reference} x visited {bitmap, hash} x compact
@@ -58,7 +58,31 @@ before the path and reads the counters just after it:
      make, not those of replayed CUDA graphs, so each traced run also
      checks that the kernel events the profiler recorded equal the
      wrappers' launches plus one per replayed hop (``GRAPH_REPLAYS``);
-  6. kernels — each kernel against its plain version on the card, with
+  6. LM serve — ``repro_torch.serve.LMServer`` serves qwen2-7b (28
+     layers, d 3,584, 28/4 heads x 128, d_ff 18,944, vocab 152,064) and
+     then rwkv6-1.6b (24 layers, d 2,048, 32 heads x 64, d_ff 7,168, vocab
+     65,536) at full width, f32, weights from ``init_params`` with a
+     generator seeded 0 (plus small noise from it on the tensors JAX
+     initialises to zero: the QKV biases; the LoRA up-projections, the
+     decay LoRA and u).  Three batches of 8 greedy requests, prompts of
+     T in {512, 1,000, 2,048} tokens, 32 decoded tokens each (max_len =
+     T + 32), each batch through the kernels (``backend="auto"``) and the
+     plain versions (``"ref"``); then ``embed`` of 8 x 64 tokens both ways.
+     Checks: ``flash_attention`` (qwen) / ``wkv6`` (rwkv) launched once a
+     layer by every kernel prefill and embed and never in decode, no kernel
+     launched by a plain run; last-position prefill logits within
+     LM_REL_TOL of max |logit|, kernel against plain; generated tokens
+     equal, or the plain run's top-2 margin at the first step that differs
+     below LM_REL_TOL * max |logit| (a near tie); the embeds within
+     LM_REL_TOL of max |embed|, or within 4x how far a one-ulp
+     perturbation of the input embeddings moves the plain embed, whichever
+     is larger (the run measures its own conditioning).  Prints each
+     batch's prefill ms (time to first token), decode ms per token and peak
+     device memory (after one warm-up request per backend), and traces one
+     T = 2,048 kernel prefill and one decode step after it, for each model
+     (device busy, idle share, each kernel's share, top device ops).  The
+     qwen weights are freed before the rwkv model is built;
+  7. kernels — each kernel against its plain version on the card, with
      tolerance rtol 1e-5 + atol 1e-5*|v|*|q|: ``gather_norm_dot`` at the
      serving shapes (B in {8, 256}, K = 17, D = 128, n = 32,768) and a
      deployment-size table (n = 2^21 x D = 128; B = 128, K = 48), in
@@ -68,8 +92,19 @@ before the path and reads the counters just after it:
      warm-up) beside the plain version's, ``torch.bmm``'s for
      ``batched_dot`` (the one PyTorch call for the same function), and the
      bound (bytes over 3.35 TB/s or flops over 67 TFLOP/s f32, whichever is
-     larger);
-  7. report — the kernels JSON line, then the ok line last.
+     larger).  ``flash_attention`` at qwen2-7b's prefill (B 8, T 2,048,
+     Hq 28, Hkv 4, D 128) in f32 and bf16, at T = 1,000 (the ragged tail),
+     at h2o-danube-3-4b's (B 1, T 8,192, Hq 32, Hkv 8, D 120, window
+     4,096) and with a q_offset (512 queries after 1,536 cached keys),
+     against ``mha_ref`` (bf16: on the inputs upcast to f32, the kernel's
+     own arithmetic) within 2e-4 (+ 2^-8 |ref| for bf16's output
+     rounding), beside ``scaled_dot_product_attention`` (``library_ms``;
+     nothing in the port calls it); bound: bytes over 3.35 TB/s or the
+     unmasked flops over 67 TFLOP/s f32 / 989 TFLOP/s bf16.  ``wkv6`` at
+     rwkv6-1.6b's prefill (B 8, H 32, N 64, T in {2,048, 1,000}) from a
+     nonzero state against ``wkv6_ref`` and ``wkv6_chunked`` within rtol
+     and atol 3e-4 (no single PyTorch call computes it);
+  8. report — the kernels JSON line, then the ok line last.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
 at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
@@ -94,11 +129,23 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TIE_FLIP_SHARE = 0.02
 N_HOST = 8192  # host-built (ops) serve phase
 N_DEVICE = 65536  # device-build phase (see the module docstring)
 N_INGEST = 4096
 QUERIES = 256
+LM_PROMPTS = (512, 1000, 2048)  # prompt lengths of the LM serve batches
+LM_BATCH = 8
+LM_DECODE = 32
+LM_EMBED = (8, 64)  # embed: queries x tokens
+LM_REL_TOL = 1e-4  # kernel vs plain, relative to max |logit| (or |embed|)
+LM_MODELS = {  # arch -> (its kernel, tensors given seeded noise: JAX's
+    #               zero inits, and the rwkv bonus u)
+    "qwen2-7b": ("flash_attention", ("attn.bq", "attn.bk", "attn.bv")),
+    "rwkv6-1.6b": ("wkv6", tuple(f"rwkv_tm.lora_b_{m}" for m in "wkvrg")
+                   + ("rwkv_tm.decay_b", "rwkv_tm.u")),
+}
 COMMON = ["--dim", "128", "--queries", str(QUERIES), "--k", "10",
           "--width", "64", "--m", "16", "--ef-construction", "64",
           "--o", "4", "--build-batch", "128", "--device", "cuda"]
@@ -465,18 +512,20 @@ def _trace(fn, name: str) -> dict:
     print(f"trace {name}: wall {wall * 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / 1e6 / wall:.4f}, "
           f"{n_ops} device ops, {dtoh} device-to-host copies")
-    kernels = {}
-    for k in ("gather_norm_dot", "batched_dot"):
+    kernels, shares = {}, {}
+    for k in read_counts():  # each kernel's event name holds its wrapper's
         t = sum(v[0] for kk, v in by_name.items() if k in kk)
         c = sum(v[1] for kk, v in by_name.items() if k in kk)
-        kernels[k] = c
+        kernels[k], shares[k] = c, t / busy
         if c:
             print(f"  {k}: {t / 1e3:.3f} ms over {c} kernel events "
                   f"({t / c:.2f} us each, {t / busy:.4f} of busy)")
     for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {t / 1e3:9.3f} ms {c:6d}x  {k[:100]}")
+    top = [(k, t / 1e3, c) for k, (t, c) in
+           sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]]
     return {"wall_s": wall, "busy_s": busy / 1e6, "ops": n_ops,
-            "dtoh": dtoh, "kernels": kernels}
+            "dtoh": dtoh, "kernels": kernels, "shares": shares, "top": top}
 
 
 def _traced_launches(fn, name: str) -> dict:
@@ -534,26 +583,196 @@ def phase_trace(out: dict) -> dict:
     return traced
 
 
-def _time_ms(fn, n_in: int) -> float:
-    """Median per-launch ms of ``fn(i)`` over 5 rounds of 20 launches."""
+def _noise(params, names, gen) -> None:
+    """Add 0.02 * N(0, 1) from ``gen`` to the tensors ``names`` (dotted
+    paths under each layer) of every layer, in place."""
+    for blk in params["blocks"]:
+        for name in names:
+            t = blk
+            for part in name.split("."):
+                t = t[part]
+            t.add_(torch.randn(t.shape, generator=gen, device=t.device),
+                   alpha=0.02)
+
+
+def _near_tie_ok(got, want, margins, tol: float):
+    """Generated tokens equal, or at each row's first differing step the
+    plain run's top-2 margin is below ``tol`` -> (ok, rows that differ)."""
+    rows = []
+    for b in range(got.shape[0]):
+        diff = (got[b] != want[b]).nonzero()[0]
+        if diff.size:
+            step = int(diff[0])
+            rows.append((b, step, float(margins[b, step])))
+    return all(m < tol for _, _, m in rows), rows
+
+
+def _embed_sensitivity(params, cfg, toks, gen) -> float:
+    """How far the plain ``embed`` moves when its input embeddings are
+    perturbed by one f32 ulp (relative 2^-23, random signs): the
+    conditioning of the pooled last-position distribution.  Kernel and
+    plain sum in other orders, so they can differ by about this much
+    whatever the kernel does; with random weights rwkv6's first positions
+    amplify such rounding."""
+    from repro_torch.models import forward
+
+    x = params["embed"][torch.as_tensor(toks, device="cuda").long()]
+    sign = torch.randint(0, 2, x.shape, device="cuda", generator=gen) * 2 - 1
+    table = params["embed"].float()
+    embs = []
+    with torch.inference_mode():
+        for inp in (x, x * (1.0 + 2.0 ** -23 * sign)):
+            logits, _ = forward(params, cfg, inp, mode="train",
+                                backend="ref", compute_dtype=torch.float32,
+                                last_only=True)
+            embs.append(torch.softmax(logits[:, -1].float(), -1) @ table)
+    return float((embs[0] - embs[1]).abs().max())
+
+
+def phase_lm(arch: str) -> dict:
+    """Serve ``arch`` at full width through the kernels and the plain
+    versions (see the module docstring, phase 6)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, param_count
+    from repro_torch.serve import LMServer
+
+    kernel, noised = LM_MODELS[arch]
+    cfg = get_arch(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device="cuda")
+    _noise(params, noised, gen)
+    torch.cuda.synchronize()
+    n_params = param_count(params)
+    print(f"{arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{n_params} parameters ({n_params * 4} bytes f32), built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    for backend in ("auto", "ref"):  # first-call costs out of the timings
+        LMServer(cfg, params, max_len=96, device="cuda",
+                 backend=backend).generate(
+            rng.integers(0, cfg.vocab_size, (LM_BATCH, 64)).astype(np.int32),
+            steps=2)
+    batches, launches = [], 0
+    for T in LM_PROMPTS:
+        prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, T)).astype(
+            np.int32)
+        runs = {}
+        for backend in ("auto", "ref"):
+            srv = LMServer(cfg, params, max_len=T + LM_DECODE,
+                           device="cuda", backend=backend)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            toks = srv.generate(prompts, steps=LM_DECODE)
+            counts = read_counts()
+            runs[backend] = (toks, dict(srv.last_run), counts,
+                             torch.cuda.max_memory_allocated())
+        (tk, rk, ck, mk), (tp, rp, cp, mp) = runs["auto"], runs["ref"]
+        tag = f"{arch} T={T}"
+        want = {k: (cfg.num_layers if k == kernel else 0) for k in ck}
+        if ck != want or any(cp.values()):
+            fail(f"{tag}: launches {ck} (expected {want}), plain {cp}")
+        launches += ck[kernel]
+        scale = float(rp["prefill_logits"].abs().max())
+        err = float((rk["prefill_logits"] - rp["prefill_logits"]).abs().max())
+        if not err <= LM_REL_TOL * scale:
+            fail(f"{tag}: prefill logits differ by {err} (max |logit| "
+                 f"{scale})")
+        ok, rows = _near_tie_ok(tk, tp, rp["margins"], LM_REL_TOL * scale)
+        if not ok:
+            fail(f"{tag}: tokens differ beyond a near tie {rows}")
+        b = {"T": T, "logit_err": err, "max_logit": scale,
+             "differing_rows": rows}
+        for name, r, peak in (("kernel", rk, mk), ("plain", rp, mp)):
+            b[name] = {"prefill_ms": r["prefill_s"] * 1e3,
+                       "decode_ms_per_token": r["decode_s"] * 1e3
+                       / r["decode_steps"], "peak_bytes": peak}
+        batches.append(b)
+        print(f"ok {tag}: prefill {b['kernel']['prefill_ms']:.1f} ms "
+              f"(plain {b['plain']['prefill_ms']:.1f}), decode "
+              f"{b['kernel']['decode_ms_per_token']:.2f} ms/token (plain "
+              f"{b['plain']['decode_ms_per_token']:.2f}), peak "
+              f"{mk / 2**30:.2f} GiB (plain {mp / 2**30:.2f}); logits err "
+              f"{err:.3e} of max {scale:.3f}; {len(rows)} of {LM_BATCH} "
+              f"rows differ (first step, plain margin: {rows}); launches "
+              f"{ck}")
+
+    toks = rng.integers(0, cfg.vocab_size, LM_EMBED).astype(np.int32)
+    embeds = {}
+    for backend in ("auto", "ref"):
+        srv = LMServer(cfg, params, device="cuda", backend=backend)
+        reset_counts()
+        embeds[backend] = (srv.embed(toks), read_counts())
+    (ek, ck), (ep, cp) = embeds["auto"], embeds["ref"]
+    if ck[kernel] != cfg.num_layers or any(cp.values()):
+        fail(f"{arch} embed: launches {ck}, plain {cp}")
+    launches += ck[kernel]
+    e_err = float(np.abs(ek - ep).max())
+    e_scale = float(np.abs(ep).max())
+    sens = _embed_sensitivity(params, cfg, toks, gen)
+    e_tol = max(LM_REL_TOL * e_scale, 4.0 * sens)
+    if not (np.isfinite(ek).all() and e_err <= e_tol):
+        fail(f"{arch} embed: differs by {e_err} > {e_tol} (max |embed| "
+             f"{e_scale}, one-ulp input sensitivity {sens})")
+    print(f"ok {arch} embed {LM_EMBED}: err {e_err:.3e} of max "
+          f"{e_scale:.4e} (tolerance {e_tol:.3e}; a one-ulp perturbation "
+          f"of the input embeddings moves the plain embed by {sens:.3e}), "
+          f"launches {ck}")
+
+    srv = LMServer(cfg, params, max_len=LM_PROMPTS[-1] + LM_DECODE,
+                   device="cuda", backend="auto")
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPTS[-1])).astype(np.int32),
+        device="cuda")
+    srv._prefill(tokens)  # warm
+    trace = _trace(lambda: srv._prefill(tokens), f"lm_{arch}_prefill")
+    if trace["kernels"][kernel] != cfg.num_layers:
+        fail(f"{arch} prefill trace: {trace['kernels']} kernel events, "
+             f"expected {cfg.num_layers} of {kernel}")
+    logits, caches = srv._prefill(tokens)
+    tok = torch.argmax(logits.float(), dim=-1)[:, None].to(torch.int32)
+    pos = torch.full((LM_BATCH,), LM_PROMPTS[-1], dtype=torch.int32,
+                     device="cuda")
+    srv._decode(tok, pos, caches)  # warm (rewrites the same cache slot)
+    decode_trace = _trace(lambda: srv._decode(tok, pos, caches),
+                          f"lm_{arch}_decode")
+    if any(decode_trace["kernels"].values()):
+        fail(f"{arch} decode trace: kernels {decode_trace['kernels']}")
+    del logits, caches
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "kernel": kernel, "launches": launches,
+            "batches": batches, "embed_err": e_err, "trace": trace,
+            "decode_trace": decode_trace}
+
+
+def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
+    """Median per-launch ms of ``fn(i)`` over ``rounds`` rounds of ``reps``
+    launches, after 3 warm-up launches."""
     for i in range(3):
         fn(i % n_in)
-    rounds = []
-    for _ in range(5):
+    times = []
+    for _ in range(rounds):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for i in range(20):
+        for i in range(reps):
             fn(i % n_in)
         end.record()
         torch.cuda.synchronize()
-        rounds.append(start.elapsed_time(end) / 20)
-    return statistics.median(rounds)
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
-def _bound(nbytes: int, flops: int) -> tuple[float, str]:
+def _bound(nbytes: int, flops: int,
+           peak: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -651,6 +870,132 @@ def kernels_batched_dot(gen) -> dict:
     return {"cases": cases, "max_abs_err": max_err}
 
 
+def _visible_keys(Tq: int, Tk: int, window, q_offset: int) -> int:
+    """Sum over query rows of the keys the causal mask (and the window)
+    lets each see."""
+    import numpy as np
+
+    pos = np.arange(Tq, dtype=np.int64) + q_offset
+    hi = np.minimum(pos, Tk - 1)
+    lo = np.maximum(0, pos - window + 1) if window else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def kernels_flash(gen) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import mha_ref
+
+    cases = [  # (name, B, Tq, Tk, Hq, Hkv, D, window, q_offset, dtype)
+        ("qwen2-7b prefill", 8, 2048, 2048, 28, 4, 128, None, 0,
+         torch.float32),
+        ("qwen2-7b prefill bf16", 8, 2048, 2048, 28, 4, 128, None, 0,
+         torch.bfloat16),
+        ("qwen2-7b T=1000", 8, 1000, 1000, 28, 4, 128, None, 0,
+         torch.float32),
+        ("h2o-danube-3-4b", 1, 8192, 8192, 32, 8, 120, 4096, 0,
+         torch.float32),
+        ("q_offset", 8, 512, 2048, 28, 4, 128, None, 1536, torch.float32),
+    ]
+    out, max_err = [], 0.0
+    for name, B, Tq, Tk, Hq, Hkv, D, window, q_offset, dt in cases:
+        q = torch.randn(B, Tq, Hq, D, device="cuda", generator=gen).to(dt)
+        k = torch.randn(B, Tk, Hkv, D, device="cuda", generator=gen).to(dt)
+        v = torch.randn(B, Tk, Hkv, D, device="cuda", generator=gen).to(dt)
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        got = flash_attention(q, k, v, **kw)
+        # the plain version on the inputs upcast (bf16: the kernel's own
+        # f32 arithmetic), through the dispatch's blocking policy
+        exp = ops.flash_attention(q.float(), k.float(), v.float(),
+                                  backend="ref", **kw)
+        torch.cuda.synchronize()
+        rtol = 2.0 ** -8 if dt == torch.bfloat16 else 0.0
+        err = (got.float() - exp).abs()
+        case_err = float(err.max())
+        if not bool((err <= 2e-4 + rtol * exp.abs()).all()):
+            fail(f"flash_attention {name}: max err {case_err}")
+        if dt == torch.float32:  # bf16's error is its output rounding
+            max_err = max(max_err, case_err)
+        del exp, err
+        ms = _time_ms(lambda i: flash_attention(q, k, v, **kw), 1, reps=5)
+        plain_ms = _time_ms(lambda i: ops.flash_attention(
+            q, k, v, backend="ref", **kw), 1, reps=2, rounds=3)
+        qpos = torch.arange(Tq, device="cuda")[:, None] + q_offset
+        kpos = torch.arange(Tk, device="cuda")[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        sdpa = (dict(is_causal=True) if window is None and q_offset == 0
+                else dict(attn_mask=mask))
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib_ms = _time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **sdpa), 1, reps=5)
+        flops = 4 * B * Hq * D * _visible_keys(Tq, Tk, window, q_offset)
+        nbytes = (2 * B * Tq * Hq + 2 * B * Tk * Hkv) * D * q.element_size()
+        bound_ms, bound_by = _bound(
+            nbytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        out.append({"case": name, "B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq,
+                    "Hkv": Hkv, "D": D, "window": window,
+                    "q_offset": q_offset, "dtype": str(dt).split(".")[-1],
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "max_abs_err": case_err})
+        print(f"flash_attention {name} (B {B}, Tq {Tq}, Tk {Tk}, {Hq}/{Hkv} "
+              f"heads x {D}, window {window}, q_offset {q_offset}, {dt}): "
+              f"{ms:.3f} ms (plain {plain_ms:.3f}, sdpa {lib_ms:.3f}), bound "
+              f"{bound_ms:.3f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes} B), max err {case_err:.3e}")
+        del q, k, v, got, mask, qt, kt, vt
+        torch.cuda.empty_cache()
+    return {"cases": out, "max_abs_err": max_err}
+
+
+def kernels_wkv6(gen) -> dict:
+    from repro_torch.kernels.ref import wkv6_chunked, wkv6_ref
+    from repro_torch.kernels.rwkv6 import wkv6
+
+    out, max_err = [], 0.0
+    for T in (2048, 1000):
+        B, H, N = 8, 32, 64
+        r, k, v = (torch.randn(B, H, T, N, device="cuda", generator=gen)
+                   for _ in range(3))
+        # decays spread over (0.05, 0.999), as the model's exp(-exp(.)) gives
+        w = 0.05 + 0.949 * torch.rand(B, H, T, N, device="cuda",
+                                      generator=gen)
+        u = torch.randn(H, N, device="cuda", generator=gen)
+        s0 = torch.randn(B, H, N, N, device="cuda", generator=gen)
+        y, s = wkv6(r, k, v, w, u, state=s0)
+        for plain in (wkv6_ref, lambda *a, **kw: wkv6_chunked(*a, **kw,
+                                                              chunk=32)):
+            ey, es = plain(r, k, v, w, u, state=s0)
+            torch.cuda.synchronize()
+            for got, exp in ((y, ey), (s, es)):
+                err = (got - exp).abs()
+                if not bool((err <= 3e-4 + 3e-4 * exp.abs()).all()):
+                    fail(f"wkv6 T={T}: max err {float(err.max())}")
+                max_err = max(max_err, float(err.max()))
+        ms = _time_ms(lambda i: wkv6(r, k, v, w, u, state=s0), 1)
+        plain_ms = _time_ms(lambda i: wkv6_ref(r, k, v, w, u, state=s0), 1,
+                            reps=1, rounds=3)
+        chunked_ms = _time_ms(lambda i: wkv6_chunked(
+            r, k, v, w, u, state=s0, chunk=32), 1, reps=2, rounds=3)
+        nbytes = 5 * B * H * T * N * 4 + 2 * B * H * N * N * 4
+        bound_ms, bound_by = _bound(nbytes, 4 * B * H * T * N * N)
+        out.append({"B": B, "H": H, "T": T, "N": N, "ms": ms,
+                    "plain_ms": plain_ms, "chunked_ms": chunked_ms,
+                    "library_ms": None, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+        print(f"wkv6 B {B} H {H} T {T} N {N}: {ms:.3f} ms (plain step "
+              f"{plain_ms:.3f}, chunked {chunked_ms:.3f}), bound "
+              f"{bound_ms:.3f} ms ({bound_by}, {nbytes} B), max err "
+              f"{max_err:.3e}")
+        del r, k, v, w, u, s0, y, s
+        torch.cuda.empty_cache()
+    return {"cases": out, "max_abs_err": max_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -664,16 +1009,28 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t_start = time.time()
-    phase_build()
-    host = phase_host_serve()
-    device = phase_device_build()
-    phase_int8_build(host["f32_recall"])
-    traced = phase_trace(device["out"])
+    laps = {}
+
+    def lap(name: str, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        laps[name] = round(time.time() - t0, 1)
+        return out
+
+    lap("build", phase_build)
+    host = lap("host_serve", phase_host_serve)
+    device = lap("device_build", phase_device_build)
+    lap("int8_build", phase_int8_build, host["f32_recall"])
+    traced = lap("trace", phase_trace, device["out"])
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions'
     torch.backends.cudnn.allow_tf32 = False  # einsums stay full f32
+    lm = {arch: lap(arch, phase_lm, arch) for arch in LM_MODELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    gnd = kernels_gather(gen)
-    bd = kernels_batched_dot(gen)
+    gnd = lap("kernels_gather", kernels_gather, gen)
+    bd = lap("kernels_batched_dot", kernels_batched_dot, gen)
+    fa = lap("kernels_flash", kernels_flash, gen)
+    wk = lap("kernels_wkv6", kernels_wkv6, gen)
+    print(f"phase seconds: {laps}")
     g_main = next(c for c in gnd["cases"] if c["vec_dtype"] == "f32"
                   and c["B"] == 256 and c["K"] == 17)
     b_main = next(c for c in bd["cases"] if c["B"] == 256 and c["K"] == 17
@@ -696,6 +1053,23 @@ def main() -> int:
          "max_abs_err": bd["max_abs_err"],
          **{k: b_main[k] for k in keys},
          "shape": {k: b_main[k] for k in ("B", "K", "D")}},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:90",
+         "launches": lm["qwen2-7b"]["launches"],
+         "traced": lm["qwen2-7b"]["trace"]["shares"],
+         "max_abs_err": fa["max_abs_err"],
+         **{k: fa["cases"][0][k] for k in keys},
+         "shape": {k: fa["cases"][0][k] for k in ("B", "Tq", "Hq", "Hkv",
+                                                   "D", "dtype")}},
+        {"name": "wkv6", "route": "cuda",
+         "source": "src/repro_torch/csrc/wkv6.cu",
+         "replaces": "src/repro/kernels/rwkv6.py:83",
+         "launches": lm["rwkv6-1.6b"]["launches"],
+         "traced": lm["rwkv6-1.6b"]["trace"]["shares"],
+         "max_abs_err": wk["max_abs_err"],
+         **{k: wk["cases"][0][k] for k in keys},
+         "shape": {k: wk["cases"][0][k] for k in ("B", "H", "T", "N")}},
     ]}
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f}s")
     print(json.dumps(report))

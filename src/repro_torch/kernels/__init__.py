@@ -6,6 +6,11 @@
   distance.py         batched query-candidate dots over gathered rows (the
                       reference hop pipeline's distance stage); source
                       ``repro_torch/csrc/batched_dot.cu``
+  flash_attention.py  causal GQA attention with an online softmax (the LM's
+                      prefill and training attention); source
+                      ``repro_torch/csrc/flash_attention.cu``
+  rwkv6.py            the RWKV-6 WKV recurrence (the RWKV time mix);
+                      source ``repro_torch/csrc/wkv6.cu``
 
 ``ops.py`` holds the dispatch wrappers (CUDA kernel for CUDA tensors, plain
 torch for CPU tensors); ``ref.py`` holds the plain torch versions the tests
@@ -20,6 +25,7 @@ __all__ = ["launch_counters", "ops", "ref"]
 def launch_counters() -> tuple:
     """The ``LAUNCHES`` dict of every kernel wrapper (name -> launches), so
     a run can zero them before a path and read them after it."""
-    from . import distance, gather_distance
+    from . import distance, flash_attention, gather_distance, rwkv6
 
-    return gather_distance.LAUNCHES, distance.LAUNCHES
+    return (gather_distance.LAUNCHES, distance.LAUNCHES,
+            flash_attention.LAUNCHES, rwkv6.LAUNCHES)

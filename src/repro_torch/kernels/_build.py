@@ -29,10 +29,12 @@ NVCC_FLAGS = (
 
 # ctypes signature of each source's extern "C" entry point (pointers and
 # the stream as c_void_p, or ctypes would cut them to 32 bits)
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "gather_norm_dot": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
     "batched_dot": (_P, _P, _P, _I, _I, _I, _P),
+    "flash_attention": (_P, _P, _P, _P, *(_I,) * 7, _F, _I, _I, _I, _P),
+    "wkv6": (*(_P,) * 8, *(_I,) * 5, _P),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

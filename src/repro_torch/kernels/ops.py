@@ -72,6 +72,43 @@ def gather_norm_dot(table, ids, queries, scales=None, backend: str = "auto"):
     return _ref.gather_norm_dot_ref(table, ids, queries, scales=scales)
 
 
+def flash_attention(q, k, v, causal: bool = True, window=None,
+                    q_offset: int = 0, backend: str = "auto",
+                    block_q: int | None = None):
+    """Causal GQA attention, q [B, Tq, Hq, D], k/v [B, Tk, Hkv, D].
+
+    The plain version evaluates query rows in blocks of ``block_q`` (by
+    default ``TUNING.attn_block_q`` once Tq reaches
+    ``TUNING.attn_blocked_min_t``, as the JAX wrapper does); the kernel
+    ignores ``block_q``."""
+    if _use_kernel(backend, q):
+        from .flash_attention import flash_attention as kern
+
+        return kern(q.contiguous(), k.contiguous(), v.contiguous(),
+                    causal=causal, window=window, q_offset=q_offset)
+    if block_q is None:
+        from ..models.tuning import TUNING
+
+        if q.shape[1] >= TUNING.attn_blocked_min_t:
+            block_q = TUNING.attn_block_q
+    return _ref.mha_ref(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset, block_q=block_q)
+
+
+def wkv6(r, k, v, w, u, state=None, backend: str = "auto"):
+    """The RWKV-6 recurrence over r/k/v/w [B, H, T, N] -> (y in r's type,
+    final state f32).  The plain version is the step recurrence
+    ``wkv6_ref``, as in the JAX wrapper (the model's own ``backend="ref"``
+    branch calls ``wkv6_chunked`` instead)."""
+    if _use_kernel(backend, r):
+        from .rwkv6 import wkv6 as kern
+
+        return kern(r.contiguous(), k.contiguous(), v.contiguous(),
+                    w.float().contiguous(), u.float().contiguous(),
+                    None if state is None else state.float().contiguous())
+    return _ref.wkv6_ref(r, k, v, w, u, state=state)
+
+
 def merge_src_indices(pos_a, pos_b, W: int, K: int, method: str = "auto"):
     """Source-index writeback of the counting merge (``_merge_sorted``).
 

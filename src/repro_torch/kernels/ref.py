@@ -53,3 +53,133 @@ def gather_norm_dot_ref(
         torch.einsum("bkd,bd->bk", vecs, queries),
         torch.einsum("bkd,bkd->bk", vecs, vecs),
     )
+
+
+def mha_ref(
+    q: torch.Tensor,  # [B, Tq, Hq, D]
+    k: torch.Tensor,  # [B, Tk, Hkv, D]
+    v: torch.Tensor,  # [B, Tk, Hkv, D]
+    causal: bool = True,
+    window: int | None = None,
+    q_offset: int = 0,
+    block_q: int | None = None,
+) -> torch.Tensor:
+    """GQA attention with optional causal/sliding-window masking (the plain
+    version of ``flash_attention``).
+
+    ``q_offset``: absolute position of q[0] relative to k[0].
+    ``block_q``: evaluate query rows in blocks of ``block_q`` against the
+    key span their mask can reach (``[k_lo, k_hi)``, cut at multiples of
+    ``block_q`` below), so the [Tq, Tk] score matrix never materialises
+    whole; Tq must be a multiple of it.  Logits are divided by sqrt(D) in
+    q's type, the softmax runs in f32 and its probabilities return to q's
+    type, as in ``repro.kernels.ref.mha_ref``.  A row with no visible key
+    gives NaN there and here (the kernel gives 0).
+    """
+    B, Tq, Hq, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    root_d = torch.sqrt(torch.tensor(float(D))).to(q.dtype).item()
+
+    def span(q_blk, q_lo: int, k_lo: int, k_hi: int) -> torch.Tensor:
+        ks, vs = k[:, k_lo:k_hi], v[:, k_lo:k_hi]
+        tq = q_blk.shape[1]
+        qg = q_blk.reshape(B, tq, Hkv, group, D)
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, ks) / root_d
+        qpos = (q_lo + q_offset
+                + torch.arange(tq, device=q.device)[:, None])
+        kpos = k_lo + torch.arange(k_hi - k_lo, device=q.device)[None, :]
+        mask = torch.ones((tq, k_hi - k_lo), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        logits.masked_fill_(~mask, float("-inf"))
+        probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vs)
+        return out.reshape(B, tq, Hq, D)
+
+    if block_q is None or block_q >= Tq:
+        return span(q, 0, 0, Tk)
+    if Tq % block_q:
+        raise ValueError(f"Tq={Tq} is no multiple of block_q={block_q}")
+    outs = []
+    for q_lo in range(0, Tq, block_q):
+        k_hi = min(q_lo + block_q + q_offset, Tk) if causal else Tk
+        k_lo = 0
+        if window is not None:
+            k_lo = max(0, (q_lo + q_offset - window + 1) // block_q * block_q)
+        outs.append(span(q[:, q_lo:q_lo + block_q], q_lo, k_lo, k_hi))
+    return torch.cat(outs, dim=1)
+
+
+def wkv6_ref(
+    r: torch.Tensor,  # [B, H, T, N]
+    k: torch.Tensor,  # [B, H, T, N]
+    v: torch.Tensor,  # [B, H, T, N]
+    w: torch.Tensor,  # [B, H, T, N] decay in (0, 1)
+    u: torch.Tensor,  # [H, N] bonus
+    state: torch.Tensor | None = None,  # [B, H, N, N]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 recurrence, step by step (the plain version of ``wkv6``).
+
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    y_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
+    """
+    B, H, T, N = r.shape
+    S = (torch.zeros((B, H, N, N), dtype=r.dtype, device=r.device)
+         if state is None else state)
+    ys = []
+    for t in range(T):
+        rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], w[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]  # [B, H, N, N]
+        ys.append(torch.einsum("bhn,bhnm->bhm", rt,
+                               S + u[None, :, :, None] * kv))
+        S = wt[..., :, None] * S + kv
+    return torch.stack(ys, dim=2), S
+
+
+def wkv6_chunked(
+    r: torch.Tensor,  # [B, H, T, N]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    u: torch.Tensor,  # [H, N]
+    state: torch.Tensor | None = None,
+    chunk: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunk-parallel WKV-6: the closed form of ``repro.kernels.ref.
+    wkv6_chunked`` (exponents <= 0 everywhere).  The chunk shrinks until it
+    divides T.  Returns y in r's type and the state in f32."""
+    B, H, T, N = r.shape
+    C = min(chunk, T)
+    while T % C:  # largest chunk size dividing T
+        C -= 1
+    nc = T // C
+    S = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if state is None else state)
+    rc, kc, vc, wc = (a.float().reshape(B, H, nc, C, N) for a in (r, k, v, w))
+    idx = torch.arange(C, device=r.device)
+    mask = (idx[:, None] > idx[None, :])[:, :, None]  # [C, C, 1]
+    uf = u.float()[None, :, None, :]
+    ys = []
+    for c in range(nc):
+        rt, kt, vt, wt = (a[:, :, c] for a in (rc, kc, vc, wc))  # [B,H,C,N]
+        lw = torch.log(wt)
+        L = torch.cumsum(lw, dim=2)
+        L_prev = L - lw
+        y_state = torch.einsum("bhcn,bhnm->bhcm", rt * torch.exp(L_prev), S)
+        expo = L_prev[..., :, None, :] - L[..., None, :, :]  # [B,H,C,C,N]
+        term = torch.where(mask, torch.exp(torch.clamp(expo, max=0.0)),
+                           torch.zeros((), device=r.device))
+        scores = (rt[..., :, None, :] * kt[..., None, :, :] * term).sum(-1)
+        y_intra = torch.einsum("bhts,bhsn->bhtn", scores, vt)
+        y_diag = (rt * uf * kt).sum(-1, keepdim=True) * vt
+        L_end = L[..., -1:, :]  # [B, H, 1, N]
+        k_dec = kt * torch.exp(L_end - L)
+        S = torch.exp(L_end[..., 0, :])[..., :, None] * S + torch.einsum(
+            "bhcn,bhcm->bhnm", k_dec, vt)
+        ys.append(y_state + y_intra + y_diag)
+    y = torch.stack(ys, dim=2).reshape(B, H, T, N)
+    return y.to(r.dtype), S

@@ -22,6 +22,8 @@ def test_entry_point_loads_no_jax():
         "import sys\n"
         "import repro_torch.launch.serve, repro_torch.core.device_search\n"
         "import repro_torch.kernels.gather_distance, repro_torch.kernels._build\n"
+        "import repro_torch.serve.engine, repro_torch.models.model\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

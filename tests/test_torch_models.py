@@ -1,0 +1,142 @@
+"""repro_torch LM models vs the JAX package, reduced archs on the CPU.
+
+Every JAX parameter gets seeded numpy noise (the zero-initialised QKV
+biases, LoRA up-projections and decay LoRA too, so every path they gate
+does work); ``from_jax_params`` builds the port's model from the same
+values.  The port's train, prefill and decode logits are held against
+JAX's ``forward`` with ``backend="pallas"`` (the Pallas kernels in
+interpret mode) and ``backend="ref"``; the port runs ``backend="auto"``
+(CPU tensors: the plain versions) and ``"ref"`` respectively.
+
+Tolerance on the logits (max |logit| ~3.5 here): 2e-5 absolute for the
+attention archs, where both sides do the same f32 arithmetic in another
+order (measured <= 3.4e-6); 3e-4 for rwkv6, the wkv6 tolerance of the JAX
+package's own kernel tests, since against the Pallas kernel the port's
+plain path runs the step recurrence and JAX the chunked closed form
+(measured 1.5e-4; 5e-5 chunked against chunked).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jax_arch
+from repro.models import forward as jax_forward
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_params as jax_init_params
+from repro.models.layers import split_tree
+from repro_torch.configs import all_archs, get_arch
+from repro_torch.models import (
+    forward, from_jax_params, init_cache, init_params, param_count,
+)
+
+SUPPORTED = ["qwen1.5-4b", "qwen2-7b", "qwen3-14b", "h2o-danube-3-4b",
+             "rwkv6-1.6b", "chameleon-34b", "musicgen-large"]
+LATER = ["deepseek-moe-16b", "jamba-1.5-large-398b", "qwen2-moe-a2.7b"]
+
+
+def noisy_values(cfg, seed: int = 0) -> dict:
+    """The JAX init's value tree with seeded noise on every leaf."""
+    rng = np.random.default_rng(seed)
+    values, _ = split_tree(jax_init_params(jax.random.PRNGKey(seed), cfg))
+    return jax.tree.map(
+        lambda a: np.asarray(a, np.float32)
+        + 0.05 * rng.standard_normal(a.shape).astype(np.float32), values)
+
+
+def inputs(cfg, B: int, T: int, seed: int = 1) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "tokens":
+        return rng.integers(0, cfg.vocab_size, (B, T)).astype(np.int32)
+    return (0.1 * rng.standard_normal((B, T, cfg.d_model))).astype(
+        np.float32)
+
+
+def test_all_archs_registered():
+    assert sorted(SUPPORTED + LATER) == all_archs()
+
+
+@pytest.mark.parametrize("backends", [("pallas", "auto"), ("ref", "ref")],
+                         ids=["pallas", "ref"])
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_forward_matches_jax(arch, backends):
+    """train / prefill / decode logits, one prompt of T tokens then one
+    decoded token; T > window for the sliding-window arch, so its decode
+    runs on the ring the prefill left."""
+    jb, tb = backends
+    cfg, tcfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+    vals = noisy_values(cfg)
+    jv = jax.tree.map(jnp.asarray, vals)
+    params = from_jax_params(tcfg, vals, device="cpu")
+    atol = 3e-4 if cfg.rwkv is not None else 2e-5
+    B, T = 2, (24 if cfg.sliding_window else 16)
+    S = T + 8
+    x = inputs(cfg, B, T + 1)
+    prompt, nxt = x[:, :T], x[:, T:T + 1]
+    pos = np.full((B,), T, np.int32)
+    kw = dict(backend=jb, compute_dtype=jnp.float32)
+    tkw = dict(backend=tb, compute_dtype=torch.float32)
+
+    jl, _, _ = jax_forward(jv, cfg, jnp.asarray(prompt), mode="train",
+                           remat=False, **kw)
+    tl, _ = forward(params, tcfg, torch.from_numpy(prompt), mode="train",
+                    **tkw)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=atol)
+
+    jc = jax_init_cache(cfg, B, S, jnp.float32)
+    jl, jc, _ = jax_forward(jv, cfg, jnp.asarray(prompt), mode="prefill",
+                            caches=jc, cache_len=S, **kw)
+    tc = init_cache(tcfg, B, S, torch.float32, device="cpu")
+    tl, tc = forward(params, tcfg, torch.from_numpy(prompt), mode="prefill",
+                     caches=tc, cache_len=S, **tkw)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=atol)
+
+    jl, _, _ = jax_forward(jv, cfg, jnp.asarray(nxt), mode="decode",
+                           caches=jc, pos=jnp.asarray(pos), cache_len=S,
+                           **kw)
+    tl, _ = forward(params, tcfg, torch.from_numpy(nxt), mode="decode",
+                    caches=tc, pos=torch.from_numpy(pos), cache_len=S,
+                    **tkw)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b"])
+def test_init_params_shapes_and_distributions(arch):
+    """The port's init gives the JAX tree's shapes (layer by layer) and its
+    distributions: zeros where JAX has zeros, a truncated normal within
+    2 * 1/sqrt(fan_in) for dense weights."""
+    cfg, tcfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+    values, _ = split_tree(jax_init_params(jax.random.PRNGKey(0), cfg))
+    params = init_params(tcfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    ref = from_jax_params(tcfg, jax.tree.map(np.asarray, values),
+                          device="cpu")
+    got = dict(params.named_parameters())
+    exp = dict(ref.named_parameters())
+    assert got.keys() == exp.keys()
+    for name, t in got.items():
+        assert t.shape == exp[name].shape, name
+        assert not t.requires_grad
+        if not exp[name].any():
+            assert not t.any(), name
+    assert param_count(params) == sum(
+        int(np.prod(np.shape(a))) for a in jax.tree.leaves(values))
+    wq = got["blocks.0.attn.wq" if cfg.rwkv is None else
+             "blocks.0.rwkv_tm.wr"]
+    fan_in = int(np.prod(wq.shape[:-1]))
+    assert float(wq.abs().max()) <= 2.0 / fan_in ** 0.5 + 1e-7
+    assert float(wq.std()) > 0.5 / fan_in ** 0.5
+
+
+@pytest.mark.parametrize("arch", LATER)
+def test_moe_and_mamba_archs_raise(arch):
+    cfg = get_arch(arch).reduced()
+    for build in (lambda: from_jax_params(cfg, {}, device="cpu"),
+                  lambda: init_params(cfg, torch.Generator(), device="cpu"),
+                  lambda: init_cache(cfg, 1, 8, device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            build()
