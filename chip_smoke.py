@@ -82,6 +82,28 @@ before the path and reads the counters just after it:
      T = 2,048 kernel prefill and one decode step after it, for each model
      (device busy, idle share, each kernel's share, top device ops).  The
      qwen weights are freed before the rwkv model is built;
+  6b. Jamba serve — the same batches, checks and traces for
+     jamba-1.5-large-398b at full width (d 8,192, d_ff 24,576, 64/8 heads
+     x 128, 16 experts top-2 on odd layers, Mamba expand 2, d_state 16,
+     vocab 65,536) cut from 72 to the first 5 layers of its pattern
+     (Mamba + MLP, Mamba + MoE, Mamba + MLP, Mamba + MoE, attention +
+     MLP; 24.05 B parameters, 44.8 GiB in bf16): an 8-layer unit is
+     45.2 B parameters, 84.3 GiB in bf16, more than the card holds, and
+     these five layers are the shortest prefix that holds every kind of
+     layer the model has.  bf16 weights (``init_params``, a generator
+     seeded 0, plus noise from it on ``mamba.conv_b``, which JAX
+     initialises to zero) served with ``compute_dtype=torch.bfloat16``.
+     Checks: ``mamba_scan`` launched 4 times and ``flash_attention`` once
+     by every kernel prefill and embed, no kernel in decode or in a plain
+     run.  In bf16 the kernels' f32 rounding can move an output by one
+     bf16 ulp, so the run measures its own conditioning: how far a
+     one-ulp bf16 perturbation of the input embeddings moves the plain
+     path's last-position logits (per batch) and its embed; kernel and
+     plain logits must agree within max(LM_REL_TOL * max |logit|, 4x
+     that), tokens be equal or a near tie at that tolerance, and the
+     embed the same with its own sensitivity.  The traced T = 2,048
+     prefill must show 4 ``mamba_scan`` and 1 ``flash_attention`` events;
+     each trace prints its GEMM share;
   7. kernels — each kernel against its plain version on the card, with
      tolerance rtol 1e-5 + atol 1e-5*|v|*|q|: ``gather_norm_dot`` at the
      serving shapes (B in {8, 256}, K = 17, D = 128, n = 32,768) and a
@@ -103,7 +125,14 @@ before the path and reads the counters just after it:
      unmasked flops over 67 TFLOP/s f32 / 989 TFLOP/s bf16.  ``wkv6`` at
      rwkv6-1.6b's prefill (B 8, H 32, N 64, T in {2,048, 1,000}) from a
      nonzero state against ``wkv6_ref`` and ``wkv6_chunked`` within rtol
-     and atol 3e-4 (no single PyTorch call computes it);
+     and atol 3e-4 (no single PyTorch call computes it).
+     ``mamba_scan`` at Jamba's prefill (B 8, T 2,048, di 16,384, N 16),
+     at T = 1,000, at a ragged di (B 2, T 100, di 200) and at T = 1, f32
+     from a nonzero h0, against ``mamba_scan_ref`` within rtol and atol
+     2e-5 (the JAX package's tolerance for this kernel; no single PyTorch
+     call computes it); bound: bytes over 3.35 TB/s or 6 flops per
+     (b, t, d, n) over 67 TFLOP/s f32, with the exponentials counted
+     beside it;
   8. report — the kernels JSON line, then the ok line last.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
@@ -140,12 +169,21 @@ LM_BATCH = 8
 LM_DECODE = 32
 LM_EMBED = (8, 64)  # embed: queries x tokens
 LM_REL_TOL = 1e-4  # kernel vs plain, relative to max |logit| (or |embed|)
-LM_MODELS = {  # arch -> (its kernel, tensors given seeded noise: JAX's
-    #               zero inits, and the rwkv bonus u)
-    "qwen2-7b": ("flash_attention", ("attn.bq", "attn.bk", "attn.bv")),
-    "rwkv6-1.6b": ("wkv6", tuple(f"rwkv_tm.lora_b_{m}" for m in "wkvrg")
-                   + ("rwkv_tm.decay_b", "rwkv_tm.u")),
+JAMBA = "jamba-1.5-large-398b"
+LM_MODELS = {  # arch -> kernel launches per prefill or embed, the tensors
+    # given seeded noise (JAX's zero inits, and the rwkv bonus u), the
+    # weights' and compute type, and the depth cut (layers, or None)
+    "qwen2-7b": dict(launches={"flash_attention": 28},
+                     noise=("attn.bq", "attn.bk", "attn.bv"),
+                     dtype=torch.float32, layers=None),
+    "rwkv6-1.6b": dict(launches={"wkv6": 24},
+                       noise=tuple(f"rwkv_tm.lora_b_{m}" for m in "wkvrg")
+                       + ("rwkv_tm.decay_b", "rwkv_tm.u"),
+                       dtype=torch.float32, layers=None),
+    JAMBA: dict(launches={"mamba_scan": 4, "flash_attention": 1},
+                noise=("mamba.conv_b",), dtype=torch.bfloat16, layers=5),
 }
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernel names
 COMMON = ["--dim", "128", "--queries", str(QUERIES), "--k", "10",
           "--width", "64", "--m", "16", "--ef-construction", "64",
           "--o", "4", "--build-batch", "128", "--device", "cuda"]
@@ -522,10 +560,14 @@ def _trace(fn, name: str) -> dict:
                   f"({t / c:.2f} us each, {t / busy:.4f} of busy)")
     for k, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  {t / 1e3:9.3f} ms {c:6d}x  {k[:100]}")
+    gemm = sum(t for k, (t, _) in by_name.items()
+               if any(g in k.lower() for g in GEMM_NAMES))
+    print(f"  GEMMs {gemm / 1e3:.3f} ms, {gemm / busy:.4f} of busy")
     top = [(k, t / 1e3, c) for k, (t, c) in
            sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]]
     return {"wall_s": wall, "busy_s": busy / 1e6, "ops": n_ops,
-            "dtoh": dtoh, "kernels": kernels, "shares": shares, "top": top}
+            "dtoh": dtoh, "kernels": kernels, "shares": shares,
+            "gemm_share": gemm / busy, "top": top}
 
 
 def _traced_launches(fn, name: str) -> dict:
@@ -585,9 +627,11 @@ def phase_trace(out: dict) -> dict:
 
 def _noise(params, names, gen) -> None:
     """Add 0.02 * N(0, 1) from ``gen`` to the tensors ``names`` (dotted
-    paths under each layer) of every layer, in place."""
+    paths under each layer) of every layer that has them, in place."""
     for blk in params["blocks"]:
         for name in names:
+            if name.split(".")[0] not in blk.keys():
+                continue
             t = blk
             for part in name.split("."):
                 t = t[part]
@@ -607,31 +651,35 @@ def _near_tie_ok(got, want, margins, tol: float):
     return all(m < tol for _, _, m in rows), rows
 
 
-def _embed_sensitivity(params, cfg, toks, gen) -> float:
-    """How far the plain ``embed`` moves when its input embeddings are
-    perturbed by one f32 ulp (relative 2^-23, random signs): the
-    conditioning of the pooled last-position distribution.  Kernel and
-    plain sum in other orders, so they can differ by about this much
-    whatever the kernel does; with random weights rwkv6's first positions
-    amplify such rounding."""
+def _sensitivity(params, cfg, toks, gen, dtype) -> tuple[float, float]:
+    """How far the plain path's last-position logits and its ``embed``
+    move when the input embeddings are perturbed by one ulp of the
+    compute type (relative ``finfo(dtype).eps``: 2^-23 in f32, 2^-7 in
+    bf16; random signs) -> (logits, embed): the conditioning of the
+    model on these tokens.  Kernel and plain round in other places, so
+    they can differ by about this much whatever the kernel does; with
+    random weights rwkv6's first positions amplify such rounding."""
     from repro_torch.models import forward
 
     x = params["embed"][torch.as_tensor(toks, device="cuda").long()]
     sign = torch.randint(0, 2, x.shape, device="cuda", generator=gen) * 2 - 1
+    eps = torch.finfo(x.dtype).eps
     table = params["embed"].float()
-    embs = []
+    logits, embs = [], []
     with torch.inference_mode():
-        for inp in (x, x * (1.0 + 2.0 ** -23 * sign)):
-            logits, _ = forward(params, cfg, inp, mode="train",
-                                backend="ref", compute_dtype=torch.float32,
-                                last_only=True)
-            embs.append(torch.softmax(logits[:, -1].float(), -1) @ table)
-    return float((embs[0] - embs[1]).abs().max())
+        for inp in (x, (x.float() * (1.0 + eps * sign)).to(x.dtype)):
+            lg, _ = forward(params, cfg, inp, mode="train", backend="ref",
+                            compute_dtype=dtype, last_only=True)
+            logits.append(lg[:, -1].float())
+            embs.append(torch.softmax(logits[-1], -1) @ table)
+    return (float((logits[0] - logits[1]).abs().max()),
+            float((embs[0] - embs[1]).abs().max()))
 
 
 def phase_lm(arch: str) -> dict:
     """Serve ``arch`` at full width through the kernels and the plain
-    versions (see the module docstring, phase 6)."""
+    versions (see the module docstring, phases 6 and 6b)."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -640,31 +688,38 @@ def phase_lm(arch: str) -> dict:
     from repro_torch.models import init_params, param_count
     from repro_torch.serve import LMServer
 
-    kernel, noised = LM_MODELS[arch]
+    spec = LM_MODELS[arch]
+    per_run, dtype = spec["launches"], spec["dtype"]
     cfg = get_arch(arch)
+    if spec["layers"] is not None:  # depth cut: the first layers of the
+        n = spec["layers"]  # pattern, full width
+        cfg = dataclasses.replace(cfg, num_layers=n,
+                                  block_pattern=cfg.block_pattern[:n])
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    params = init_params(cfg, gen, device="cuda")
-    _noise(params, noised, gen)
+    params = init_params(cfg, gen, device="cuda", dtype=dtype)
+    _noise(params, spec["noise"], gen)
     torch.cuda.synchronize()
     n_params = param_count(params)
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     print(f"{arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
-          f"{n_params} parameters ({n_params * 4} bytes f32), built in "
+          f"{n_params} parameters ({n_bytes} bytes, "
+          f"{str(dtype).split('.')[-1]}), built in "
           f"{time.perf_counter() - t0:.2f} s")
+    kw = dict(device="cuda", compute_dtype=dtype)
     rng = np.random.default_rng(0)
     for backend in ("auto", "ref"):  # first-call costs out of the timings
-        LMServer(cfg, params, max_len=96, device="cuda",
-                 backend=backend).generate(
+        LMServer(cfg, params, max_len=96, backend=backend, **kw).generate(
             rng.integers(0, cfg.vocab_size, (LM_BATCH, 64)).astype(np.int32),
             steps=2)
-    batches, launches = [], 0
+    batches, launches = [], {k: 0 for k in per_run}
     for T in LM_PROMPTS:
         prompts = rng.integers(0, cfg.vocab_size, (LM_BATCH, T)).astype(
             np.int32)
         runs = {}
         for backend in ("auto", "ref"):
             srv = LMServer(cfg, params, max_len=T + LM_DECODE,
-                           device="cuda", backend=backend)
+                           backend=backend, **kw)
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             toks = srv.generate(prompts, steps=LM_DECODE)
@@ -673,19 +728,26 @@ def phase_lm(arch: str) -> dict:
                              torch.cuda.max_memory_allocated())
         (tk, rk, ck, mk), (tp, rp, cp, mp) = runs["auto"], runs["ref"]
         tag = f"{arch} T={T}"
-        want = {k: (cfg.num_layers if k == kernel else 0) for k in ck}
+        want = {k: per_run.get(k, 0) for k in ck}
         if ck != want or any(cp.values()):
             fail(f"{tag}: launches {ck} (expected {want}), plain {cp}")
-        launches += ck[kernel]
+        for k in launches:
+            launches[k] += ck[k]
         scale = float(rp["prefill_logits"].abs().max())
         err = float((rk["prefill_logits"] - rp["prefill_logits"]).abs().max())
-        if not err <= LM_REL_TOL * scale:
-            fail(f"{tag}: prefill logits differ by {err} (max |logit| "
-                 f"{scale})")
-        ok, rows = _near_tie_ok(tk, tp, rp["margins"], LM_REL_TOL * scale)
+        sens = None
+        tol = LM_REL_TOL * scale
+        if dtype != torch.float32:  # the bf16 rule: the run's conditioning
+            sens, _ = _sensitivity(params, cfg, prompts, gen, dtype)
+            tol = max(tol, 4.0 * sens)
+        if not err <= tol:
+            fail(f"{tag}: prefill logits differ by {err} > {tol} (max "
+                 f"|logit| {scale}, one-ulp input sensitivity {sens})")
+        ok, rows = _near_tie_ok(tk, tp, rp["margins"], tol)
         if not ok:
             fail(f"{tag}: tokens differ beyond a near tie {rows}")
         b = {"T": T, "logit_err": err, "max_logit": scale,
+             "logit_sensitivity": sens, "logit_tol": tol,
              "differing_rows": rows}
         for name, r, peak in (("kernel", rk, mk), ("plain", rp, mp)):
             b[name] = {"prefill_ms": r["prefill_s"] * 1e3,
@@ -697,23 +759,24 @@ def phase_lm(arch: str) -> dict:
               f"{b['kernel']['decode_ms_per_token']:.2f} ms/token (plain "
               f"{b['plain']['decode_ms_per_token']:.2f}), peak "
               f"{mk / 2**30:.2f} GiB (plain {mp / 2**30:.2f}); logits err "
-              f"{err:.3e} of max {scale:.3f}; {len(rows)} of {LM_BATCH} "
-              f"rows differ (first step, plain margin: {rows}); launches "
-              f"{ck}")
+              f"{err:.3e} of max {scale:.3f} (tolerance {tol:.3e}, one-ulp "
+              f"input sensitivity {sens}); {len(rows)} of {LM_BATCH} rows "
+              f"differ (first step, plain margin: {rows}); launches {ck}")
 
     toks = rng.integers(0, cfg.vocab_size, LM_EMBED).astype(np.int32)
     embeds = {}
     for backend in ("auto", "ref"):
-        srv = LMServer(cfg, params, device="cuda", backend=backend)
+        srv = LMServer(cfg, params, backend=backend, **kw)
         reset_counts()
         embeds[backend] = (srv.embed(toks), read_counts())
     (ek, ck), (ep, cp) = embeds["auto"], embeds["ref"]
-    if ck[kernel] != cfg.num_layers or any(cp.values()):
+    if ck != {k: per_run.get(k, 0) for k in ck} or any(cp.values()):
         fail(f"{arch} embed: launches {ck}, plain {cp}")
-    launches += ck[kernel]
+    for k in launches:
+        launches[k] += ck[k]
     e_err = float(np.abs(ek - ep).max())
     e_scale = float(np.abs(ep).max())
-    sens = _embed_sensitivity(params, cfg, toks, gen)
+    _, sens = _sensitivity(params, cfg, toks, gen, dtype)
     e_tol = max(LM_REL_TOL * e_scale, 4.0 * sens)
     if not (np.isfinite(ek).all() and e_err <= e_tol):
         fail(f"{arch} embed: differs by {e_err} > {e_tol} (max |embed| "
@@ -724,15 +787,15 @@ def phase_lm(arch: str) -> dict:
           f"launches {ck}")
 
     srv = LMServer(cfg, params, max_len=LM_PROMPTS[-1] + LM_DECODE,
-                   device="cuda", backend="auto")
+                   backend="auto", **kw)
     tokens = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPTS[-1])).astype(np.int32),
         device="cuda")
     srv._prefill(tokens)  # warm
     trace = _trace(lambda: srv._prefill(tokens), f"lm_{arch}_prefill")
-    if trace["kernels"][kernel] != cfg.num_layers:
+    if {k: trace["kernels"][k] for k in per_run} != per_run:
         fail(f"{arch} prefill trace: {trace['kernels']} kernel events, "
-             f"expected {cfg.num_layers} of {kernel}")
+             f"expected {per_run}")
     logits, caches = srv._prefill(tokens)
     tok = torch.argmax(logits.float(), dim=-1)[:, None].to(torch.int32)
     pos = torch.full((LM_BATCH,), LM_PROMPTS[-1], dtype=torch.int32,
@@ -746,9 +809,9 @@ def phase_lm(arch: str) -> dict:
     del srv, params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": arch, "kernel": kernel, "launches": launches,
-            "batches": batches, "embed_err": e_err, "trace": trace,
-            "decode_trace": decode_trace}
+    return {"arch": arch, "launches": launches, "params": n_params,
+            "param_bytes": n_bytes, "batches": batches, "embed_err": e_err,
+            "trace": trace, "decode_trace": decode_trace}
 
 
 def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
@@ -996,6 +1059,60 @@ def kernels_wkv6(gen) -> dict:
     return {"cases": out, "max_abs_err": max_err}
 
 
+def kernels_mamba(gen) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.ref import mamba_scan_ref
+
+    cases = [("jamba prefill", 8, 2048, 16384, 16),
+             ("T=1000", 8, 1000, 16384, 16),
+             ("ragged di", 2, 100, 200, 16),
+             ("T=1", 8, 1, 16384, 16)]
+    out, max_err = [], 0.0
+    for name, B, T, di, N in cases:
+        # the init's A = -(1..N) spread per channel, dt from a softplus
+        A = -(torch.arange(1, N + 1, device="cuda").float()
+              * torch.exp(0.1 * torch.randn(di, N, device="cuda",
+                                            generator=gen)))
+        dt = F.softplus(torch.randn(B, T, di, device="cuda", generator=gen)
+                        - 1.0)
+        Bm, Cm = (torch.randn(B, T, N, device="cuda", generator=gen)
+                  for _ in range(2))
+        x = torch.randn(B, T, di, device="cuda", generator=gen)
+        h0 = torch.randn(B, di, N, device="cuda", generator=gen)
+        args = (A, dt, Bm, Cm, x, h0)
+        y, hT = mamba_scan(*args)
+        ey, eh = mamba_scan_ref(*args)
+        torch.cuda.synchronize()
+        case_err = 0.0
+        for got, exp in ((y, ey), (hT, eh)):
+            err = (got - exp).abs()
+            if not bool((err <= 2e-5 + 2e-5 * exp.abs()).all()):
+                fail(f"mamba_scan {name}: max err {float(err.max())}")
+            case_err = max(case_err, float(err.max()))
+        max_err = max(max_err, case_err)
+        del ey, eh
+        ms = _time_ms(lambda i: mamba_scan(*args), 1, reps=5)
+        plain_ms = _time_ms(lambda i: mamba_scan_ref(*args), 1, reps=1,
+                            rounds=3)
+        nbytes = (3 * B * T * di + 2 * B * T * N + di * N
+                  + 2 * B * di * N) * 4
+        exps = B * T * di * N
+        bound_ms, bound_by = _bound(nbytes, 6 * exps)
+        out.append({"case": name, "B": B, "T": T, "di": di, "N": N,
+                    "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "exps": exps, "max_abs_err": case_err})
+        print(f"mamba_scan {name} (B {B}, T {T}, di {di}, N {N}): "
+              f"{ms:.4f} ms (plain {plain_ms:.3f}), bound {bound_ms:.4f} ms "
+              f"({bound_by}, {nbytes} B, {6 * exps / 1e9:.2f} GFLOP, "
+              f"{exps / 1e9:.3f} G exp), max err {case_err:.3e}")
+        del A, dt, Bm, Cm, x, h0, y, hT, args
+        torch.cuda.empty_cache()
+    return {"cases": out, "max_abs_err": max_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on the "
@@ -1030,12 +1147,16 @@ def main() -> int:
     bd = lap("kernels_batched_dot", kernels_batched_dot, gen)
     fa = lap("kernels_flash", kernels_flash, gen)
     wk = lap("kernels_wkv6", kernels_wkv6, gen)
+    mb = lap("kernels_mamba", kernels_mamba, gen)
     print(f"phase seconds: {laps}")
     g_main = next(c for c in gnd["cases"] if c["vec_dtype"] == "f32"
                   and c["B"] == 256 and c["K"] == 17)
     b_main = next(c for c in bd["cases"] if c["B"] == 256 and c["K"] == 17
                   and c["D"] == 128)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # each LM kernel's launches over every model that runs it
+    lm_launches = {k: sum(r["launches"].get(k, 0) for r in lm.values())
+                   for k in ("flash_attention", "wkv6", "mamba_scan")}
     report = {"kernels": [
         {"name": "gather_norm_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_norm_dot.cu",
@@ -1056,7 +1177,10 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:90",
-         "launches": lm["qwen2-7b"]["launches"],
+         "launches": lm_launches["flash_attention"],
+         "launches_by_model": {a: r["launches"]["flash_attention"]
+                               for a, r in lm.items()
+                               if "flash_attention" in r["launches"]},
          "traced": lm["qwen2-7b"]["trace"]["shares"],
          "max_abs_err": fa["max_abs_err"],
          **{k: fa["cases"][0][k] for k in keys},
@@ -1065,11 +1189,20 @@ def main() -> int:
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6.py:83",
-         "launches": lm["rwkv6-1.6b"]["launches"],
+         "launches": lm_launches["wkv6"],
          "traced": lm["rwkv6-1.6b"]["trace"]["shares"],
          "max_abs_err": wk["max_abs_err"],
          **{k: wk["cases"][0][k] for k in keys},
          "shape": {k: wk["cases"][0][k] for k in ("B", "H", "T", "N")}},
+        {"name": "mamba_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/mamba_scan.cu",
+         "replaces": "src/repro/kernels/mamba_scan.py:61",
+         "launches": lm_launches["mamba_scan"],
+         "traced": lm[JAMBA]["trace"]["shares"],
+         "max_abs_err": mb["max_abs_err"],
+         **{k: mb["cases"][0][k] for k in keys},
+         "exps": mb["cases"][0]["exps"],
+         "shape": {k: mb["cases"][0][k] for k in ("B", "T", "di", "N")}},
     ]}
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f}s")
     print(json.dumps(report))

@@ -11,6 +11,8 @@
                       ``repro_torch/csrc/flash_attention.cu``
   rwkv6.py            the RWKV-6 WKV recurrence (the RWKV time mix);
                       source ``repro_torch/csrc/wkv6.cu``
+  mamba_scan.py       the Mamba-1 selective scan (the Mamba mixer); source
+                      ``repro_torch/csrc/mamba_scan.cu``
 
 ``ops.py`` holds the dispatch wrappers (CUDA kernel for CUDA tensors, plain
 torch for CPU tensors); ``ref.py`` holds the plain torch versions the tests
@@ -25,7 +27,9 @@ __all__ = ["launch_counters", "ops", "ref"]
 def launch_counters() -> tuple:
     """The ``LAUNCHES`` dict of every kernel wrapper (name -> launches), so
     a run can zero them before a path and read them after it."""
-    from . import distance, flash_attention, gather_distance, rwkv6
+    from . import (
+        distance, flash_attention, gather_distance, mamba_scan, rwkv6,
+    )
 
     return (gather_distance.LAUNCHES, distance.LAUNCHES,
-            flash_attention.LAUNCHES, rwkv6.LAUNCHES)
+            flash_attention.LAUNCHES, rwkv6.LAUNCHES, mamba_scan.LAUNCHES)

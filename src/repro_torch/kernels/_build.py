@@ -35,6 +35,7 @@ SIGNATURES = {
     "batched_dot": (_P, _P, _P, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, *(_I,) * 7, _F, _I, _I, _I, _P),
     "wkv6": (*(_P,) * 8, *(_I,) * 5, _P),
+    "mamba_scan": (*(_P,) * 8, *(_I,) * 4, _P),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

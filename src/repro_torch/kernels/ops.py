@@ -109,6 +109,19 @@ def wkv6(r, k, v, w, u, state=None, backend: str = "auto"):
     return _ref.wkv6_ref(r, k, v, w, u, state=state)
 
 
+def mamba_scan(A, dt, Bm, Cm, x, h0, backend: str = "auto", chunk: int = 64):
+    """The Mamba-1 selective scan -> (y [B, T, di] f32, h_T [B, di, N] f32).
+    The plain version is the port's own step scan ``mamba_scan_ref`` (the
+    JAX wrapper reaches into its model layer for ``_ssm_scan``); ``chunk``
+    only sets the JAX scan's checkpoint boundaries, and neither version
+    needs it."""
+    if _use_kernel(backend, x):
+        from .mamba_scan import mamba_scan as kern
+
+        return kern(*(a.float().contiguous() for a in (A, dt, Bm, Cm, x, h0)))
+    return _ref.mamba_scan_ref(A, dt, Bm, Cm, x, h0, chunk=chunk)
+
+
 def merge_src_indices(pos_a, pos_b, W: int, K: int, method: str = "auto"):
     """Source-index writeback of the counting merge (``_merge_sorted``).
 

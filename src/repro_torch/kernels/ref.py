@@ -183,3 +183,31 @@ def wkv6_chunked(
         ys.append(y_state + y_intra + y_diag)
     y = torch.stack(ys, dim=2).reshape(B, H, T, N)
     return y.to(r.dtype), S
+
+
+def mamba_scan_ref(
+    A: torch.Tensor,  # [di, N] (negative)
+    dt: torch.Tensor,  # [B, T, di]
+    Bm: torch.Tensor,  # [B, T, N]
+    Cm: torch.Tensor,  # [B, T, N]
+    x: torch.Tensor,  # [B, T, di]
+    h0: torch.Tensor,  # [B, di, N]
+    chunk: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1 selective scan, step by step in f32 (the plain version of
+    ``mamba_scan``):
+
+    h_t = exp(dt_t[..., None] * A) * h_{t-1} + (dt_t * x_t)[..., None] * B_t
+    y_t = einsum("bdn,bn->bd", h_t, C_t)
+
+    -> (y [B, T, di] f32, h_T [B, di, N] f32).  The steps are those of
+    ``repro.models.mamba._ssm_scan``, whose ``chunk`` only places its
+    checkpoint boundaries; it is taken and ignored, and any T is."""
+    A, dt, Bm, Cm, x, h = (a.float() for a in (A, dt, Bm, Cm, x, h0))
+    ys = []
+    for t in range(x.shape[1]):
+        a = torch.exp(dt[:, t, :, None] * A)  # [B, di, N]
+        h = a * h + (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
+    y = torch.stack(ys, dim=1) if ys else x.new_zeros(x.shape)
+    return y, h

@@ -1,6 +1,6 @@
 """LM model zoo on torch (the port of ``repro.models``): shared layers, the
-dense GQA attention and RWKV-6 mixers, and the assembly in ``model.py``.
-The Mamba mixer and MoE layers come with a later slice (ROADMAP A11b)."""
+dense GQA attention, RWKV-6 and Mamba mixers, the MoE FFN, and the
+assembly in ``model.py``."""
 from .model import (
     ParamTree,
     forward,

@@ -1,5 +1,6 @@
 """LM assembly: init / train forward / prefill / decode (the port of
-``repro.models.model``) for the dense-attention and RWKV archs.
+``repro.models.model``) for every arch: attention, RWKV-6 and Mamba
+mixers, each with a dense or an MoE FFN.
 
 Parameters live in a ``ParamTree``: an ``nn.Module`` whose parameters
 (``requires_grad=False``) mirror the JAX value tree key by key, with the
@@ -9,11 +10,9 @@ the JAX layouts (``wq [d, Hq, D]``, ``lm_head [d, V]``, ...), so
 ``from_jax_params`` copies arrays without a transpose.  The layers run in a
 Python loop (the JAX scan exists to keep its compiled program small).
 
-A Mamba mixer or an MoE layer raises ``NotImplementedError``: they come
-with the Jamba slice sharded over four chips (ROADMAP A11b/B5).
-
 ``forward`` returns ``(logits, new_caches)``; the JAX version also returns
-the MoE auxiliary loss, which is 0 for every arch ported here.
+the MoE load-balance loss, which reaches a caller with training (``moe.
+moe_apply`` returns it).
 """
 from __future__ import annotations
 
@@ -24,14 +23,15 @@ from torch import nn
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from . import attention as att
+from . import mamba as mam
 from . import rwkv as rwk
 from .layers import (
     cast, dense, embed_apply, logits_apply, mlp_apply, mlp_init, normal,
     rms_norm,
 )
+from .moe import moe_apply, moe_init
 
-_LATER = ("ROADMAP A11b: mamba_scan (B5) with models/{mamba,moe}.py, on a "
-          "Jamba path sharded over four chips")
+MIXERS = ("attn", "mamba", "rwkv")
 
 
 class ParamTree(nn.Module):
@@ -61,27 +61,28 @@ class ParamTree(nn.Module):
 
 def check_supported(cfg: ArchConfig) -> None:
     for i in range(cfg.num_layers):
-        kind = cfg.mixer_kind(i)
-        if kind == "mamba" or cfg.is_moe_layer(i):
-            what = "the Mamba mixer" if kind == "mamba" else "MoE layers"
-            raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet ({_LATER})")
-        if kind not in ("attn", "rwkv"):
-            raise ValueError(f"unknown mixer kind {kind!r}")
+        if cfg.mixer_kind(i) not in MIXERS:
+            raise ValueError(f"unknown mixer kind {cfg.mixer_kind(i)!r}")
 
 
 # ----------------------------------------------------------------- init
 def _block_init(gen, cfg: ArchConfig, layer: int, kw: dict) -> dict:
     d = cfg.d_model
+    kind = cfg.mixer_kind(layer)
     p: dict = {"norm1": torch.ones((d,), **kw)}
-    if cfg.mixer_kind(layer) == "attn":
+    if kind == "attn":
         p["attn"] = att.attn_init(gen, cfg, **kw)
-        p["norm2"] = torch.ones((d,), **kw)
-        p["mlp"] = mlp_init(gen, d, cfg.d_ff, **kw)
+    elif kind == "mamba":
+        p["mamba"] = mam.mamba_init(gen, cfg, **kw)
     else:
         p["rwkv_tm"] = rwk.rwkv_time_mix_init(gen, cfg, **kw)
-        p["norm2"] = torch.ones((d,), **kw)
+    p["norm2"] = torch.ones((d,), **kw)
+    if kind == "rwkv":
         p["rwkv_cm"] = rwk.rwkv_channel_mix_init(gen, cfg, **kw)
+    elif cfg.is_moe_layer(layer):
+        p["moe"] = moe_init(gen, cfg.moe, d, cfg.d_ff, **kw)
+    else:
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, **kw)
     return p
 
 
@@ -89,8 +90,9 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
                 dtype=torch.float32) -> ParamTree:
     """Random weights with the JAX init's distributions (a normal truncated
     to [-2, 2]: 0.02 for the embedding, 1/sqrt(fan_in) for dense weights;
-    zeros, ones, -5 and 0.3 * normal where JAX has them), drawn from
-    ``generator`` on ``device`` (``None`` = the card)."""
+    zeros, ones, -5, 0.3 * normal and the Mamba inits where JAX has them),
+    drawn from ``generator`` on ``device`` (``None`` = the card) and
+    stored in ``dtype``."""
     check_supported(cfg)
     dev = resolve_device(device)
     kw = dict(device=dev, dtype=dtype)
@@ -154,19 +156,24 @@ def param_count(params: ParamTree) -> int:
 # ---------------------------------------------------------------- states
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None) -> list:
-    """Decode state: one ``KVCache`` or ``RWKVState`` per layer."""
+    """Decode state: one ``KVCache``, ``MambaState`` or ``RWKVState`` per
+    layer."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [att.make_cache(cfg, batch, cache_len, dtype, device=dev)
-            if cfg.mixer_kind(i) == "attn"
-            else rwk.make_rwkv_state(cfg, batch, dtype, device=dev)
-            for i in range(cfg.num_layers)]
+    make = {"attn": lambda: att.make_cache(cfg, batch, cache_len, dtype,
+                                           device=dev),
+            "mamba": lambda: mam.make_mamba_state(cfg, batch, dtype,
+                                                  device=dev),
+            "rwkv": lambda: rwk.make_rwkv_state(cfg, batch, dtype,
+                                                device=dev)}
+    return [make[cfg.mixer_kind(i)]() for i in range(cfg.num_layers)]
 
 
 # --------------------------------------------------------------- forward
 def _cast_tree(p, dtype) -> dict:
     """One layer's parameters in the compute type (the JAX scan body casts
-    a unit's parameters the same way; no copy when they already are)."""
+    every floating leaf of a unit the same way, ``A_log`` too; no copy
+    when they already are)."""
     if isinstance(p, (dict, ParamTree)):
         return {k: _cast_tree(p[k], dtype) for k in p.keys()}
     return cast(p, dtype) if p.is_floating_point() else p
@@ -175,9 +182,10 @@ def _cast_tree(p, dtype) -> dict:
 def _block_apply(p, cfg: ArchConfig, i: int, x: torch.Tensor, mode: str,
                  state, pos, cache_len: int, backend: str):
     """One layer. Returns (x, new_state)."""
+    kind = cfg.mixer_kind(i)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_state = state
-    if cfg.mixer_kind(i) == "attn":
+    if kind == "attn":
         if mode == "train":
             h = att.attn_train(p["attn"], cfg, h, backend=backend)
         elif mode == "prefill":
@@ -185,23 +193,34 @@ def _block_apply(p, cfg: ArchConfig, i: int, x: torch.Tensor, mode: str,
                                             backend=backend)
         else:
             h, new_state = att.attn_decode(p["attn"], cfg, h, state, pos)
-        x = x + h
-        x = x + mlp_apply(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
-        return x, new_state
-    st = state if mode != "train" else None
-    if mode == "prefill" and st is None:
-        st = rwk.make_rwkv_state(cfg, x.shape[0], x.dtype, device=x.device)
-    h, carry = rwk.rwkv_time_mix(p["rwkv_tm"], cfg, h, state=st,
-                                 backend=backend)
+    elif kind == "mamba":
+        if mode == "decode":
+            h, new_state = mam.mamba_decode(p["mamba"], cfg, h, state)
+        else:
+            h, new_state = mam.mamba_train(
+                p["mamba"], cfg, h, state=state if mode == "prefill"
+                else None, backend=backend)
+    else:
+        st = state if mode != "train" else None
+        if mode == "prefill" and st is None:
+            st = rwk.make_rwkv_state(cfg, x.shape[0], x.dtype,
+                                     device=x.device)
+        h, carry = rwk.rwkv_time_mix(p["rwkv_tm"], cfg, h, state=st,
+                                     backend=backend)
     x = x + h
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    x_last_in = None if mode == "train" else (
-        state.x_ffn if mode == "decode" else torch.zeros_like(x[:, 0]))
-    h, x_ffn_last = rwk.rwkv_channel_mix(p["rwkv_cm"], cfg, h,
-                                         x_last=x_last_in)
-    if mode != "train":
-        new_state = rwk.RWKVState(x_att=carry[0], x_ffn=x_ffn_last,
-                                  s=carry[1])
+    if kind == "rwkv":
+        x_last_in = None if mode == "train" else (
+            state.x_ffn if mode == "decode" else torch.zeros_like(x[:, 0]))
+        h, x_ffn_last = rwk.rwkv_channel_mix(p["rwkv_cm"], cfg, h,
+                                             x_last=x_last_in)
+        if mode != "train":
+            new_state = rwk.RWKVState(x_att=carry[0], x_ffn=x_ffn_last,
+                                      s=carry[1])
+    elif "moe" in p:
+        h, _ = moe_apply(p["moe"], cfg.moe, h)
+    else:
+        h = mlp_apply(p["mlp"], h)
     return x + h, new_state
 
 
@@ -222,7 +241,8 @@ def forward(
     ``last_only``: project logits for the final position only.
     ``backend`` reaches the kernels (``kernels.ops`` policy: "auto" = the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors;
-    "ref" = the plain versions, with ``wkv6_chunked`` in the RWKV mixer).
+    "ref" = the plain versions, with ``wkv6_chunked`` in the RWKV mixer
+    and the step scan ``mamba_scan_ref`` in the Mamba mixer).
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")

@@ -7,10 +7,15 @@ that the serving path reads.
                        matrix never materialises whole.
   attn_block_q         the query block of that path.
   rwkv_chunk           chunk of ``wkv6_chunked`` (0 = the config's).
-  mamba_chunk          selective-scan chunk (0 = the config's); read once
-                       the Mamba mixer is ported.
+  mamba_chunk          selective-scan chunk (0 = the config's), passed to
+                       ``ops.mamba_scan`` by the Mamba mixer as the JAX
+                       mixer passes it; it only sets the JAX scan's
+                       checkpoint boundaries, and neither the kernel nor
+                       the plain step scan needs it.
 
-The mesh and sharding knobs of the JAX package come with ``parallel/``.
+The mesh and sharding knobs of the JAX package (``moe_shard_dispatch``,
+``moe_expert_axis`` and the rest) come with ``parallel/``; the MoE layer
+runs the scatter dispatch, the JAX default.
 """
 from __future__ import annotations
 

@@ -24,6 +24,8 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.kernels.gather_distance, repro_torch.kernels._build\n"
         "import repro_torch.serve.engine, repro_torch.models.model\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
+        "import repro_torch.models.mamba, repro_torch.models.moe\n"
+        "import repro_torch.kernels.mamba_scan\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

@@ -1,6 +1,7 @@
-"""repro_torch ``LMServer`` vs the JAX package's, reduced qwen2-7b and
-rwkv6-1.6b on the CPU, from the same noisy weights (every leaf, the
-zero-initialised ones too, gets seeded noise).
+"""repro_torch ``LMServer`` vs the JAX package's, reduced qwen2-7b,
+rwkv6-1.6b and jamba-1.5-large (one 8-layer unit: Mamba and MoE layers,
+the Mamba states carried through decode) on the CPU, from the same noisy
+weights (every leaf, the zero-initialised ones too, gets seeded noise).
 
 Greedy tokens must be equal; the prefill's last-position logits agree
 within 1e-4 absolute (max |logit| ~3; measured <= 2.5e-6, though the plain
@@ -15,19 +16,18 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs import get_arch as jax_arch
 from repro.serve.engine import LMServer as JaxLMServer
 from repro_torch.configs import get_arch
 from repro_torch.models import from_jax_params, init_params
 from repro_torch.serve import LMServer
 
-from test_torch_models import noisy_values
+from test_torch_models import noisy_values, reduced_cfgs
 
-ARCHS = ["qwen2-7b", "rwkv6-1.6b"]
+ARCHS = ["qwen2-7b", "rwkv6-1.6b", "jamba-1.5-large-398b"]
 
 
 def _servers(arch: str, max_len: int):
-    cfg, tcfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+    cfg, tcfg = reduced_cfgs(arch)
     vals = noisy_values(cfg, seed=2)
     jserver = JaxLMServer(cfg, jax.tree.map(jnp.asarray, vals),
                           max_len=max_len, compute_dtype=jnp.float32)

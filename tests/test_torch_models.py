@@ -1,12 +1,16 @@
 """repro_torch LM models vs the JAX package, reduced archs on the CPU.
 
 Every JAX parameter gets seeded numpy noise (the zero-initialised QKV
-biases, LoRA up-projections and decay LoRA too, so every path they gate
-does work); ``from_jax_params`` builds the port's model from the same
-values.  The port's train, prefill and decode logits are held against
-JAX's ``forward`` with ``backend="pallas"`` (the Pallas kernels in
-interpret mode) and ``backend="ref"``; the port runs ``backend="auto"``
-(CPU tensors: the plain versions) and ``"ref"`` respectively.
+biases, LoRA up-projections, decay LoRA and Mamba conv bias too, so every
+path they gate does work); ``from_jax_params`` builds the port's model
+from the same values.  The port's train, prefill and decode logits are
+held against JAX's ``forward`` with ``backend="pallas"`` (the Pallas
+kernels in interpret mode) and ``backend="ref"``; the port runs
+``backend="auto"`` (CPU tensors: the plain versions) and ``"ref"``
+respectively.  For Jamba the JAX side of the ``pallas`` case runs
+``backend="ref"`` (its jnp ``_ssm_scan``): the reference's Pallas
+``mamba_scan`` calls ``pl.store``, which the installed jax no longer
+has, so JAX's Pallas forward of a Mamba arch raises.
 
 Tolerance on the logits (max |logit| ~3.5 here): 2e-5 absolute for the
 attention archs, where both sides do the same f32 arithmetic in another
@@ -21,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import all_archs as jax_all_archs
 from repro.configs import get_arch as jax_arch
 from repro.models import forward as jax_forward
 from repro.models import init_cache as jax_init_cache
@@ -30,10 +35,21 @@ from repro_torch.configs import all_archs, get_arch
 from repro_torch.models import (
     forward, from_jax_params, init_cache, init_params, param_count,
 )
+from repro_torch.models.model import check_supported
 
 SUPPORTED = ["qwen1.5-4b", "qwen2-7b", "qwen3-14b", "h2o-danube-3-4b",
-             "rwkv6-1.6b", "chameleon-34b", "musicgen-large"]
-LATER = ["deepseek-moe-16b", "jamba-1.5-large-398b", "qwen2-moe-a2.7b"]
+             "rwkv6-1.6b", "chameleon-34b", "musicgen-large",
+             "deepseek-moe-16b", "jamba-1.5-large-398b", "qwen2-moe-a2.7b"]
+JAMBA = "jamba-1.5-large-398b"
+# one 8-layer unit of Jamba (``reduced()`` would give two), to keep the
+# JAX side's compile short
+REDUCED = {JAMBA: dict(num_layers=8)}
+
+
+def reduced_cfgs(arch: str):
+    """(JAX config, port config), reduced alike."""
+    kw = REDUCED.get(arch, {})
+    return jax_arch(arch).reduced(**kw), get_arch(arch).reduced(**kw)
 
 
 def noisy_values(cfg, seed: int = 0) -> dict:
@@ -54,7 +70,10 @@ def inputs(cfg, B: int, T: int, seed: int = 1) -> np.ndarray:
 
 
 def test_all_archs_registered():
-    assert sorted(SUPPORTED + LATER) == all_archs()
+    """Every arch the JAX package registers is supported by the port."""
+    assert sorted(SUPPORTED) == all_archs() == sorted(jax_all_archs())
+    for arch in SUPPORTED:
+        check_supported(get_arch(arch))
 
 
 @pytest.mark.parametrize("backends", [("pallas", "auto"), ("ref", "ref")],
@@ -65,7 +84,9 @@ def test_forward_matches_jax(arch, backends):
     decoded token; T > window for the sliding-window arch, so its decode
     runs on the ring the prefill left."""
     jb, tb = backends
-    cfg, tcfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+    if arch == JAMBA:  # the reference's Pallas scan cannot run (pl.store)
+        jb = "ref"
+    cfg, tcfg = reduced_cfgs(arch)
     vals = noisy_values(cfg)
     jv = jax.tree.map(jnp.asarray, vals)
     params = from_jax_params(tcfg, vals, device="cpu")
@@ -104,12 +125,14 @@ def test_forward_matches_jax(arch, backends):
                                atol=atol)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b", JAMBA,
+                                  "deepseek-moe-16b"])
 def test_init_params_shapes_and_distributions(arch):
     """The port's init gives the JAX tree's shapes (layer by layer) and its
     distributions: zeros where JAX has zeros, a truncated normal within
-    2 * 1/sqrt(fan_in) for dense weights."""
-    cfg, tcfg = jax_arch(arch).reduced(), get_arch(arch).reduced()
+    2 * 1/sqrt(fan_in) for dense weights (the expert weights' fan-in is
+    E * d, as JAX counts it), and Jamba's Mamba inits."""
+    cfg, tcfg = reduced_cfgs(arch)
     values, _ = split_tree(jax_init_params(jax.random.PRNGKey(0), cfg))
     params = init_params(tcfg, torch.Generator().manual_seed(0),
                          device="cpu")
@@ -125,18 +148,28 @@ def test_init_params_shapes_and_distributions(arch):
             assert not t.any(), name
     assert param_count(params) == sum(
         int(np.prod(np.shape(a))) for a in jax.tree.leaves(values))
-    wq = got["blocks.0.attn.wq" if cfg.rwkv is None else
-             "blocks.0.rwkv_tm.wr"]
-    fan_in = int(np.prod(wq.shape[:-1]))
-    assert float(wq.abs().max()) <= 2.0 / fan_in ** 0.5 + 1e-7
-    assert float(wq.std()) > 0.5 / fan_in ** 0.5
-
-
-@pytest.mark.parametrize("arch", LATER)
-def test_moe_and_mamba_archs_raise(arch):
-    cfg = get_arch(arch).reduced()
-    for build in (lambda: from_jax_params(cfg, {}, device="cpu"),
-                  lambda: init_params(cfg, torch.Generator(), device="cpu"),
-                  lambda: init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            build()
+    dense = {"rwkv6-1.6b": "blocks.0.rwkv_tm.wr",
+             JAMBA: "blocks.0.mamba.in_proj"}.get(arch, "blocks.0.attn.wq")
+    moe = [n for n in got if ".moe.wi_" in n or n.endswith(".moe.wo")]
+    for name in [dense] + moe:
+        w = got[name]
+        fan_in = int(np.prod(w.shape[:-1]))
+        assert float(w.abs().max()) <= 2.0 / fan_in ** 0.5 + 1e-7, name
+        assert float(w.std()) > 0.5 / fan_in ** 0.5, name
+    assert bool(moe) == (cfg.moe is not None)
+    if arch != JAMBA:
+        return
+    mam = [n[:-len(".A_log")] for n in got if n.endswith(".mamba.A_log")]
+    assert len(mam) == 7  # every layer of the unit but the attention one
+    N = cfg.mamba.d_state
+    for m in mam:
+        torch.testing.assert_close(
+            got[f"{m}.A_log"], torch.log(torch.arange(1.0, N + 1)).expand(
+                2 * cfg.d_model, N), rtol=0, atol=0)
+        assert bool((got[f"{m}.D"] == 1).all())
+        dt = torch.nn.functional.softplus(got[f"{m}.dt_bias"])
+        assert 1e-3 * (1 - 1e-5) <= float(dt.min())
+        assert float(dt.max()) <= 0.1 * (1 + 1e-5)
+        conv_w = got[f"{m}.conv_w"]
+        assert 0.07 < float(conv_w.std()) < 0.13
+        assert float(conv_w.abs().max()) > 0.2  # a plain, untruncated normal

@@ -284,7 +284,8 @@ def test_launcher_device_build_reference_ingest(capsys):
             assert ref["recall"] >= 0.9 and fused["recall"] >= 0.9
             assert ref["launches"] == {"gather_norm_dot": 0,
                                        "batched_dot": 0,
-                                       "flash_attention": 0, "wkv6": 0}
+                                       "flash_attention": 0, "wkv6": 0,
+                                       "mamba_scan": 0}
 
 
 def test_launcher_rejects_reference_with_quantized_slab():

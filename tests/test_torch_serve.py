@@ -32,7 +32,8 @@ def test_serve_main_matches_jax(capsys):
     for run in runs:
         # CPU tensors take the plain versions
         assert run["launches"] == {"gather_norm_dot": 0, "batched_dot": 0,
-                                   "flash_attention": 0, "wkv6": 0}
+                                   "flash_attention": 0, "wkv6": 0,
+                                   "mamba_scan": 0}
         assert run["qps"] > 0 and 0.0 <= run["recall"] <= 1.0
         key = (run["vec_dtype"], run["visited"])
         if run["compact"] is not None:  # compaction changes no result
