@@ -59,12 +59,15 @@ before the path and reads the counters just after it:
      checks that the kernel events the profiler recorded equal the
      wrappers' launches plus one per replayed hop (``GRAPH_REPLAYS``);
   6. LM serve — ``repro_torch.serve.LMServer`` serves qwen2-7b (28
-     layers, d 3,584, 28/4 heads x 128, d_ff 18,944, vocab 152,064) and
-     then rwkv6-1.6b (24 layers, d 2,048, 32 heads x 64, d_ff 7,168, vocab
-     65,536) at full width, f32, weights from ``init_params`` with a
-     generator seeded 0 (plus small noise from it on the tensors JAX
-     initialises to zero: the QKV biases; the LoRA up-projections, the
-     decay LoRA and u).  Three batches of 8 greedy requests, prompts of
+     layers, d 3,584, 28/4 heads x 128, d_ff 18,944, vocab 152,064) in
+     f32, the same model again in bf16 (15.2 GB; ``compute_dtype=torch.
+     bfloat16``, the tensor-core ``flash_attention``, Jamba's bf16 rule
+     below), then rwkv6-1.6b (24 layers, d 2,048, 32 heads x 64, d_ff
+     7,168, vocab 65,536) in f32, at full width, weights from
+     ``init_params`` with a generator seeded 0 (plus small noise from it
+     on the tensors JAX initialises to zero: the QKV biases; the LoRA
+     up-projections, the decay LoRA and u).  Three batches of 8 greedy
+     requests, prompts of
      T in {512, 1,000, 2,048} tokens, 32 decoded tokens each (max_len =
      T + 32), each batch through the kernels (``backend="auto"``) and the
      plain versions (``"ref"``); then ``embed`` of 8 x 64 tokens both ways.
@@ -80,8 +83,8 @@ before the path and reads the counters just after it:
      batch's prefill ms (time to first token), decode ms per token and peak
      device memory (after one warm-up request per backend), and traces one
      T = 2,048 kernel prefill and one decode step after it, for each model
-     (device busy, idle share, each kernel's share, top device ops).  The
-     qwen weights are freed before the rwkv model is built;
+     (device busy, idle share, each kernel's share, top device ops).  Each
+     model's weights are freed before the next is built;
   6b. Jamba serve — the same batches, checks and traces for
      jamba-1.5-large-398b at full width (d 8,192, d_ff 24,576, 64/8 heads
      x 128, 16 experts top-2 on odd layers, Mamba expand 2, d_state 16,
@@ -115,14 +118,18 @@ before the path and reads the counters just after it:
      ``batched_dot`` (the one PyTorch call for the same function), and the
      bound (bytes over 3.35 TB/s or flops over 67 TFLOP/s f32, whichever is
      larger).  ``flash_attention`` at qwen2-7b's prefill (B 8, T 2,048,
-     Hq 28, Hkv 4, D 128) in f32 and bf16, at T = 1,000 (the ragged tail),
-     at h2o-danube-3-4b's (B 1, T 8,192, Hq 32, Hkv 8, D 120, window
-     4,096) and with a q_offset (512 queries after 1,536 cached keys),
-     against ``mha_ref`` (bf16: on the inputs upcast to f32, the kernel's
-     own arithmetic) within 2e-4 (+ 2^-8 |ref| for bf16's output
-     rounding), beside ``scaled_dot_product_attention`` (``library_ms``;
-     nothing in the port calls it); bound: bytes over 3.35 TB/s or the
-     unmasked flops over 67 TFLOP/s f32 / 989 TFLOP/s bf16.  ``wkv6`` at
+     Hq 28, Hkv 4, D 128) in f32 and bf16, at Jamba's (64/8 heads, bf16),
+     at T = 1,000 (the ragged tail) in f32 and bf16, at h2o-danube-3-4b's
+     (B 1, T 8,192, Hq 32, Hkv 8, D 120, window 4,096) in f32 and bf16
+     and with a q_offset (512 queries after 1,536 cached keys), against
+     ``mha_ref`` on the inputs upcast to f32 within ``ref.mha_tolerance``
+     (f32: 2e-4; bf16: 2e-4 + 2^-8 |ref| for the output rounding + 2^-8
+     ``mha_ref(q, k, |v|)`` for the probabilities rounded to bf16 on the
+     tensor cores), beside ``scaled_dot_product_attention``
+     (``library_ms``; nothing in the port calls it), with the TFLOP/s
+     achieved, the share of the bound's rate and the ratio to
+     ``scaled_dot_product_attention``'s time; bound: bytes over 3.35 TB/s
+     or the unmasked flops over 67 TFLOP/s f32 / 989 TFLOP/s bf16.  ``wkv6`` at
      rwkv6-1.6b's prefill (B 8, H 32, N 64, T in {2,048, 1,000}) from a
      nonzero state against ``wkv6_ref`` and ``wkv6_chunked`` within rtol
      and atol 3e-4 (no single PyTorch call computes it).
@@ -170,17 +177,20 @@ LM_DECODE = 32
 LM_EMBED = (8, 64)  # embed: queries x tokens
 LM_REL_TOL = 1e-4  # kernel vs plain, relative to max |logit| (or |embed|)
 JAMBA = "jamba-1.5-large-398b"
-LM_MODELS = {  # arch -> kernel launches per prefill or embed, the tensors
-    # given seeded noise (JAX's zero inits, and the rwkv bonus u), the
-    # weights' and compute type, and the depth cut (layers, or None)
-    "qwen2-7b": dict(launches={"flash_attention": 28},
+LM_MODELS = {  # run -> arch, kernel launches per prefill or embed, the
+    # tensors given seeded noise (JAX's zero inits, and the rwkv bonus u),
+    # the weights' and compute type, and the depth cut (layers, or None)
+    "qwen2-7b": dict(arch="qwen2-7b", launches={"flash_attention": 28},
                      noise=("attn.bq", "attn.bk", "attn.bv"),
                      dtype=torch.float32, layers=None),
-    "rwkv6-1.6b": dict(launches={"wkv6": 24},
+    "qwen2-7b-bf16": dict(arch="qwen2-7b", launches={"flash_attention": 28},
+                          noise=("attn.bq", "attn.bk", "attn.bv"),
+                          dtype=torch.bfloat16, layers=None),
+    "rwkv6-1.6b": dict(arch="rwkv6-1.6b", launches={"wkv6": 24},
                        noise=tuple(f"rwkv_tm.lora_b_{m}" for m in "wkvrg")
                        + ("rwkv_tm.decay_b", "rwkv_tm.u"),
                        dtype=torch.float32, layers=None),
-    JAMBA: dict(launches={"mamba_scan": 4, "flash_attention": 1},
+    JAMBA: dict(arch=JAMBA, launches={"mamba_scan": 4, "flash_attention": 1},
                 noise=("mamba.conv_b",), dtype=torch.bfloat16, layers=5),
 }
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernel names
@@ -676,9 +686,10 @@ def _sensitivity(params, cfg, toks, gen, dtype) -> tuple[float, float]:
             float((embs[0] - embs[1]).abs().max()))
 
 
-def phase_lm(arch: str) -> dict:
-    """Serve ``arch`` at full width through the kernels and the plain
-    versions (see the module docstring, phases 6 and 6b)."""
+def phase_lm(run: str) -> dict:
+    """Serve the model of ``LM_MODELS[run]`` at full width through the
+    kernels and the plain versions (see the module docstring, phases 6
+    and 6b)."""
     import dataclasses
     import gc
 
@@ -688,9 +699,9 @@ def phase_lm(arch: str) -> dict:
     from repro_torch.models import init_params, param_count
     from repro_torch.serve import LMServer
 
-    spec = LM_MODELS[arch]
+    spec = LM_MODELS[run]
     per_run, dtype = spec["launches"], spec["dtype"]
-    cfg = get_arch(arch)
+    cfg = get_arch(spec["arch"])
     if spec["layers"] is not None:  # depth cut: the first layers of the
         n = spec["layers"]  # pattern, full width
         cfg = dataclasses.replace(cfg, num_layers=n,
@@ -702,7 +713,7 @@ def phase_lm(arch: str) -> dict:
     torch.cuda.synchronize()
     n_params = param_count(params)
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    print(f"{arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"{run}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{n_params} parameters ({n_bytes} bytes, "
           f"{str(dtype).split('.')[-1]}), built in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -727,7 +738,7 @@ def phase_lm(arch: str) -> dict:
             runs[backend] = (toks, dict(srv.last_run), counts,
                              torch.cuda.max_memory_allocated())
         (tk, rk, ck, mk), (tp, rp, cp, mp) = runs["auto"], runs["ref"]
-        tag = f"{arch} T={T}"
+        tag = f"{run} T={T}"
         want = {k: per_run.get(k, 0) for k in ck}
         if ck != want or any(cp.values()):
             fail(f"{tag}: launches {ck} (expected {want}), plain {cp}")
@@ -771,7 +782,7 @@ def phase_lm(arch: str) -> dict:
         embeds[backend] = (srv.embed(toks), read_counts())
     (ek, ck), (ep, cp) = embeds["auto"], embeds["ref"]
     if ck != {k: per_run.get(k, 0) for k in ck} or any(cp.values()):
-        fail(f"{arch} embed: launches {ck}, plain {cp}")
+        fail(f"{run} embed: launches {ck}, plain {cp}")
     for k in launches:
         launches[k] += ck[k]
     e_err = float(np.abs(ek - ep).max())
@@ -779,9 +790,9 @@ def phase_lm(arch: str) -> dict:
     _, sens = _sensitivity(params, cfg, toks, gen, dtype)
     e_tol = max(LM_REL_TOL * e_scale, 4.0 * sens)
     if not (np.isfinite(ek).all() and e_err <= e_tol):
-        fail(f"{arch} embed: differs by {e_err} > {e_tol} (max |embed| "
+        fail(f"{run} embed: differs by {e_err} > {e_tol} (max |embed| "
              f"{e_scale}, one-ulp input sensitivity {sens})")
-    print(f"ok {arch} embed {LM_EMBED}: err {e_err:.3e} of max "
+    print(f"ok {run} embed {LM_EMBED}: err {e_err:.3e} of max "
           f"{e_scale:.4e} (tolerance {e_tol:.3e}; a one-ulp perturbation "
           f"of the input embeddings moves the plain embed by {sens:.3e}), "
           f"launches {ck}")
@@ -792,9 +803,9 @@ def phase_lm(arch: str) -> dict:
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPTS[-1])).astype(np.int32),
         device="cuda")
     srv._prefill(tokens)  # warm
-    trace = _trace(lambda: srv._prefill(tokens), f"lm_{arch}_prefill")
+    trace = _trace(lambda: srv._prefill(tokens), f"lm_{run}_prefill")
     if {k: trace["kernels"][k] for k in per_run} != per_run:
-        fail(f"{arch} prefill trace: {trace['kernels']} kernel events, "
+        fail(f"{run} prefill trace: {trace['kernels']} kernel events, "
              f"expected {per_run}")
     logits, caches = srv._prefill(tokens)
     tok = torch.argmax(logits.float(), dim=-1)[:, None].to(torch.int32)
@@ -802,16 +813,16 @@ def phase_lm(arch: str) -> dict:
                      device="cuda")
     srv._decode(tok, pos, caches)  # warm (rewrites the same cache slot)
     decode_trace = _trace(lambda: srv._decode(tok, pos, caches),
-                          f"lm_{arch}_decode")
+                          f"lm_{run}_decode")
     if any(decode_trace["kernels"].values()):
-        fail(f"{arch} decode trace: kernels {decode_trace['kernels']}")
+        fail(f"{run} decode trace: kernels {decode_trace['kernels']}")
     del logits, caches
     del srv, params
     gc.collect()
     torch.cuda.empty_cache()
-    return {"arch": arch, "launches": launches, "params": n_params,
-            "param_bytes": n_bytes, "batches": batches, "embed_err": e_err,
-            "trace": trace, "decode_trace": decode_trace}
+    return {"run": run, "arch": spec["arch"], "launches": launches,
+            "params": n_params, "param_bytes": n_bytes, "batches": batches,
+            "embed_err": e_err, "trace": trace, "decode_trace": decode_trace}
 
 
 def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
@@ -949,39 +960,41 @@ def kernels_flash(gen) -> dict:
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import mha_ref
+    from repro_torch.kernels.ref import mha_tolerance
 
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = [  # (name, B, Tq, Tk, Hq, Hkv, D, window, q_offset, dtype)
-        ("qwen2-7b prefill", 8, 2048, 2048, 28, 4, 128, None, 0,
-         torch.float32),
-        ("qwen2-7b prefill bf16", 8, 2048, 2048, 28, 4, 128, None, 0,
-         torch.bfloat16),
-        ("qwen2-7b T=1000", 8, 1000, 1000, 28, 4, 128, None, 0,
-         torch.float32),
-        ("h2o-danube-3-4b", 1, 8192, 8192, 32, 8, 120, 4096, 0,
-         torch.float32),
-        ("q_offset", 8, 512, 2048, 28, 4, 128, None, 1536, torch.float32),
+        ("qwen2-7b prefill", 8, 2048, 2048, 28, 4, 128, None, 0, f32),
+        ("qwen2-7b prefill bf16", 8, 2048, 2048, 28, 4, 128, None, 0, bf16),
+        ("jamba prefill bf16", 8, 2048, 2048, 64, 8, 128, None, 0, bf16),
+        ("qwen2-7b T=1000", 8, 1000, 1000, 28, 4, 128, None, 0, f32),
+        ("qwen2-7b T=1000 bf16", 8, 1000, 1000, 28, 4, 128, None, 0, bf16),
+        ("h2o-danube-3-4b", 1, 8192, 8192, 32, 8, 120, 4096, 0, f32),
+        ("h2o-danube-3-4b bf16", 1, 8192, 8192, 32, 8, 120, 4096, 0, bf16),
+        ("q_offset", 8, 512, 2048, 28, 4, 128, None, 1536, f32),
     ]
-    out, max_err = [], 0.0
+    out, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     for name, B, Tq, Tk, Hq, Hkv, D, window, q_offset, dt in cases:
         q = torch.randn(B, Tq, Hq, D, device="cuda", generator=gen).to(dt)
         k = torch.randn(B, Tk, Hkv, D, device="cuda", generator=gen).to(dt)
         v = torch.randn(B, Tk, Hkv, D, device="cuda", generator=gen).to(dt)
         kw = dict(causal=True, window=window, q_offset=q_offset)
         got = flash_attention(q, k, v, **kw)
-        # the plain version on the inputs upcast (bf16: the kernel's own
-        # f32 arithmetic), through the dispatch's blocking policy
+        # the plain version on the inputs upcast, through the dispatch's
+        # blocking policy; for bf16 also on |v| (the size of P V's terms)
         exp = ops.flash_attention(q.float(), k.float(), v.float(),
                                   backend="ref", **kw)
+        exp_abs = (ops.flash_attention(q.float(), k.float(), v.float().abs(),
+                                       backend="ref", **kw)
+                   if dt == bf16 else None)
         torch.cuda.synchronize()
-        rtol = 2.0 ** -8 if dt == torch.bfloat16 else 0.0
         err = (got.float() - exp).abs()
         case_err = float(err.max())
-        if not bool((err <= 2e-4 + rtol * exp.abs()).all()):
+        if not bool((err <= mha_tolerance(exp, exp_abs, dt)).all()):
             fail(f"flash_attention {name}: max err {case_err}")
-        if dt == torch.float32:  # bf16's error is its output rounding
-            max_err = max(max_err, case_err)
-        del exp, err
+        dtype = str(dt).split(".")[-1]
+        max_err[dtype] = max(max_err[dtype], case_err)
+        del exp, exp_abs, err
         ms = _time_ms(lambda i: flash_attention(q, k, v, **kw), 1, reps=5)
         plain_ms = _time_ms(lambda i: ops.flash_attention(
             q, k, v, backend="ref", **kw), 1, reps=2, rounds=3)
@@ -1001,15 +1014,17 @@ def kernels_flash(gen) -> dict:
             nbytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
         out.append({"case": name, "B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq,
                     "Hkv": Hkv, "D": D, "window": window,
-                    "q_offset": q_offset, "dtype": str(dt).split(".")[-1],
+                    "q_offset": q_offset, "dtype": dtype,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "max_abs_err": case_err})
         print(f"flash_attention {name} (B {B}, Tq {Tq}, Tk {Tk}, {Hq}/{Hkv} "
               f"heads x {D}, window {window}, q_offset {q_offset}, {dt}): "
-              f"{ms:.3f} ms (plain {plain_ms:.3f}, sdpa {lib_ms:.3f}), bound "
-              f"{bound_ms:.3f} ms ({bound_by}, {flops / 1e9:.1f} GFLOP, "
-              f"{nbytes} B), max err {case_err:.3e}")
+              f"{ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms:.4f}: "
+              f"{ms / lib_ms:.3f}x sdpa's time), bound {bound_ms:.4f} ms "
+              f"({bound_by}, {flops / 1e9:.1f} GFLOP, {nbytes} B): "
+              f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.4f} of the "
+              f"bound's rate; max err {case_err:.3e}")
         del q, k, v, got, mask, qt, kt, vt
         torch.cuda.empty_cache()
     return {"cases": out, "max_abs_err": max_err}
@@ -1141,7 +1156,7 @@ def main() -> int:
     traced = lap("trace", phase_trace, device["out"])
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions'
     torch.backends.cudnn.allow_tf32 = False  # einsums stay full f32
-    lm = {arch: lap(arch, phase_lm, arch) for arch in LM_MODELS}
+    lm = {run: lap(run, phase_lm, run) for run in LM_MODELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
     gnd = lap("kernels_gather", kernels_gather, gen)
     bd = lap("kernels_batched_dot", kernels_batched_dot, gen)
@@ -1182,10 +1197,16 @@ def main() -> int:
                                for a, r in lm.items()
                                if "flash_attention" in r["launches"]},
          "traced": lm["qwen2-7b"]["trace"]["shares"],
-         "max_abs_err": fa["max_abs_err"],
+         "traced_bf16": {r: lm[r]["trace"]["shares"]
+                         for r in ("qwen2-7b-bf16", JAMBA)},
+         "max_abs_err": fa["max_abs_err"]["float32"],
          **{k: fa["cases"][0][k] for k in keys},
          "shape": {k: fa["cases"][0][k] for k in ("B", "Tq", "Hq", "Hkv",
-                                                   "D", "dtype")}},
+                                                   "D", "dtype")},
+         "bf16": {"max_abs_err": fa["max_abs_err"]["bfloat16"],
+                  **{k: fa["cases"][1][k] for k in keys},
+                  "shape": {k: fa["cases"][1][k] for k in (
+                      "B", "Tq", "Hq", "Hkv", "D", "dtype")}}},
         {"name": "wkv6", "route": "cuda",
          "source": "src/repro_torch/csrc/wkv6.cu",
          "replaces": "src/repro/kernels/rwkv6.py:83",

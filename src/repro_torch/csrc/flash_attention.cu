@@ -9,37 +9,73 @@
 //
 // over the keys s that the mask lets row t see: s <= t + q_offset when
 // causal, s > t + q_offset - window with a window.  q [B, Tq, Hq, D],
-// k/v [B, Tk, Hkv, D], f32 or bf16, G = Hq / Hkv; arithmetic in f32, the
-// output in q's type.
+// k/v [B, Tk, Hkv, D], f32 or bf16, G = Hq / Hkv; the output in q's type,
+// 0 for a row that sees no key.  Any Tq and Tk: the ragged tails are
+// masked here (the Pallas kernel asserts Tq and Tk are block multiples).
 //
 // What bounds it: the operations.  A causal prefill does
 // 4 * B * Hq * D * Tq * Tk / 2 flops on B * (Tq * Hq + 2 * Tk * Hkv) * D
 // elements: at qwen2-7b's shape (B 8, T 2,048, Hq 28, Hkv 4, D 128) that
-// is 240 GFLOP on 88 MB, ~2,700 flops a byte, far above the card's
-// balance.  In f32 the product runs on the CUDA cores (67 TFLOP/s; TF32
-// would change the results), so the bound is ~3.6 ms there.
+// is 240 GFLOP on 88 MB (f32), ~2,700 flops a byte, far above the card's
+// balance.  Hence two kernels behind one entry point:
 //
-// Design.  The TPU kernel walks a (B*Hq, Tq/bq, Tk/bk) grid with the KV
-// axis sequential and keeps the running max, sum and accumulator in VMEM
-// scratch across grid steps; on Hopper blocks run in no order, so here
-// one block owns one (b, query head, tile of 64 query rows) and loops
-// over the 64-key tiles itself, keeping every row's running max, sum and
-// accumulator in registers.  The Q tile stays in shared memory for the
-// whole loop; each K tile, then the V tile over it, comes into one
-// shared buffer (bf16 converted to f32 on load; rows past Tk are zeros).
+// f32 (`flash_attention_kernel`): the products stay on the CUDA cores
+// (67 TFLOP/s, a ~3.6 ms bound at qwen2-7b's shape; TF32 tensor cores
+// would change the f32 models' answers).  The TPU kernel walks a
+// (B*Hq, Tq/bq, Tk/bk) grid with the KV axis sequential and keeps the
+// running max, sum and accumulator in VMEM scratch across grid steps; on
+// Hopper blocks run in no order, so here one block owns one (b, query
+// head, tile of 64 query rows) and loops over the 64-key tiles itself,
+// keeping every row's running max, sum and accumulator in registers.  The
+// Q tile stays in shared memory for the whole loop; each K tile, then the
+// V tile over it, comes into one shared buffer (rows past Tk are zeros).
 // 256 threads: thread (rg, cg) = (tid / 16, tid % 16) holds rows
 // 4 rg .. 4 rg + 3, the score columns cg + 16 j of a tile and the output
 // columns 4 cg .. 4 cg + 3 and 64 + 4 cg .. 64 + 4 cg + 3 (so D <= 128,
 // D % 4 == 0); a row's 16 threads share one half-warp and reduce its max
 // and sum with shuffles.  Rows are padded to D + 4 floats in shared
-// memory so the 16-byte reads of a K column hit distinct banks.  Only
-// the tiles that the causal mask and the window let some row of the
-// block see are visited, which skips every fully masked tile; the ragged
-// ends of Tq and Tk are masked here, so any length is taken (the Pallas
-// kernel asserts Tq and Tk are block multiples).  Tensor cores, wgmma and
-// TMA are later work.
+// memory so the 16-byte reads of a K column hit distinct banks.  Blocks
+// with the longest causal rows go first.
+//
+// bf16 (`flash_attention_bf16_kernel`): the tensor cores, 989 TFLOP/s
+// (a 0.243 ms bound at qwen2-7b's shape).  The work is cut into items of
+// (b, query head, 128 query rows); one block per SM walks its share of
+// them, longest causal rows first, so short items fill the tail.  A block
+// is a producer warpgroup and two consumer warpgroups of 64 rows each.
+// One producer thread brings each item's Q, then its 128-key K and V
+// tiles, through TMA into 128-byte-swizzled shared memory, over a 4-D
+// tensor map (D, H, T, B) of the [B, T, H, D] tensor, so rows past Tq or
+// Tk and columns past D (D = 120, or D <= 64 in a 64-column tile) arrive
+// as zeros; a ring of two K/V stages keeps tile t + 1 in flight while
+// tile t is multiplied (full/empty mbarriers, K and V apart, so S = Q K^T
+// starts before V lands), and the next item's Q and first tiles load
+// while the consumers finish the last one.  Each consumer runs
+// S = Q K^T as wgmma m64n128k16 with Q and K from shared memory (both
+// K-major), the online softmax in registers (scores scaled by
+// log2(e) / sqrt(D), ex2.approx, each row's max and sum over the four
+// threads that hold it; l summed from the f32 probabilities), then
+// O += P V as wgmma with P converted in registers from the S accumulator
+// to bf16 A fragments (the layouts match) and V read MN-major through the
+// descriptor's transpose bit.  The softmax rivals the products for time
+// (a consumer's 8,192 exponentials a tile take about half as long on the
+// SM's 16 exponential units a clock as its 4.2 MFLOP on the tensor
+// cores), so it is hidden twice: a consumer issues tile i's scores
+// together with tile i - 1's P V and runs tile i's softmax while P V is
+// on the tensor cores, and the two consumers take turns to issue (named
+// barriers), so one's softmax overlaps the other's products.  Only the
+// tiles that hold the causal diagonal, a window edge or the ragged end of
+// Tk are masked; tiles hidden from every row of an item are not visited
+// (one hidden from a consumer's 64 rows only is masked whole).  The
+// epilogue divides by max(l, 1e-20), writes bf16 into a staging buffer in
+// the swizzled layout, and a TMA store clips rows past Tq and columns
+// past D.  setmaxnreg gives the consumers 240 registers and the producer
+// 24.  Rounding P to bf16 for the product is what every tensor-core
+// attention does; the error it adds scales with sum_j p_j |v_j| / l, not
+// with the output (ref.py `mha_tolerance`).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -55,26 +91,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&lo);
-  raw.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // rows [0, 64) of a tensor whose rows are `stride` elements apart -> an
@@ -278,10 +296,594 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---- bf16: wgmma on the tensor cores, fed by TMA ----------------------
+
+constexpr int kRows = 64;        // query rows of one consumer warpgroup
+constexpr int kConsumers = 2;    // consumer warpgroups: 128 rows a block
+constexpr int kKeys = 128;       // keys per K/V tile
+constexpr int kStages = 2;       // K/V ring depth
+constexpr int kWgThreads = 128;  // a warpgroup
+constexpr int kBf16Threads = kWgThreads * (1 + kConsumers);
+constexpr int kRowBytes = 128;   // one swizzle row: 64 bf16 columns
+constexpr int kQBox = kRows * kRowBytes;  // a 64-row x 64-column box
+constexpr int kKVBox = kKeys * kRowBytes;  // a 128-row x 64-column box
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) -> shared
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile: start
+// address, leading byte offset (K-major: unused; MN-major: the stride
+// between 64-column boxes), stride byte offset 1,024 (8 rows of 128 bytes)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// keeps the compiler from moving reads of an accumulator above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_D32 WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+#define WG_D64 WG_D32, WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+#define WG_R32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31}"
+#define WG_R64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+  "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+  "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+  "%57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128]^T, A and B K-major in shared
+// memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WG_D64
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x N] += A[64 x 16] B[16 x N], A in registers (bf16 pairs), B
+// MN-major in shared memory (transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D64
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two f32 -> packed bf16 pair, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// NCH = 64-column boxes per row: 1 for D <= 64, 2 for D <= 128.  Thread
+// layout of a wgmma accumulator (m64nN, f32): lane l of warp w holds rows
+// 16 w + l / 4 and that + 8, columns 8 j + 2 (l % 4) and + 1 for every
+// 8-column group j, as d[4 j + 2 * half + e].
+
+// S = Q K^T for one tile: 16 columns of D a step, Q and K K-major
+template <int NCH>
+__device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t q_base,
+                                             uint32_t k_base) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NCH; ++kk)
+    wgmma_ss_n128(sc, smem_desc(q_base + (kk / 4) * kQBox + (kk % 4) * 32, 16),
+                  smem_desc(k_base + (kk / 4) * kKVBox + (kk % 4) * 32, 16),
+                  kk > 0);
+}
+
+// O += P V for one tile: 16 keys a step, P's bf16 pairs from registers
+// (the S accumulator's layout is the A fragment's), V MN-major
+template <int NCH>
+__device__ __forceinline__ void issue_pv(float (&o)[32 * NCH],
+                                         const uint32_t (&p)[32],
+                                         uint32_t v_base) {
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint64_t vd = smem_desc(v_base + kk * 16 * kRowBytes, kKVBox);
+    if constexpr (NCH == 2)
+      wgmma_rs_n128(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                    vd);
+    else
+      wgmma_rs_n64(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                   vd);
+  }
+}
+
+// one tile's online softmax over this thread's two rows, in place: the
+// scores become f32 probabilities (log2 units, ex2.approx), m and l move
+// on, alpha is what the accumulator must be scaled by.  A masked tile
+// (the causal diagonal, a window edge, the ragged end of Tk) sets the
+// hidden scores to -inf first; the others skip that arithmetic.
+__device__ __forceinline__ void online_softmax(
+    float (&sc)[64], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float scale_log2, bool masked, int k0, int qpos0, int cq, int Tk,
+    int causal, int window) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + cq + (e & 1);
+        const int qpos = qpos0 + 8 * (e >> 1);
+        const bool ok = kpos < Tk && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
+        if (!ok) sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // a row's four threads: lanes 4 g .. 4 g + 3
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    base[r] = m_new == -INFINITY ? 0.f : m_new;  // no key seen yet
+    alpha[r] = ex2(m[r] - base[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -base[r]));
+      l[r] += sc[4 * j + e];  // l from the f32 p; P goes to bf16 after
+    }
+}
+
+// the probabilities as the bf16 A fragments of P V: pair i = (2 i, 2 i + 1)
+__device__ __forceinline__ void to_bf16(uint32_t (&p)[32],
+                                        const float (&sc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+// One work item: a (b, query head, 128-row tile), the tiles of 128 keys
+// that some row of it may see being [t_begin, t_begin + n_tiles).  Items
+// are numbered longest causal rows first: a block takes items blockIdx.x,
+// + gridDim.x, ... so the short ones fill the tail.
+struct Item {
+  int q0, h, b, t_begin, n_tiles;
+};
+
+__device__ __forceinline__ Item item_at(int L, int Tq, int Tk, int Hq, int B,
+                                        int causal, int window,
+                                        int q_offset) {
+  const int n_qt = (Tq + kRows * kConsumers - 1) / (kRows * kConsumers);
+  Item it;
+  const int r = L % (Hq * B);
+  it.q0 = (n_qt - 1 - L / (Hq * B)) * kRows * kConsumers;
+  it.h = r % Hq;
+  it.b = r / Hq;
+  const int qmin = it.q0 + q_offset;
+  const int qmax = min(it.q0 + kRows * kConsumers, Tq) - 1 + q_offset;
+  const int k_end = causal ? min(Tk, qmax + 1) : Tk;
+  const int k_begin = window > 0 ? max(0, qmin - window + 1) : 0;
+  it.t_begin = k_begin / kKeys;
+  it.n_tiles = k_end > k_begin ? (k_end + kKeys - 1) / kKeys - it.t_begin : 0;
+  return it;
+}
+
+template <int NCH>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_o, int B,
+                            int Tq, int Tk, int Hq, int Hkv, float scale_log2,
+                            int causal, int window, int q_offset) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // 128-byte swizzling repeats every 1,024 bytes: align the tiles to it
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = smem;                           // [consumer][box] Q
+  uint8_t* so = sq + kConsumers * NCH * kQBox;  // [consumer][box] O
+  uint8_t* sk = so + kConsumers * NCH * kQBox;  // [stage][box]
+  uint8_t* sv = sk + kStages * NCH * kKVBox;    // [stage][box]
+  const uint32_t bars = smem_u32(sv + kStages * NCH * kKVBox);
+  const uint32_t q_full = bars;  // mbarriers, 8 bytes each
+  const uint32_t q_empty = bars + 8;
+  const uint32_t k_full = bars + 16;
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t k_empty = v_full + 8 * kStages;
+  const uint32_t v_empty = k_empty + 8 * kStages;
+  const int n_items =
+      (Tq + kRows * kConsumers - 1) / (kRows * kConsumers) * Hq * B;
+  const int group = Hq / Hkv;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, kConsumers * 4);  // one arrival a consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, kConsumers * 4);
+      mbar_init(v_empty + 8 * s, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 0) {
+      int tiles = 0, qs = 0;  // ring slots and Q buffers used so far
+      for (int L = blockIdx.x; L < n_items; L += gridDim.x) {
+        const Item w = item_at(L, Tq, Tk, Hq, B, causal, window, q_offset);
+        if (w.n_tiles == 0) continue;
+        mbar_wait(q_empty, (qs++ & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(q_full, kConsumers * NCH * kQBox);
+        for (int c = 0; c < kConsumers * NCH; ++c)
+          tma_load(&tm_q, smem_u32(sq + c * kQBox), q_full, 64 * (c % NCH),
+                   w.h, w.q0 + (c / NCH) * kRows, w.b);
+        for (int i = 0; i < w.n_tiles; ++i, ++tiles) {
+          const int s = tiles % kStages;
+          const uint32_t phase = (tiles / kStages) & 1;
+          const int k0 = (w.t_begin + i) * kKeys;
+          mbar_wait(k_empty + 8 * s, phase ^ 1);
+          mbar_expect_tx(k_full + 8 * s, NCH * kKVBox);
+          for (int c = 0; c < NCH; ++c)
+            tma_load(&tm_k, smem_u32(sk + (s * NCH + c) * kKVBox),
+                     k_full + 8 * s, 64 * c, w.h / group, k0, w.b);
+          mbar_wait(v_empty + 8 * s, phase ^ 1);
+          mbar_expect_tx(v_full + 8 * s, NCH * kKVBox);
+          for (int c = 0; c < NCH; ++c)
+            tma_load(&tm_v, smem_u32(sv + (s * NCH + c) * kKVBox),
+                     v_full + 8 * s, 64 * c, w.h / group, k0, w.b);
+        }
+      }
+    }
+  } else {  // consumer warpgroup cw: rows q0 + 64 cw .. + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int cw = wg - 1;
+    const int ltid = tid - wg * kWgThreads;
+    const int warp = ltid / 32;
+    const int lane = ltid % 32;
+    const int r_lo = 16 * warp + lane / 4;  // rows r_lo and r_lo + 8
+    const int cq = 2 * (lane % 4);          // columns 8 j + cq, + 1
+    // The two consumers take turns to issue their products (named
+    // barriers 3 and 4), so one's softmax overlaps the other's wgmma.
+    const int my_turn = 3 + cw;
+    const int their_turn = 4 - cw;
+    constexpr int kPair = kConsumers * kWgThreads;
+    if (cw == 1) bar_arrive(3, kPair);  // consumer 0 goes first
+    const uint32_t q_base = smem_u32(sq + cw * NCH * kQBox);
+    const uint32_t k_base = smem_u32(sk);
+    const uint32_t v_base = smem_u32(sv);
+    uint8_t* my_o = so + cw * NCH * kQBox;
+    constexpr int kOut = 32 * NCH;  // accumulator floats: 64 x 64 NCH
+    int tiles = 0, qs = 0;  // as the producer counts them
+
+    for (int L = blockIdx.x; L < n_items; L += gridDim.x) {
+      const Item w = item_at(L, Tq, Tk, Hq, B, causal, window, q_offset);
+      const int n = w.n_tiles;
+      const int row0 = w.q0 + cw * kRows;
+      const int qpos0 = row0 + r_lo + q_offset;
+      const int wq_min = row0 + q_offset;  // positions of this
+      const int wq_max = min(row0 + kRows, Tq) - 1 + q_offset;  // wg's rows
+      // a tile needs the mask where some key is hidden from some row
+      auto masked = [&](int k0) {
+        return (causal && k0 + kKeys - 1 > wq_min) ||
+               (window > 0 && k0 <= wq_max - window) || k0 + kKeys > Tk;
+      };
+      float o[kOut];
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+      float l[2] = {0.f, 0.f};  // this thread's share of the running sum
+      float alpha[2];
+      float sc[64];    // scores, then probabilities, of the newest tile
+      uint32_t p[32];  // the tile before's probabilities as bf16 pairs
+
+      // The steady loop below is straight-line (tile 0's scores and the
+      // last tile's P V are peeled off), so ptxas can see which wgmma
+      // group each wait retires and keeps the products asynchronous.
+      if (n > 0) {
+        const int s = tiles % kStages;
+        mbar_wait(q_full, qs++ & 1);
+        mbar_wait(k_full + 8 * s, (tiles / kStages) & 1);
+        bar_sync(my_turn, kPair);
+        wgmma_fence();
+        issue_scores<NCH>(sc, q_base, k_base + s * NCH * kKVBox);
+        wgmma_commit();
+        bar_arrive(their_turn, kPair);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        if (lane == 0) mbar_arrive(k_empty + 8 * s);
+        const int k0 = w.t_begin * kKeys;
+        online_softmax(sc, m, l, alpha, scale_log2, masked(k0), k0, qpos0,
+                       cq, Tk, causal, window);
+        to_bf16(p, sc);  // O is still 0: nothing to rescale
+      }
+      // tile i's scores go out with tile i - 1's P V, and tile i's
+      // softmax runs while that product is on the tensor cores
+      for (int i = 1; i < n; ++i) {
+        const int s = (tiles + i) % kStages;
+        const uint32_t ph = ((tiles + i) / kStages) & 1;
+        const int sp = (tiles + i - 1) % kStages;
+        const uint32_t php = ((tiles + i - 1) / kStages) & 1;
+        mbar_wait(k_full + 8 * s, ph);
+        mbar_wait(v_full + 8 * sp, php);
+        bar_sync(my_turn, kPair);
+        wgmma_fence();
+        issue_scores<NCH>(sc, q_base, k_base + s * NCH * kKVBox);
+        wgmma_commit();
+        issue_pv<NCH>(o, p, v_base + sp * NCH * kKVBox);
+        wgmma_commit();
+        bar_arrive(their_turn, kPair);
+        wgmma_wait<1>();  // the scores
+        fence_regs(sc);
+        if (lane == 0) mbar_arrive(k_empty + 8 * s);
+        const int k0 = (w.t_begin + i) * kKeys;
+        online_softmax(sc, m, l, alpha, scale_log2, masked(k0), k0, qpos0,
+                       cq, Tk, causal, window);
+        wgmma_wait<0>();  // P V
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(v_empty + 8 * sp);
+        to_bf16(p, sc);
+#pragma unroll
+        for (int j = 0; j < kOut / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+      }
+      if (n > 0) {  // Q is free for the next item; the last tile's P V
+        if (lane == 0) mbar_arrive(q_empty);
+        const int sp = (tiles + n - 1) % kStages;
+        mbar_wait(v_full + 8 * sp, ((tiles + n - 1) / kStages) & 1);
+        bar_sync(my_turn, kPair);
+        wgmma_fence();
+        issue_pv<NCH>(o, p, v_base + sp * NCH * kKVBox);
+        wgmma_commit();
+        bar_arrive(their_turn, kPair);
+        wgmma_wait<0>();
+        fence_regs(o);
+        if (lane == 0) mbar_arrive(v_empty + 8 * sp);
+        tiles += n;
+      }
+
+      if (row0 < Tq) {
+        float inv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+          inv[r] = 1.f / fmaxf(l[r], 1e-20f);
+        }
+        // the last item's store has read the O buffer
+        if (ltid == 0)
+          asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+        bar_sync(1 + cw, kWgThreads);
+        // O in bf16, swizzled as TMA reads it
+#pragma unroll
+        for (int j = 0; j < kOut / 4; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = r_lo + 8 * r;
+            const int slot = (j % 8) ^ (row % 8);
+            *reinterpret_cast<uint32_t*>(my_o + (j / 8) * kQBox +
+                                         row * kRowBytes + slot * 16 +
+                                         cq * 2) =
+                pack_bf16(o[4 * j + 2 * r] * inv[r],
+                          o[4 * j + 2 * r + 1] * inv[r]);
+          }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        bar_sync(1 + cw, kWgThreads);
+        if (ltid == 0) {
+          for (int c = 0; c < NCH; ++c)
+            tma_store(&tm_o, smem_u32(my_o + c * kQBox), 64 * c, w.h, row0,
+                      w.b);
+          asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+        }
+      }
+    }
+    if (ltid == 0) asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda), looked up through the runtime, so the
+// library links only the runtime
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the [B, T, H, D] bf16 tensor at `base` as a 4-D map (D, H, T, B), boxes
+// of 64 columns x `rows` rows of one head, 128-byte swizzled; reads past
+// an extent are zeros, writes past it are dropped
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int B,
+              int T, int H, int D, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(D) * 2;  // bytes
+  const cuuint64_t strides[3] = {row, row * H, row * H * T};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NCH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int B, int Tq, int Tk, int Hq, int Hkv, int D,
+                        float scale, int causal, int window, int q_offset,
+                        cudaStream_t stream) {
+  if (Tk == 0)  // no key: every row gives 0
+    return cudaMemsetAsync(
+        o, 0, static_cast<size_t>(B) * Tq * Hq * D * 2, stream);
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(encode, &tq, q, B, Tq, Hq, D, kRows) ||
+      !make_map(encode, &tk, k, B, Tk, Hkv, D, kKeys) ||
+      !make_map(encode, &tv, v, B, Tk, Hkv, D, kKeys) ||
+      !make_map(encode, &to, o, B, Tq, Hq, D, kRows))
+    return cudaErrorInvalidValue;
+  const size_t smem = 1024 + 2 * kConsumers * NCH * kQBox +
+                      2 * kStages * NCH * kKVBox + 8 * (2 + 4 * kStages);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_bf16_kernel<NCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;  // one block an SM, each walking its items
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long items =
+      static_cast<long long>((Tq + kRows * kConsumers - 1) /
+                             (kRows * kConsumers)) * Hq * B;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  flash_attention_bf16_kernel<NCH><<<grid, kBf16Threads, smem, stream>>>(
+      tq, tk, tv, to, B, Tq, Tk, Hq, Hkv, scale * kLog2e, causal, window,
+      q_offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  window <= 0 means none.  Returns the launch's
-// cudaError_t; the caller raises on anything but 0.
+// dtype: 0 = f32, 1 = bf16 (D % 8 == 0: TMA strides are 16-byte
+// multiples).  window <= 0 means none.  Returns the launch's cudaError_t;
+// the caller raises on anything but 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Tq, int Tk, int Hq,
                                int Hkv, int D, int dtype, float scale,
@@ -295,8 +897,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   if (dtype == 0)
     return launch<float>(q, k, v, o, B, Tq, Tk, Hq, Hkv, D, scale, causal,
                          window, q_offset, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, B, Tq, Tk, Hq, Hkv, D, scale,
-                                 causal, window, q_offset, s);
+  if (dtype == 1 && D % 8 == 0)
+    return D <= 64 ? launch_bf16<1>(q, k, v, o, B, Tq, Tk, Hq, Hkv, D, scale,
+                                    causal, window, q_offset, s)
+                   : launch_bf16<2>(q, k, v, o, B, Tq, Tk, Hq, Hkv, D, scale,
+                                    causal, window, q_offset, s);
   return cudaErrorInvalidValue;
 }

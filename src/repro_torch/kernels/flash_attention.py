@@ -2,14 +2,17 @@
 
 The Hopper counterpart of the Pallas kernel in
 ``repro.kernels.flash_attention``: attention over q [B, Tq, Hq, D] and
-k/v [B, Tk, Hkv, D] (f32 or bf16, f32 arithmetic, the output in q's type),
-with an optional sliding window and a ``q_offset`` (the absolute position
-of q[0] relative to k[0]), skipping the key tiles that the mask hides from
-every row of a query tile.  Unlike the Pallas kernel it takes any Tq and
-Tk: the ragged tails are masked in the kernel.  A row with no visible key
-gives 0 (the plain version gives NaN).  The source and its design note
-are in ``repro_torch/csrc/flash_attention.cu``; the plain version is
-``repro_torch.kernels.ref.mha_ref``.
+k/v [B, Tk, Hkv, D] (f32 or bf16, the output in q's type), with an
+optional sliding window and a ``q_offset`` (the absolute position of q[0]
+relative to k[0]), skipping the key tiles that the mask hides from every
+row of a query tile.  Unlike the Pallas kernel it takes any Tq and Tk: the
+ragged tails are masked in the kernel.  A row with no visible key gives 0
+(the plain version gives NaN).  f32 runs on the CUDA cores in f32; bf16
+runs on the tensor cores (wgmma, TMA), with the probabilities rounded to
+bf16 for the P V product (``ref.mha_tolerance`` states what that costs).
+The source and its design note are in ``repro_torch/csrc/
+flash_attention.cu``; the plain version is ``repro_torch.kernels.ref.
+mha_ref``.
 
 The wrapper checks what the kernel takes and raises on anything else,
 allocates the output, launches on the current stream and raises if the
@@ -22,7 +25,7 @@ import torch
 from . import _build
 
 LAUNCHES = {"flash_attention": 0}
-MAX_D = 128  # a thread holds 8 output columns of 16 threads' row
+MAX_D = 128  # f32: 8 output columns a thread; bf16: two 64-column boxes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -53,6 +56,9 @@ def flash_attention(
     if D > MAX_D or D % 4:
         raise ValueError(f"flash_attention takes D <= {MAX_D}, D % 4 == 0; "
                          f"got {D}")
+    if q.dtype == torch.bfloat16 and D % 8:
+        raise ValueError(f"bf16 flash_attention takes D % 8 == 0 (its TMA "
+                         f"row strides are 16-byte multiples); got {D}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
     for t in (q, k, v):

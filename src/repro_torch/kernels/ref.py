@@ -114,6 +114,25 @@ def mha_ref(
     return torch.cat(outs, dim=1)
 
 
+def mha_tolerance(exp: torch.Tensor, exp_abs: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor | float:
+    """Elementwise bound on |flash_attention - mha_ref| for inputs of
+    ``dtype``, where ``exp = mha_ref(q, k, v)`` and ``exp_abs =
+    mha_ref(q, k, |v|)`` on the inputs upcast to f32 (or f64).
+
+    f32: 2e-4, the JAX package's attention tolerance.  bf16: the kernel
+    rounds the probabilities P to bf16 for the tensor-core P V product and
+    its output to bf16, so 2e-4 + 2^-8 |exp| (the output rounding) +
+    2^-8 sum_j p_j |v_j| / l (the rounded terms: their error scales with
+    the sum of the terms' sizes, not with the result, which can cancel).
+    """
+    if dtype == torch.float32:
+        return 2e-4
+    if dtype != torch.bfloat16:
+        raise TypeError(f"no flash_attention tolerance for {dtype}")
+    return 2e-4 + 2.0 ** -8 * (exp.abs() + exp_abs)
+
+
 def wkv6_ref(
     r: torch.Tensor,  # [B, H, T, N]
     k: torch.Tensor,  # [B, H, T, N]

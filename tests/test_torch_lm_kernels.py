@@ -7,8 +7,10 @@ Tolerances are those of the JAX package's own kernel tests
 (``tests/test_kernels.py``): rtol/atol 2e-4 for attention, 3e-4 for the
 WKV recurrence; the blocked span path against the dense one 2e-5.  On the
 card the bf16 flash kernel is held against the plain version on the same
-bf16 inputs upcast to f32 (the kernel's own arithmetic), with 2e-4 plus
-the bf16 rounding of its output (2^-8 relative).
+bf16 inputs upcast to f32 within ``ref.mha_tolerance``: 2e-4 plus the
+bf16 rounding of its output (2^-8 relative) and of the probabilities it
+multiplies V by on the tensor cores (2^-8 of sum_j p_j |v_j| / l; the
+CPU emulation in ``test_torch_flash_rounding.py`` justifies it).
 """
 import os
 import shutil
@@ -198,6 +200,12 @@ FLASH_CASES = [  # (B, Tq, Tk, Hq, Hkv, D, window, q_offset)
     (2, 130, 130, 4, 1, 128, None, 0),
     (2, 33, 161, 4, 2, 128, None, 128),  # q_offset, ragged both
     (1, 70, 70, 2, 2, 64, 16, 0),
+    (1, 256, 256, 64, 8, 128, None, 0),  # Jamba's heads
+    (2, 40, 200, 4, 2, 128, None, 160),  # Tq < 64 over a full 128-key tile
+    # more 128-row work items than an H100 has SMs (132): bf16 blocks walk
+    # several items each
+    (1, 640, 640, 32, 8, 128, None, 0),
+    (2, 520, 520, 16, 4, 64, 200, 0),
 ]
 
 
@@ -219,11 +227,50 @@ def test_cuda_flash_attention_matches_plain(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["flash_attention"] == before + 1
     assert got.dtype == q.dtype and got.shape == q.shape
-    exp = tref.mha_ref(q.float(), k.float(), v.float(), causal=True,
-                       window=window, q_offset=q_offset)
-    tol = 2e-4 + (2.0 ** -8 if dtype == "bf16" else 0.0) * exp.abs()
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    exp = tref.mha_ref(q.float(), k.float(), v.float(), **kw)
+    exp_abs = tref.mha_ref(q.float(), k.float(), v.float().abs(), **kw)
+    tol = tref.mha_tolerance(exp, exp_abs, q.dtype)
     err = (got.float() - exp).abs()
     assert bool((err <= tol).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, 40])
+def test_cuda_flash_attention_non_causal_matches_plain(cuda_device, window,
+                                                       dtype):
+    """causal=False (every key up to Tk, or the window's), ragged Tq and
+    Tk, against the plain version within ``mha_tolerance``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (a.to(cuda_device) for a in _t(*_attn_inputs(
+        2, 100, 150, 8, 2, 128, seed=11)))
+    if dtype == "bf16":
+        q, k, v = (a.to(torch.bfloat16) for a in (q, k, v))
+    kw = dict(causal=False, window=window, q_offset=0)
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    exp = tref.mha_ref(q.float(), k.float(), v.float(), **kw)
+    exp_abs = tref.mha_ref(q.float(), k.float(), v.float().abs(), **kw)
+    err = (got.float() - exp).abs()
+    assert bool((err <= tref.mha_tolerance(exp, exp_abs, q.dtype)).all()), \
+        float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [12, 60])
+def test_cuda_flash_attention_bf16_needs_d_multiple_of_8(cuda_device, D):
+    """The bf16 kernel's TMA row strides must be 16-byte multiples: the
+    wrapper refuses D % 8 != 0 with the reason, before any launch."""
+    from repro_torch.kernels.flash_attention import LAUNCHES, flash_attention
+
+    q, k, v = (a.to(cuda_device, torch.bfloat16) for a in _t(*_attn_inputs(
+        1, 16, 16, 2, 1, D)))
+    before = LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="D % 8"):
+        flash_attention(q, k, v)
+    assert LAUNCHES["flash_attention"] == before
 
 
 @pytest.mark.cuda
