@@ -117,7 +117,11 @@ before the path and reads the counters just after it:
      warm-up) beside the plain version's, ``torch.bmm``'s for
      ``batched_dot`` (the one PyTorch call for the same function), and the
      bound (bytes over 3.35 TB/s or flops over 67 TFLOP/s f32, whichever is
-     larger).  ``flash_attention`` at qwen2-7b's prefill (B 8, T 2,048,
+     larger); for kernels of a few us those times are the host's enqueue
+     rate, so each is also timed device to device (``device_ms``,
+     ``plain_device_ms``, ``library_device_ms``): the 20 launches captured
+     as one CUDA graph, its replay timed by CUDA events.
+     ``flash_attention`` at qwen2-7b's prefill (B 8, T 2,048,
      Hq 28, Hkv 4, D 128) in f32 and bf16, at Jamba's (64/8 heads, bf16),
      at T = 1,000 (the ragged tail) in f32 and bf16, at h2o-danube-3-4b's
      (B 1, T 8,192, Hq 32, Hkv 8, D 120, window 4,096) in f32 and bf16
@@ -129,7 +133,10 @@ before the path and reads the counters just after it:
      (``library_ms``; nothing in the port calls it), with the TFLOP/s
      achieved, the share of the bound's rate and the ratio to
      ``scaled_dot_product_attention``'s time; bound: bytes over 3.35 TB/s
-     or the unmasked flops over 67 TFLOP/s f32 / 989 TFLOP/s bf16.  ``wkv6`` at
+     or the unmasked flops over 989 TFLOP/s bf16, and for f32 three times
+     the flops over 495 TFLOP/s TF32 (the kernel's 3xTF32 split: three
+     TF32 products for each f32 one), with the bound on the CUDA cores
+     (flops over 67 TFLOP/s) beside it.  ``wkv6`` at
      rwkv6-1.6b's prefill (B 8, H 32, N 64, T in {2,048, 1,000}) from a
      nonzero state against ``wkv6_ref`` and ``wkv6_chunked`` within rtol
      and atol 3e-4 (no single PyTorch call computes it).
@@ -166,6 +173,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 TIE_FLIP_SHARE = 0.02
 N_HOST = 8192  # host-built (ops) serve phase
 N_DEVICE = 65536  # device-build phase (see the module docstring)
@@ -843,6 +851,36 @@ def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
+    """Median per-launch device ms of ``fn(i)``: ``reps`` launches
+    captured as one CUDA graph, its replay timed by CUDA events, so the
+    host's enqueue is not in the time (for kernels of a few us, where
+    ``_time_ms`` measures the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        for i in range(3):
+            fn(i % n_in)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(i % n_in)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def _bound(nbytes: int, flops: int,
            peak: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -891,10 +929,12 @@ def kernels_gather(gen) -> dict:
             tag = f"gather_norm_dot {vd} n={n} B={B} K={K}"
             max_err = max(max_err, _check_close(tag, kd, rd, vn * qn),
                           _check_close(tag, kv, rv, vn * vn))
-            ms = _time_ms(lambda i: gather_norm_dot(table, ids[i], q,
-                                                    scales=scales), 20)
-            plain_ms = _time_ms(lambda i: gather_norm_dot_ref(
-                table, ids[i], q, scales=scales), 20)
+            kern = lambda i: gather_norm_dot(table, ids[i], q,  # noqa: E731
+                                             scales=scales)
+            plain = lambda i: gather_norm_dot_ref(  # noqa: E731
+                table, ids[i], q, scales=scales)
+            ms, plain_ms = _time_ms(kern, 20), _time_ms(plain, 20)
+            dev_ms, plain_dev_ms = _graph_ms(kern, 20), _graph_ms(plain, 20)
             rows = int(torch.unique(ids[0]).numel())
             nbytes = (rows * D * table.element_size()
                       + (rows * 4 if scales is not None else 0)
@@ -902,11 +942,15 @@ def kernels_gather(gen) -> dict:
             bound_ms, bound_by = _bound(nbytes, 4 * B * K * D)
             cases.append({"vec_dtype": vd, "n": n, "B": B, "K": K, "D": D,
                           "ms": ms, "plain_ms": plain_ms,
+                          "device_ms": dev_ms,
+                          "plain_device_ms": plain_dev_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": None})
+                          "library_ms": None, "library_device_ms": None})
             print(f"{tag} D={D}: {ms * 1e3:.2f} us (plain "
-                  f"{plain_ms * 1e3:.2f} us), bound {bound_ms * 1e3:.3f} us "
-                  f"({bound_by}, {nbytes} B)")
+                  f"{plain_ms * 1e3:.2f} us); device, graph-replayed: "
+                  f"{dev_ms * 1e3:.3f} us (plain {plain_dev_ms * 1e3:.3f} "
+                  f"us), bound {bound_ms * 1e3:.3f} us ({bound_by}, "
+                  f"{nbytes} B)")
             del table, scales
         del f32
         torch.cuda.empty_cache()
@@ -930,16 +974,23 @@ def kernels_batched_dot(gen) -> dict:
         atol = vs[0].double().norm(dim=2) * q.double().norm(dim=1)[:, None]
         tag = f"batched_dot B={B} K={K} D={D}"
         max_err = max(max_err, _check_close(tag, got, exp, atol))
-        ms = _time_ms(lambda i: batched_dot(vs[i], q), 20)
-        plain_ms = _time_ms(lambda i: batched_dot_ref(vs[i], q), 20)
-        lib_ms = _time_ms(lambda i: torch.bmm(vs[i], q[:, :, None]), 20)
+        kern = lambda i: batched_dot(vs[i], q)  # noqa: E731
+        plain = lambda i: batched_dot_ref(vs[i], q)  # noqa: E731
+        lib = lambda i: torch.bmm(vs[i], q[:, :, None])  # noqa: E731
+        ms, plain_ms, lib_ms = (_time_ms(f, 20) for f in (kern, plain, lib))
+        dev_ms, plain_dev_ms, lib_dev_ms = (_graph_ms(f, 20)
+                                            for f in (kern, plain, lib))
         bound_ms, bound_by = _bound((B * K * D + B * D + B * K) * 4,
                                     2 * B * K * D)
         cases.append({"B": B, "K": K, "D": D, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_ms, "bound_ms": bound_ms,
+                      "library_ms": lib_ms, "device_ms": dev_ms,
+                      "plain_device_ms": plain_dev_ms,
+                      "library_device_ms": lib_dev_ms, "bound_ms": bound_ms,
                       "bound_by": bound_by})
         print(f"{tag}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
-              f"torch.bmm {lib_ms * 1e3:.2f} us), bound "
+              f"torch.bmm {lib_ms * 1e3:.2f} us); device, graph-replayed: "
+              f"{dev_ms * 1e3:.3f} us (plain {plain_dev_ms * 1e3:.3f} us, "
+              f"torch.bmm {lib_dev_ms * 1e3:.3f} us), bound "
               f"{bound_ms * 1e3:.3f} us ({bound_by})")
     return {"cases": cases, "max_abs_err": max_err}
 
@@ -1010,21 +1061,29 @@ def kernels_flash(gen) -> dict:
             qt, kt, vt, enable_gqa=True, **sdpa), 1, reps=5)
         flops = 4 * B * Hq * D * _visible_keys(Tq, Tk, window, q_offset)
         nbytes = (2 * B * Tq * Hq + 2 * B * Tk * Hkv) * D * q.element_size()
-        bound_ms, bound_by = _bound(
-            nbytes, flops, BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        if dt == bf16:
+            bound_ms, bound_by = _bound(nbytes, flops, BF16_FLOPS)
+            basis, cores_ms = "bf16 operations", None
+        else:  # 3xTF32: three TF32 products for each f32 one
+            bound_ms, bound_by = _bound(nbytes, 3 * flops, TF32_FLOPS)
+            basis = ("3xTF32 operations" if bound_by == "operations"
+                     else "bytes")
+            cores_ms = _bound(nbytes, flops, F32_FLOPS)[0]
         out.append({"case": name, "B": B, "Tq": Tq, "Tk": Tk, "Hq": Hq,
                     "Hkv": Hkv, "D": D, "window": window,
                     "q_offset": q_offset, "dtype": dtype,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_basis": basis, "bound_cuda_cores_ms": cores_ms,
                     "max_abs_err": case_err})
         print(f"flash_attention {name} (B {B}, Tq {Tq}, Tk {Tk}, {Hq}/{Hkv} "
               f"heads x {D}, window {window}, q_offset {q_offset}, {dt}): "
               f"{ms:.4f} ms (plain {plain_ms:.3f}, sdpa {lib_ms:.4f}: "
               f"{ms / lib_ms:.3f}x sdpa's time), bound {bound_ms:.4f} ms "
-              f"({bound_by}, {flops / 1e9:.1f} GFLOP, {nbytes} B): "
-              f"{flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.4f} of the "
-              f"bound's rate; max err {case_err:.3e}")
+              f"({basis}, {flops / 1e9:.1f} GFLOP, {nbytes} B"
+              + (f"; on the CUDA cores {cores_ms:.4f} ms" if cores_ms else "")
+              + f"): {flops / ms / 1e9:.1f} TFLOP/s, {bound_ms / ms:.4f} of "
+              f"the bound's rate; max err {case_err:.3e}")
         del q, k, v, got, mask, qt, kt, vt
         torch.cuda.empty_cache()
     return {"cases": out, "max_abs_err": max_err}
@@ -1169,6 +1228,8 @@ def main() -> int:
     b_main = next(c for c in bd["cases"] if c["B"] == 256 and c["K"] == 17
                   and c["D"] == 128)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # the WoW kernels' device time, replayed from a captured graph
+    dev_keys = ("device_ms", "plain_device_ms", "library_device_ms")
     # each LM kernel's launches over every model that runs it
     lm_launches = {k: sum(r["launches"].get(k, 0) for r in lm.values())
                    for k in ("flash_attention", "wkv6", "mamba_scan")}
@@ -1179,7 +1240,7 @@ def main() -> int:
          "launches": device["launches"]["gather_norm_dot"],
          "traced": traced["serve_fused_compact"],
          "max_abs_err": gnd["max_abs_err"],
-         **{k: g_main[k] for k in keys},
+         **{k: g_main[k] for k in keys + dev_keys},
          "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
         {"name": "batched_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/batched_dot.cu",
@@ -1187,7 +1248,7 @@ def main() -> int:
          "launches": device["launches"]["batched_dot"],
          "traced": traced["serve_reference_compact"],
          "max_abs_err": bd["max_abs_err"],
-         **{k: b_main[k] for k in keys},
+         **{k: b_main[k] for k in keys + dev_keys},
          "shape": {k: b_main[k] for k in ("B", "K", "D")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1200,7 +1261,8 @@ def main() -> int:
          "traced_bf16": {r: lm[r]["trace"]["shares"]
                          for r in ("qwen2-7b-bf16", JAMBA)},
          "max_abs_err": fa["max_abs_err"]["float32"],
-         **{k: fa["cases"][0][k] for k in keys},
+         **{k: fa["cases"][0][k] for k in keys + (
+             "bound_basis", "bound_cuda_cores_ms")},
          "shape": {k: fa["cases"][0][k] for k in ("B", "Tq", "Hq", "Hkv",
                                                    "D", "dtype")},
          "bf16": {"max_abs_err": fa["max_abs_err"]["bfloat16"],

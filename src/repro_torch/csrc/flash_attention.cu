@@ -19,24 +19,6 @@
 // is 240 GFLOP on 88 MB (f32), ~2,700 flops a byte, far above the card's
 // balance.  Hence two kernels behind one entry point:
 //
-// f32 (`flash_attention_kernel`): the products stay on the CUDA cores
-// (67 TFLOP/s, a ~3.6 ms bound at qwen2-7b's shape; TF32 tensor cores
-// would change the f32 models' answers).  The TPU kernel walks a
-// (B*Hq, Tq/bq, Tk/bk) grid with the KV axis sequential and keeps the
-// running max, sum and accumulator in VMEM scratch across grid steps; on
-// Hopper blocks run in no order, so here one block owns one (b, query
-// head, tile of 64 query rows) and loops over the 64-key tiles itself,
-// keeping every row's running max, sum and accumulator in registers.  The
-// Q tile stays in shared memory for the whole loop; each K tile, then the
-// V tile over it, comes into one shared buffer (rows past Tk are zeros).
-// 256 threads: thread (rg, cg) = (tid / 16, tid % 16) holds rows
-// 4 rg .. 4 rg + 3, the score columns cg + 16 j of a tile and the output
-// columns 4 cg .. 4 cg + 3 and 64 + 4 cg .. 64 + 4 cg + 3 (so D <= 128,
-// D % 4 == 0); a row's 16 threads share one half-warp and reduce its max
-// and sum with shuffles.  Rows are padded to D + 4 floats in shared
-// memory so the 16-byte reads of a K column hit distinct banks.  Blocks
-// with the longest causal rows go first.
-//
 // bf16 (`flash_attention_bf16_kernel`): the tensor cores, 989 TFLOP/s
 // (a 0.243 ms bound at qwen2-7b's shape).  The work is cut into items of
 // (b, query head, 128 query rows); one block per SM walks its share of
@@ -72,6 +54,46 @@
 // 24.  Rounding P to bf16 for the product is what every tensor-core
 // attention does; the error it adds scales with sum_j p_j |v_j| / l, not
 // with the output (ref.py `mha_tolerance`).
+//
+// f32 (`flash_attention_tf32_kernel`): the tensor cores too, in TF32, which
+// keeps 10 of f32's 23 mantissa bits: one TF32 product would move the output by
+// ~1e-3, five times the f32 rule (2e-4).  So every operand x is split as hi = x
+// rounded to TF32 and lo = x - hi (exact in f32; K's and V's rounded in turn by
+// the pre-pass, Q's and P's read to their top 19 bits), and a product a b is
+// taken as lo(a) hi(b) + hi(a) lo(b) + hi(a) hi(b), ~2^-21 relative, the small
+// terms first (the tensor cores align each step's sum to its largest term and
+// drop the bits below, so small terms added to a large sum lose theirs): three
+// TF32 products for each f32 one, on both S = Q K^T and O += P V
+// (tests/test_torch_flash_tf32_rounding.py emulates this on the CPU: TF32 alone
+// on either product misses 2e-4, three terms give ~1e-6).  At 495 TFLOP/s dense
+// that bounds qwen2-7b's shape at 3 x 240.6 GFLOP / 495 TFLOP/s = 1.458 ms,
+// against 3.59 ms for f32 on the CUDA cores.  TF32 wgmma takes both operands
+// K-major (its transpose bit is for 16-bit types only), so V must reach shared
+// memory transposed.  A pre-pass (`tf32_split_kv`) writes K's hi and lo ([B,
+// Tk, Hkv, D]) and V^T's hi and lo ([B, Hkv, D, Tk rounded up to 8]) once a
+// call into a workspace the caller allocates (4 B Tk Hkv D floats, 0.13 GB at
+// qwen2-7b's shape), rather than once for each of the G query heads and query
+// tiles that read them; within each 8 keys V^T holds keys 0 2 4 6 1 3 5 7, so
+// that P's A fragments come straight from the S accumulator (a thread holds
+// keys 2t and 2t + 1 of its rows; the TF32 A fragment wants columns t and t +
+// 4).  The main kernel has the bf16 kernel's structure with other tiles: items
+// of (b, query head, 128 rows), one block per SM walking them longest causal
+// rows first, a TMA producer and two 64-row consumer warpgroups taking turns to
+// issue their products (a consumer waits for its own scores before P V: the
+// registers hold no second tile).  Shared memory decides the tiles: Q for 128
+// rows is 64 KB, a 64-key tile of K's hi and lo 64 KB and of V^T's hi and lo 64
+// KB, so 192 KB of the 227 KB with one stage each (a 128-key tile, or a second
+// stage, would need 256 KB).  K and V have their own full/empty barriers, so
+// K's next tile loads while P V runs and V's while the scores run.  A consumer
+// splits its Q rows once an item: hi into registers (the A fragments of hi(Q)
+// hi(K) and hi(Q) lo(K), 64 registers at D = 128), lo back over Q in shared
+// memory (A of lo(Q) hi(K)), then per tile issues the 3 x D / 8 score products
+// (m64n64k8), runs the online softmax (log2 units, ex2.approx; masks only on
+// diagonal, window-edge and ragged tiles; hidden tiles skipped), splits P in
+// registers and issues the 3 x 8 P V products (m64n128k8, or n64 for D <= 64).
+// D is padded to 64 or 128 by TMA's zero fill, so D = 12, 60 or 120 multiply
+// zeros; the epilogue writes f32 straight from registers (no staging buffer
+// fits).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,221 +102,7 @@
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 256;
 constexpr int kMaxD = 128;
-constexpr int kLdp = kBK + 4;  // row stride of the probability tile
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-// rows [0, 64) of a tensor whose rows are `stride` elements apart -> an
-// f32 tile [64][ldd] in shared memory; rows at or past `nvalid` are zeros
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t stride, int nvalid, int D,
-                                          int ldd) {
-  const int per_row = D >> 2;
-  for (int idx = threadIdx.x; idx < kBQ * per_row; idx += kThreads) {
-    const int r = idx / per_row;
-    const int c = (idx - r * per_row) << 2;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < nvalid) x = load4(src + r * stride + c);
-    store4(dst + r * ldd + c, x);
-  }
-}
-
-__device__ __forceinline__ float fma4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float get(float4 a, int e) {
-  return e == 0 ? a.x : e == 1 ? a.y : e == 2 ? a.z : a.w;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Tq,
-                       int Tk, int Hq, int Hkv, int D, float scale,
-                       int causal, int window, int q_offset) {
-  extern __shared__ __align__(16) float smem[];
-  const int ldd = D + 4;
-  float* qs = smem;              // [64][ldd]  Q tile, whole loop
-  float* kvs = qs + kBQ * ldd;   // [64][ldd]  K tile, then V tile
-  float* ps = kvs + kBK * ldd;   // [64][kLdp] probabilities
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = qt * kBQ;
-  const int nq = min(kBQ, Tq - q0);
-  const int64_t qstride = static_cast<int64_t>(Hq) * D;
-  const int64_t kstride = static_cast<int64_t>(Hkv) * D;
-  const int64_t qoff = (static_cast<int64_t>(b) * Tq + q0) * qstride +
-                       static_cast<int64_t>(h) * D;
-  const int64_t koff = static_cast<int64_t>(b) * Tk * kstride +
-                       static_cast<int64_t>(hk) * D;
-
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4;  // rows 4 rg .. 4 rg + 3
-  const int cg = tid & 15;  // score columns cg + 16 j
-  const int d0 = cg << 2;   // output columns d0 .. d0 + 3
-  const int d1 = 64 + d0;   // and d1 .. d1 + 3
-  const bool has0 = d0 < D;
-  const bool has1 = d1 < D;
-
-  load_tile(qs, q + qoff, qstride, nq, D, ldd);
-
-  // the key span that some row of this block may see
-  const int qmin = q0 + q_offset;
-  const int qmax = q0 + nq - 1 + q_offset;
-  const int k_end = causal ? min(Tk, qmax + 1) : Tk;
-  const int k_begin = window > 0 ? max(0, qmin - window + 1) : 0;
-  const int t_begin = k_begin / kBK;
-  const int t_end = k_end > 0 ? (k_end + kBK - 1) / kBK : 0;
-
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    const int nk = min(kBK, Tk - k0);
-    __syncthreads();  // the last tile's V reads are done
-    load_tile(kvs, k + koff + k0 * kstride, kstride, nk, D, ldd);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = load4(qs + (rg * 4 + i) * ldd + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = load4(kvs + (cg + 16 * j) * ldd + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fma4(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = rg * 4 + i;
-      const int qpos = q0 + row + q_offset;
-      bool ok[4];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = cg + 16 * j;
-        const int kpos = k0 + col;
-        ok[j] = row < nq && col < nk && (!causal || kpos <= qpos) &&
-                (window <= 0 || kpos > qpos - window);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        ps[row * kLdp + cg + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
-    }
-    __syncthreads();  // scores have read K; P is written
-    load_tile(kvs, v + koff + k0 * kstride, kstride, nk, D, ldd);
-    __syncthreads();
-
-    for (int c = 0; c < kBK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = load4(ps + (rg * 4 + i) * kLdp + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        const float* vrow = kvs + (c + cc) * ldd;
-        const float4 v0 = has0 ? load4(vrow + d0) : make_float4(0, 0, 0, 0);
-        const float4 v1 = has1 ? load4(vrow + d1) : make_float4(0, 0, 0, 0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = get(pv[i], cc);
-          acc[i][0] = fmaf(p, v0.x, acc[i][0]);
-          acc[i][1] = fmaf(p, v0.y, acc[i][1]);
-          acc[i][2] = fmaf(p, v0.z, acc[i][2]);
-          acc[i][3] = fmaf(p, v0.w, acc[i][3]);
-          acc[i][4] = fmaf(p, v1.x, acc[i][4]);
-          acc[i][5] = fmaf(p, v1.y, acc[i][5]);
-          acc[i][6] = fmaf(p, v1.z, acc[i][6]);
-          acc[i][7] = fmaf(p, v1.w, acc[i][7]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = rg * 4 + i;
-    if (row >= nq) continue;
-    const float den = fmaxf(l[i], 1e-20f);
-    T* orow = o + qoff + row * qstride;
-    if (has0)
-      store4(orow + d0, make_float4(acc[i][0] / den, acc[i][1] / den,
-                                    acc[i][2] / den, acc[i][3] / den));
-    if (has1)
-      store4(orow + d1, make_float4(acc[i][4] / den, acc[i][5] / den,
-                                    acc[i][6] / den, acc[i][7] / den));
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Tq, int Tk, int Hq, int Hkv, int D, float scale,
-                   int causal, int window, int q_offset,
-                   cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(kBQ + kBK) * (D + 4) + kBQ * kLdp) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, Hq, B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Tq, Tk, Hq, Hkv, D, scale,
-      causal, window, q_offset);
-  return cudaGetLastError();
-}
 
 // ---- bf16: wgmma on the tensor cores, fed by TMA ----------------------
 
@@ -879,14 +687,541 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---- f32: 3xTF32 on wgmma, fed by TMA ---------------------------------
+
+constexpr int kTKeys = 64;  // keys per K/V tile
+constexpr int kTf32Threads = kWgThreads * (1 + kConsumers);
+constexpr int kTBox = kTKeys * kRowBytes;  // 64 rows x 32 f32 columns
+constexpr int kSplitKeys = 32;             // keys per pre-pass block
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + (x - hi) exactly, hi rounded to TF32; lo = x - hi, which the
+// tensor cores read to its top 19 bits (an error of 2^-21 of x), or
+// rounded to TF32 in turn where that costs nothing (2^-22)
+template <bool kRoundLo>
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32(x);
+  const float rest = x - __uint_as_float(hi);
+  lo = kRoundLo ? tf32(rest) : __float_as_uint(rest);
+}
+
+// the slot of key r of an 8-key group in V^T: keys 0 2 4 6 1 3 5 7
+__device__ __forceinline__ int vt_key(int slot) {
+  return slot < 4 ? 2 * slot : 2 * (slot - 4) + 1;
+}
+
+// K -> hi, lo in K's layout [B, Tk, Hkv, D]; V -> hi, lo of V^T
+// [B, Hkv, D, Tk8], keys permuted within each 8 (zeros past Tk)
+__global__ void __launch_bounds__(256)
+tf32_split_kv(const float* __restrict__ k, const float* __restrict__ v,
+              float* __restrict__ khi, float* __restrict__ klo,
+              float* __restrict__ vhi, float* __restrict__ vlo, int Tk,
+              int Tk8, int Hkv, int D) {
+  __shared__ float tile[kSplitKeys][kMaxD + 1];  // V rows of this block
+  const int key0 = blockIdx.x * kSplitKeys;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int64_t kstride = static_cast<int64_t>(Hkv) * D;
+  const int64_t base = static_cast<int64_t>(b) * Tk * kstride +
+                       static_cast<int64_t>(hk) * D;
+  for (int idx = threadIdx.x; idx < kSplitKeys * D; idx += blockDim.x) {
+    const int r = idx / D;
+    const int c = idx - r * D;
+    const int key = key0 + r;
+    float vv = 0.f;
+    if (key < Tk) {
+      const int64_t off = base + key * kstride + c;
+      uint32_t hi, lo;
+      tf32_split<true>(k[off], hi, lo);
+      khi[off] = __uint_as_float(hi);
+      klo[off] = __uint_as_float(lo);
+      vv = v[off];
+    }
+    tile[r][c] = vv;
+  }
+  __syncthreads();
+  const int64_t vbase = (static_cast<int64_t>(b) * Hkv + hk) * D * Tk8;
+  for (int idx = threadIdx.x; idx < kSplitKeys * D; idx += blockDim.x) {
+    const int d = idx / kSplitKeys;
+    const int p = idx - d * kSplitKeys;
+    if (key0 + p >= Tk8) continue;
+    uint32_t hi, lo;
+    tf32_split<true>(tile[(p & ~7) | vt_key(p & 7)][d], hi, lo);
+    const int64_t off = vbase + static_cast<int64_t>(d) * Tk8 + key0 + p;
+    vhi[off] = __uint_as_float(hi);
+    vlo[off] = __uint_as_float(lo);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T in TF32, A's fragment in
+// registers (a[0..3]), B K-major in shared memory
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t* a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t* a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WG_D64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 64] (+)= A[64 x 8] B[64 x 8]^T in TF32, both K-major in shared
+// memory; accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b,
+                                                  int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WG_R32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : WG_D32
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// NB = 32-column boxes of D: 2 for D <= 64, 4 for D <= 128.  K-major
+// tiles advance 32 bytes (8 TF32 values) a k-step within a box.
+
+// S = lo(Q) hi(K) + hi(Q) lo(K) + hi(Q) hi(K) for one 64-key tile, the
+// small terms first: the tensor cores align each step's sum to its
+// largest term, so small terms added to a large sum lose their low bits
+template <int NB>
+__device__ __forceinline__ void issue_scores_tf32(
+    float (&sc)[32], const uint32_t (&qh)[16 * NB], uint32_t q_lo,
+    uint32_t k_hi, uint32_t k_lo) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_tf32_ss_n64(sc,
+                      smem_desc(q_lo + (kk / 4) * kQBox + (kk % 4) * 32, 16),
+                      smem_desc(k_hi + (kk / 4) * kTBox + (kk % 4) * 32, 16),
+                      kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_tf32_rs_n64(sc, &qh[4 * kk],
+                      smem_desc(k_lo + (kk / 4) * kTBox + (kk % 4) * 32, 16),
+                      1);
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk)
+    wgmma_tf32_rs_n64(sc, &qh[4 * kk],
+                      smem_desc(k_hi + (kk / 4) * kTBox + (kk % 4) * 32, 16),
+                      1);
+}
+
+// O += lo(P) hi(V) + hi(P) lo(V) + hi(P) hi(V) for one 64-key tile (small
+// terms first), P's fragments from registers, V^T in two 32-key boxes of
+// 32 NB rows
+template <int NB>
+__device__ __forceinline__ void issue_pv_tf32(float (&o)[16 * NB],
+                                              const uint32_t (&ph)[32],
+                                              const uint32_t (&pl)[32],
+                                              uint32_t v_hi, uint32_t v_lo) {
+  constexpr int kVBox = 32 * NB * kRowBytes;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int kk = 0; kk < kTKeys / 8; ++kk) {
+      const uint64_t vd = smem_desc(
+          (t == 1 ? v_lo : v_hi) + (kk / 4) * kVBox + (kk % 4) * 32, 16);
+      const uint32_t* a = t == 0 ? &pl[4 * kk] : &ph[4 * kk];
+      if constexpr (NB == 4)
+        wgmma_tf32_rs_n128(o, a, vd);
+      else
+        wgmma_tf32_rs_n64(o, a, vd, 1);
+    }
+}
+
+// one tile's online softmax over this thread's two rows (as
+// `online_softmax`, for 64 keys)
+__device__ __forceinline__ void softmax_tf32(
+    float (&sc)[32], float (&m)[2], float (&l)[2], float (&alpha)[2],
+    float scale_log2, bool masked, int k0, int qpos0, int cq, int Tk,
+    int causal, int window) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + cq + (e & 1);
+        const int qpos = qpos0 + 8 * (e >> 1);
+        const bool ok = kpos < Tk && (!causal || kpos <= qpos) &&
+                        (window <= 0 || kpos > qpos - window);
+        if (!ok) sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    base[r] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = ex2(m[r] - base[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -base[r]));
+      l[r] += sc[4 * j + e];
+    }
+}
+
+// the probabilities as hi and lo A fragments of P V: k-step j's fragment
+// is rows (g, g + 8) x slots (t, t + 4) = keys 8 j + 2 t and + 1, which
+// are accumulator elements 4 j + {0, 2, 1, 3}
+__device__ __forceinline__ void split_p(uint32_t (&ph)[32],
+                                        uint32_t (&pl)[32],
+                                        const float (&sc)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      tf32_split<false>(sc[4 * j + ((e & 1) << 1) + (e >> 1)],
+                        ph[4 * j + e], pl[4 * j + e]);
+}
+
+// as `item_at`, with tiles of `keys` keys
+__device__ __forceinline__ Item item_with(int L, int Tq, int Tk, int Hq,
+                                          int B, int causal, int window,
+                                          int q_offset, int keys) {
+  const int n_qt = (Tq + kRows * kConsumers - 1) / (kRows * kConsumers);
+  Item it;
+  const int r = L % (Hq * B);
+  it.q0 = (n_qt - 1 - L / (Hq * B)) * kRows * kConsumers;
+  it.h = r % Hq;
+  it.b = r / Hq;
+  const int qmin = it.q0 + q_offset;
+  const int qmax = min(it.q0 + kRows * kConsumers, Tq) - 1 + q_offset;
+  const int k_end = causal ? min(Tk, qmax + 1) : Tk;
+  const int k_begin = window > 0 ? max(0, qmin - window + 1) : 0;
+  it.t_begin = k_begin / keys;
+  it.n_tiles = k_end > k_begin ? (k_end + keys - 1) / keys - it.t_begin : 0;
+  return it;
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kTf32Threads, 1)
+flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_khi,
+                            const __grid_constant__ CUtensorMap tm_klo,
+                            const __grid_constant__ CUtensorMap tm_vhi,
+                            const __grid_constant__ CUtensorMap tm_vlo,
+                            float* __restrict__ out, int B, int Tq, int Tk,
+                            int Hq, int Hkv, int D, float scale_log2,
+                            int causal, int window, int q_offset) {
+  constexpr int kVBox = 32 * NB * kRowBytes;  // 32 keys x 32 NB rows of d
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq = smem;                          // [consumer][box] Q, then lo
+  uint8_t* sk = sq + kConsumers * NB * kQBox;  // [hi, lo][box]
+  uint8_t* sv = sk + 2 * NB * kTBox;           // [hi, lo][32-key box]
+  const uint32_t bars = smem_u32(sv + 4 * kVBox);
+  const uint32_t q_full = bars;  // mbarriers, 8 bytes each
+  const uint32_t q_empty = bars + 8;
+  const uint32_t k_full = bars + 16;
+  const uint32_t k_empty = bars + 24;
+  const uint32_t v_full = bars + 32;
+  const uint32_t v_empty = bars + 40;
+  const int n_items =
+      (Tq + kRows * kConsumers - 1) / (kRows * kConsumers) * Hq * B;
+  const int group = Hq / Hkv;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(q_empty, kConsumers * 4);  // one arrival a consumer warp
+    mbar_init(k_empty, kConsumers * 4);
+    mbar_init(v_empty, kConsumers * 4);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (tid == 0) {
+      int tiles = 0, qs = 0;  // tiles and Q buffers used so far
+      for (int L = blockIdx.x; L < n_items; L += gridDim.x) {
+        const Item w = item_with(L, Tq, Tk, Hq, B, causal, window, q_offset,
+                                 kTKeys);
+        if (w.n_tiles == 0) continue;
+        const int hk = w.h / group;
+        mbar_wait(q_empty, (qs++ & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(q_full, kConsumers * NB * kQBox);
+        for (int c = 0; c < kConsumers * NB; ++c)
+          tma_load(&tm_q, smem_u32(sq + c * kQBox), q_full, 32 * (c % NB),
+                   w.h, w.q0 + (c / NB) * kRows, w.b);
+        for (int i = 0; i < w.n_tiles; ++i, ++tiles) {
+          const uint32_t phase = tiles & 1;
+          const int k0 = (w.t_begin + i) * kTKeys;
+          mbar_wait(k_empty, phase ^ 1);
+          mbar_expect_tx(k_full, 2 * NB * kTBox);
+          for (int c = 0; c < NB; ++c) {
+            tma_load(&tm_khi, smem_u32(sk + c * kTBox), k_full, 32 * c, hk,
+                     k0, w.b);
+            tma_load(&tm_klo, smem_u32(sk + (NB + c) * kTBox), k_full,
+                     32 * c, hk, k0, w.b);
+          }
+          mbar_wait(v_empty, phase ^ 1);
+          mbar_expect_tx(v_full, 4 * kVBox);
+          for (int c = 0; c < 2; ++c) {
+            tma_load(&tm_vhi, smem_u32(sv + c * kVBox), v_full, k0 + 32 * c,
+                     0, hk, w.b);
+            tma_load(&tm_vlo, smem_u32(sv + (2 + c) * kVBox), v_full,
+                     k0 + 32 * c, 0, hk, w.b);
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup cw: rows q0 + 64 cw .. + 63 of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int cw = wg - 1;
+    const int ltid = tid - wg * kWgThreads;
+    const int warp = ltid / 32;
+    const int lane = ltid % 32;
+    const int r_lo = 16 * warp + lane / 4;  // rows r_lo and r_lo + 8
+    const int tq = lane % 4;
+    const int cq = 2 * tq;  // accumulator columns 8 j + cq, + 1
+    const int my_turn = 3 + cw;  // the consumers take turns to issue
+    const int their_turn = 4 - cw;
+    constexpr int kPair = kConsumers * kWgThreads;
+    if (cw == 1) bar_arrive(3, kPair);  // consumer 0 goes first
+    uint8_t* my_q = sq + cw * NB * kQBox;
+    const uint32_t q_lo = smem_u32(my_q);
+    const uint32_t k_hi = smem_u32(sk);
+    const uint32_t k_lo = smem_u32(sk + NB * kTBox);
+    const uint32_t v_hi = smem_u32(sv);
+    const uint32_t v_lo = smem_u32(sv + 2 * kVBox);
+    constexpr int kOut = 16 * NB;  // accumulator floats: 64 x 32 NB
+    int tiles = 0, qs = 0;  // as the producer counts them
+
+    for (int L = blockIdx.x; L < n_items; L += gridDim.x) {
+      const Item w = item_with(L, Tq, Tk, Hq, B, causal, window, q_offset,
+                               kTKeys);
+      const int n = w.n_tiles;
+      const int row0 = w.q0 + cw * kRows;
+      const int qpos0 = row0 + r_lo + q_offset;
+      const int wq_min = row0 + q_offset;
+      const int wq_max = min(row0 + kRows, Tq) - 1 + q_offset;
+      auto masked = [&](int k0) {
+        return (causal && k0 + kTKeys - 1 > wq_min) ||
+               (window > 0 && k0 <= wq_max - window) || k0 + kTKeys > Tk;
+      };
+      float o[kOut];
+#pragma unroll
+      for (int i = 0; i < kOut; ++i) o[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY};  // running max, log2 units
+      float l[2] = {0.f, 0.f};  // this thread's share of the running sum
+      uint32_t qh[4 * 4 * NB];  // hi(Q) A fragments, k-step kk at 4 kk
+      if (n > 0) {
+        // split this consumer's Q rows: hi into registers, lo in place.
+        // Fragment element e of k-step kk is row r_lo + 8 (e & 1),
+        // column 8 kk + tq + 4 (e >> 1), in its swizzled 32-column box.
+        mbar_wait(q_full, qs++ & 1);
+#pragma unroll
+        for (int kk = 0; kk < 4 * NB; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r_lo + 8 * (e & 1);
+            const int col = 8 * (kk % 4) + tq + 4 * (e >> 1);  // in box
+            float* p = reinterpret_cast<float*>(
+                my_q + (kk / 4) * kQBox + row * kRowBytes +
+                (((col / 4) ^ (row % 8)) * 16) + (col % 4) * 4);
+            uint32_t lo;
+            tf32_split<false>(*p, qh[4 * kk + e], lo);
+            *p = __uint_as_float(lo);
+          }
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        bar_sync(1 + cw, kWgThreads);
+      }
+      for (int i = 0; i < n; ++i) {
+        const uint32_t ph_bar = (tiles + i) & 1;
+        const int k0 = (w.t_begin + i) * kTKeys;
+        float sc[32];
+        mbar_wait(k_full, ph_bar);
+        bar_sync(my_turn, kPair);
+        wgmma_fence();
+        issue_scores_tf32<NB>(sc, qh, q_lo, k_hi, k_lo);
+        wgmma_commit();
+        bar_arrive(their_turn, kPair);
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(qh);
+        if (lane == 0) {
+          mbar_arrive(k_empty);
+          if (i == n - 1) mbar_arrive(q_empty);  // Q is free for the next
+        }
+        float alpha[2];
+        softmax_tf32(sc, m, l, alpha, scale_log2, masked(k0), k0, qpos0, cq,
+                     Tk, causal, window);
+#pragma unroll
+        for (int j = 0; j < kOut / 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[4 * j + e] *= alpha[e >> 1];
+        uint32_t ph[32], pl[32];
+        split_p(ph, pl, sc);
+        mbar_wait(v_full, ph_bar);
+        bar_sync(my_turn, kPair);
+        wgmma_fence();
+        issue_pv_tf32<NB>(o, ph, pl, v_hi, v_lo);
+        wgmma_commit();
+        bar_arrive(their_turn, kPair);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(ph);
+        fence_regs(pl);
+        if (lane == 0) mbar_arrive(v_empty);
+      }
+      tiles += n;
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = 1.f / fmaxf(l[r], 1e-20f);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + r_lo + 8 * r;
+        if (row >= Tq) continue;
+        float* orow = out + ((static_cast<int64_t>(w.b) * Tq + row) * Hq +
+                             w.h) * D;
+#pragma unroll
+        for (int j = 0; j < kOut / 4; ++j) {
+          const int col = 8 * j + cq;
+          if (col < D)
+            *reinterpret_cast<float2*>(orow + col) =
+                make_float2(o[4 * j + 2 * r] * inv[r],
+                            o[4 * j + 2 * r + 1] * inv[r]);
+        }
+      }
+    }
+  }
+}
+
+// a row-major f32 tensor of extents dims (innermost first) as a 4-D map
+// with boxes of box[] elements, 128-byte swizzled (box[0] = 32 columns);
+// reads past an extent are zeros
+bool make_map_f32(EncodeTiled encode, CUtensorMap* map, const void* base,
+                  const cuuint64_t (&dims)[4], const cuuint32_t (&box)[4]) {
+  const cuuint64_t strides[3] = {dims[0] * 4, dims[0] * dims[1] * 4,
+                                 dims[0] * dims[1] * dims[2] * 4};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        void* ws, int B, int Tq, int Tk, int Hq, int Hkv,
+                        int D, float scale, int causal, int window,
+                        int q_offset, cudaStream_t stream) {
+  if (Tk == 0)  // no key: every row gives 0
+    return cudaMemsetAsync(
+        o, 0, static_cast<size_t>(B) * Tq * Hq * D * 4, stream);
+  if (ws == nullptr) return cudaErrorInvalidValue;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const int Tk8 = (Tk + 7) / 8 * 8;
+  const size_t nk = static_cast<size_t>(B) * Tk * Hkv * D;
+  const size_t nv = static_cast<size_t>(B) * Hkv * D * Tk8;
+  float* khi = static_cast<float*>(ws);
+  float* klo = khi + nk;
+  float* vhi = klo + nk;
+  float* vlo = vhi + nv;
+  const dim3 split_grid((Tk8 + kSplitKeys - 1) / kSplitKeys, Hkv, B);
+  tf32_split_kv<<<split_grid, 256, 0, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), khi, klo,
+      vhi, vlo, Tk, Tk8, Hkv, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  using u64 = cuuint64_t;
+  using u32 = cuuint32_t;
+  const u64 dq[4] = {u64(D), u64(Hq), u64(Tq), u64(B)};
+  const u64 dk[4] = {u64(D), u64(Hkv), u64(Tk), u64(B)};
+  const u64 dv[4] = {u64(Tk8), u64(D), u64(Hkv), u64(B)};
+  const u32 bq[4] = {32, 1, u32(kRows), 1};
+  const u32 bk[4] = {32, 1, u32(kTKeys), 1};
+  const u32 bv[4] = {32, u32(32 * NB), 1, 1};
+  CUtensorMap tq, tkh, tkl, tvh, tvl;
+  if (!make_map_f32(encode, &tq, q, dq, bq) ||
+      !make_map_f32(encode, &tkh, khi, dk, bk) ||
+      !make_map_f32(encode, &tkl, klo, dk, bk) ||
+      !make_map_f32(encode, &tvh, vhi, dv, bv) ||
+      !make_map_f32(encode, &tvl, vlo, dv, bv))
+    return cudaErrorInvalidValue;
+  const size_t smem = 1024 + kConsumers * NB * kQBox + 2 * NB * kTBox +
+                      4 * 32 * NB * kRowBytes + 8 * 6;
+  err = cudaFuncSetAttribute(flash_attention_tf32_kernel<NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;  // one block an SM, each walking its items
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long items =
+      static_cast<long long>((Tq + kRows * kConsumers - 1) /
+                             (kRows * kConsumers)) * Hq * B;
+  if (items > 0x7fffffff) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  flash_attention_tf32_kernel<NB><<<grid, kTf32Threads, smem, stream>>>(
+      tq, tkh, tkl, tvh, tvl, static_cast<float*>(o), B, Tq, Tk, Hq, Hkv, D,
+      scale * kLog2e, causal, window, q_offset);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16 (D % 8 == 0: TMA strides are 16-byte
-// multiples).  window <= 0 means none.  Returns the launch's cudaError_t;
-// the caller raises on anything but 0.
+// dtype: 0 = f32 (`ws`: a workspace of 2 B Hkv D (Tk + Tk8) floats, Tk8 = Tk
+// rounded up to 8), 1 = bf16 (D % 8 == 0: TMA strides are 16-byte multiples;
+// `ws` unused).  window <= 0 means none.  Returns the launch's cudaError_t; the
+// caller raises on anything but 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int Tq, int Tk, int Hq,
-                               int Hkv, int D, int dtype, float scale,
+                               void* o, void* ws, int B, int Tq, int Tk,
+                               int Hq, int Hkv, int D, int dtype, float scale,
                                int causal, int window, int q_offset,
                                void* stream) {
   if (B == 0 || Tq == 0 || Hq == 0) return 0;
@@ -895,8 +1230,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, o, B, Tq, Tk, Hq, Hkv, D, scale, causal,
-                         window, q_offset, s);
+    return D <= 64 ? launch_tf32<2>(q, k, v, o, ws, B, Tq, Tk, Hq, Hkv, D,
+                                    scale, causal, window, q_offset, s)
+                   : launch_tf32<4>(q, k, v, o, ws, B, Tq, Tk, Hq, Hkv, D,
+                                    scale, causal, window, q_offset, s);
   if (dtype == 1 && D % 8 == 0)
     return D <= 64 ? launch_bf16<1>(q, k, v, o, B, Tq, Tk, Hq, Hkv, D, scale,
                                     causal, window, q_offset, s)
@@ -904,3 +1241,4 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                     causal, window, q_offset, s);
   return cudaErrorInvalidValue;
 }
+

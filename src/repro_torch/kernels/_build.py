@@ -33,7 +33,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 SIGNATURES = {
     "gather_norm_dot": (_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
     "batched_dot": (_P, _P, _P, _I, _I, _I, _P),
-    "flash_attention": (_P, _P, _P, _P, *(_I,) * 7, _F, _I, _I, _I, _P),
+    "flash_attention": (*(_P,) * 5, *(_I,) * 7, _F, _I, _I, _I, _P),
     "wkv6": (*(_P,) * 8, *(_I,) * 5, _P),
     "mamba_scan": (*(_P,) * 8, *(_I,) * 4, _P),
 }

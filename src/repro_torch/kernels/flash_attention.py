@@ -7,16 +7,20 @@ optional sliding window and a ``q_offset`` (the absolute position of q[0]
 relative to k[0]), skipping the key tiles that the mask hides from every
 row of a query tile.  Unlike the Pallas kernel it takes any Tq and Tk: the
 ragged tails are masked in the kernel.  A row with no visible key gives 0
-(the plain version gives NaN).  f32 runs on the CUDA cores in f32; bf16
-runs on the tensor cores (wgmma, TMA), with the probabilities rounded to
-bf16 for the P V product (``ref.mha_tolerance`` states what that costs).
-The source and its design note are in ``repro_torch/csrc/
+(the plain version gives NaN).  Both types run on the tensor cores
+(wgmma, TMA): bf16 with the probabilities rounded to bf16 for the P V
+product (``ref.mha_tolerance`` states what that costs); f32 in TF32 with
+every operand split into a TF32 high part and the rest, three products
+for each f32 one (3xTF32, ~2^-21 relative, within the f32 rule), after a
+pre-pass that writes K's and V^T's parts into a workspace this wrapper
+allocates.  The source and its design note are in ``repro_torch/csrc/
 flash_attention.cu``; the plain version is ``repro_torch.kernels.ref.
 mha_ref``.
 
 The wrapper checks what the kernel takes and raises on anything else,
-allocates the output, launches on the current stream and raises if the
-launch was refused.  ``LAUNCHES`` counts the launches it makes.
+allocates the output (and the f32 workspace), launches on the current
+stream and raises if the launch was refused.  ``LAUNCHES`` counts the
+launches it makes (one a call; the f32 pre-pass is part of it).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import torch
 from . import _build
 
 LAUNCHES = {"flash_attention": 0}
-MAX_D = 128  # f32: 8 output columns a thread; bf16: two 64-column boxes
+MAX_D = 128  # f32: four 32-column boxes; bf16: two 64-column boxes
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,12 +74,18 @@ def flash_attention(
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    ws = None
+    if q.dtype == torch.float32:  # K's and V^T's TF32 parts, hi and lo
+        tk8 = (Tk + 7) // 8 * 8
+        ws = torch.empty(2 * B * Hkv * D * (Tk + tk8), dtype=torch.float32,
+                         device=q.device)
     fn = _build.load("flash_attention").flash_attention
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 B, Tq, Tk, Hq, Hkv, D, _DTYPE_CODE[q.dtype], D ** -0.5,
-                 int(causal), window or 0, q_offset, stream)
+                 None if ws is None else ws.data_ptr(), B, Tq, Tk, Hq, Hkv,
+                 D, _DTYPE_CODE[q.dtype], D ** -0.5, int(causal),
+                 window or 0, q_offset, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     if not torch.cuda.is_current_stream_capturing():

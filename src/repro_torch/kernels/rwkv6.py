@@ -24,7 +24,7 @@ import torch
 from . import _build
 
 LAUNCHES = {"wkv6": 0}
-MAX_N = 128  # thread j keeps column j of the state in registers
+MAX_N = 128  # a block holds its head's N x N state in registers
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -97,13 +97,19 @@ def attn_prefill(p, cfg: ArchConfig, x: torch.Tensor, cache_len: int,
                  backend: str = "auto") -> tuple[torch.Tensor, KVCache]:
     """Prefill: causal attention + a fresh cache of ``cache_len`` slots
     (``min(cache_len, window)`` with a window) holding the last keys and
-    values from slot 0, as the JAX version places them."""
+    values.  Full attention puts them from slot 0; a sliding window puts
+    key p in slot ``p % window``, the ring ``attn_decode`` goes on
+    writing.  The JAX version puts the window's keys from slot 0 too,
+    which is the same ring only when ``T <= window`` or ``T % window ==
+    0``: past that its decode evicts the wrong key."""
     B, T, _ = x.shape
     out, k, v = _causal(p, cfg, x, backend)
     cache = make_cache(cfg, B, cache_len, k.dtype, device=x.device)
     take = min(T, cache.k.shape[1])
-    cache.k[:, :take] = k[:, T - take:]
-    cache.v[:, :take] = v[:, T - take:]
+    src = torch.arange(T - take, T, device=x.device)
+    dst = src % cfg.sliding_window if cfg.sliding_window else src - (T - take)
+    cache.k[:, dst] = k[:, src]
+    cache.v[:, dst] = v[:, src]
     return _out(out, p["wo"]), cache
 
 

@@ -10,7 +10,11 @@ card the bf16 flash kernel is held against the plain version on the same
 bf16 inputs upcast to f32 within ``ref.mha_tolerance``: 2e-4 plus the
 bf16 rounding of its output (2^-8 relative) and of the probabilities it
 multiplies V by on the tensor cores (2^-8 of sum_j p_j |v_j| / l; the
-CPU emulation in ``test_torch_flash_rounding.py`` justifies it).
+CPU emulation in ``test_torch_flash_rounding.py`` justifies it).  The f32
+kernel (3xTF32 on the tensor cores) keeps 2e-4
+(``test_torch_flash_tf32_rounding.py`` emulates its arithmetic).  The
+bf16 ``wkv6`` output is held against the plain version on the inputs
+upcast to f32 within 3e-4 plus its own bf16 rounding (2^-8 relative).
 """
 import os
 import shutil
@@ -274,12 +278,59 @@ def test_cuda_flash_attention_bf16_needs_d_multiple_of_8(cuda_device, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,T,N", [(2, 4, 64, 16), (2, 3, 100, 64),
-                                     (1, 2, 37, 128), (1, 2, 16, 8)])
+@pytest.mark.parametrize("D", [12, 60])
+def test_cuda_flash_attention_f32_small_d(cuda_device, D):
+    """D % 8 != 0 in f32: the TF32 products take 8 columns a step, so the
+    kernel multiplies TMA's zero fill past D; within 2e-4 of the plain
+    version, causal and not, with a window."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v = (a.to(cuda_device) for a in _t(*_attn_inputs(
+        2, 100, 100, 4, 2, D, seed=D)))
+    for kw in (dict(causal=True), dict(causal=False, window=30)):
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        exp = tref.mha_ref(q, k, v, **kw)
+        err = float((got - exp).abs().max())
+        assert err <= tref.mha_tolerance(exp, None, torch.float32), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [32, 64])
+def test_cuda_wkv6_bf16_rkv(cuda_device, N):
+    """bf16 r/k/v (w, u, the state f32): y in bf16 within 3e-4 plus its
+    own rounding (2^-8 relative) of the plain version on the inputs
+    upcast to f32, the final state within 3e-4."""
+    from repro_torch.kernels.rwkv6 import wkv6
+
+    r, k, v, w, u, s0 = (a.to(cuda_device) for a in _t(*_wkv_inputs(
+        2, 3, 50, N, seed=N + 1, lo=0.2)))
+    r, k, v = (a.to(torch.bfloat16) for a in (r, k, v))
+    y, s = wkv6(r, k, v, w, u, state=s0)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    ey, es = tref.wkv6_ref(r.float(), k.float(), v.float(), w, u, state=s0)
+    torch.testing.assert_close(y.float(), ey, rtol=2.0 ** -8, atol=3e-4)
+    torch.testing.assert_close(s, es, rtol=3e-4, atol=3e-4)
+
+
+WKV6_CHUNK = {32: 16, 64: 16, 128: 8}  # N -> steps the kernel stages a chunk
+WKV6_CASES = (  # (B, H, T, N)
+    [(2, 4, 64, 16), (2, 3, 100, 64), (1, 2, 37, 128), (1, 2, 16, 8)]
+    # T at the chunk edges: C - 1, C, C + 1, 2 C + 5
+    + [(2, 3, T, N) for N, C in WKV6_CHUNK.items()
+       for T in (C - 1, C, C + 1, 2 * C + 5)]
+    # N no multiple of the staged rows' width: idle rows and columns
+    + [(2, 2, 45, 48), (2, 2, 45, 100)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,T,N", WKV6_CASES)
 @pytest.mark.parametrize("with_state", [False, True])
 def test_cuda_wkv6_matches_plain(cuda_device, B, H, T, N, with_state):
     """The kernel against the step recurrence (same arithmetic, another
-    order) and the chunked closed form, at ragged T."""
+    order) and the chunked closed form, at ragged T, at the edges of the
+    chunks the kernel stages and at N that is no power of two."""
     from repro_torch.kernels.rwkv6 import LAUNCHES, wkv6
 
     r, k, v, w, u, s0 = (a.to(cuda_device) for a in _t(*_wkv_inputs(

@@ -82,7 +82,10 @@ def test_all_archs_registered():
 def test_forward_matches_jax(arch, backends):
     """train / prefill / decode logits, one prompt of T tokens then one
     decoded token; T > window for the sliding-window arch, so its decode
-    runs on the ring the prefill left."""
+    runs on the ring the prefill left.  That T is a multiple of the
+    window: the reference's prefill leaves the ring right only then
+    (``test_window_decode_after_prefill_matches_forward`` holds the port
+    at other T)."""
     jb, tb = backends
     if arch == JAMBA:  # the reference's Pallas scan cannot run (pl.store)
         jb = "ref"
@@ -91,7 +94,7 @@ def test_forward_matches_jax(arch, backends):
     jv = jax.tree.map(jnp.asarray, vals)
     params = from_jax_params(tcfg, vals, device="cpu")
     atol = 3e-4 if cfg.rwkv is not None else 2e-5
-    B, T = 2, (24 if cfg.sliding_window else 16)
+    B, T = 2, (2 * cfg.sliding_window if cfg.sliding_window else 16)
     S = T + 8
     x = inputs(cfg, B, T + 1)
     prompt, nxt = x[:, :T], x[:, T:T + 1]
@@ -123,6 +126,36 @@ def test_forward_matches_jax(arch, backends):
                     **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=atol)
+
+
+@pytest.mark.parametrize("T", [16, 20, 32, 33])
+def test_window_decode_after_prefill_matches_forward(T):
+    """A sliding-window prefill of T tokens (window 16 here, T % 16 in
+    {0, 4, 0, 1}) then three decoded tokens: each decode's logits equal
+    the port's own full forward over the prompt and the tokens so far, at
+    the last position, within the 2e-5 of the attention archs (what the
+    T % window == 0 cases meet).  The prefill puts key p in ring slot
+    p % window, where decode goes on writing; the reference's prefill
+    puts the window's keys from slot 0, so its decode evicts the wrong
+    key when T % window != 0."""
+    arch = "h2o-danube-3-4b"
+    cfg, tcfg = reduced_cfgs(arch)
+    assert tcfg.sliding_window == 16
+    params = from_jax_params(tcfg, noisy_values(cfg), device="cpu")
+    B, steps = 2, 3
+    S = T + steps
+    x = torch.from_numpy(inputs(cfg, B, T + steps, seed=T))
+    kw = dict(backend="auto", compute_dtype=torch.float32)
+    tc = init_cache(tcfg, B, S, torch.float32, device="cpu")
+    _, tc = forward(params, tcfg, x[:, :T], mode="prefill", caches=tc,
+                    cache_len=S, **kw)
+    for t in range(T, T + steps):
+        pos = torch.full((B,), t, dtype=torch.int32)
+        got, tc = forward(params, tcfg, x[:, t:t + 1], mode="decode",
+                          caches=tc, pos=pos, cache_len=S, **kw)
+        full, _ = forward(params, tcfg, x[:, :t + 1], mode="train", **kw)
+        np.testing.assert_allclose(got[:, -1].numpy(), full[:, -1].numpy(),
+                                   rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "rwkv6-1.6b", JAMBA,
