@@ -120,7 +120,10 @@ before the path and reads the counters just after it:
      larger); for kernels of a few us those times are the host's enqueue
      rate, so each is also timed device to device (``device_ms``,
      ``plain_device_ms``, ``library_device_ms``): the 20 launches captured
-     as one CUDA graph, its replay timed by CUDA events.
+     as one CUDA graph, its replay timed by CUDA events (for
+     ``batched_dot``, the kernel's, the plain version's and
+     ``torch.bmm``'s graphs replayed in turns, 11 rounds, so that the
+     ratio compares them under the same clock).
      ``flash_attention`` at qwen2-7b's prefill (B 8, T 2,048,
      Hq 28, Hkv 4, D 128) in f32 and bf16, at Jamba's (64/8 heads, bf16),
      at T = 1,000 (the ragged tail) in f32 and bf16, at h2o-danube-3-4b's
@@ -146,7 +149,11 @@ before the path and reads the counters just after it:
      2e-5 (the JAX package's tolerance for this kernel; no single PyTorch
      call computes it); bound: bytes over 3.35 TB/s or 6 flops per
      (b, t, d, n) over 67 TFLOP/s f32, with the exponentials counted
-     beside it;
+     beside it, and the SFU bound beside that (the exponentials the kernel
+     takes on the SFUs, ``kPoly16`` of every 16 going to the FP32 pipe in
+     its fast form, at 16 a clock per SM at the card's maximum SM clock).
+     ``batched_dot``'s device time is also given as a ratio to
+     ``torch.bmm``'s (``device_to_bmm``, per shape);
   8. report — the kernels JSON line, then the ok line last.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
@@ -852,33 +859,48 @@ def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
 
 
 def _graph_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
-    """Median per-launch device ms of ``fn(i)``: ``reps`` launches
-    captured as one CUDA graph, its replay timed by CUDA events, so the
-    host's enqueue is not in the time (for kernels of a few us, where
-    ``_time_ms`` measures the host)."""
+    """``_graph_ms_alternating`` of ``fn`` alone."""
+    return _graph_ms_alternating((fn,), n_in, reps, rounds)[0]
+
+
+def _graph_ms_alternating(fns, n_in: int, reps: int = 20,
+                          rounds: int = 11) -> list:
+    """Median per-launch device ms of each ``fn(i)`` of ``fns``: ``reps``
+    launches captured as one CUDA graph, its replay timed by CUDA events,
+    so the host's enqueue is not in the time (for kernels of a few us,
+    where ``_time_ms`` measures the host).  The graphs are replayed in
+    turns, round by round, in an order that alternates, so that functions
+    compared in one run see the same clock and the same neighbours."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capturing stream
-        for i in range(3):
-            fn(i % n_in)
+        for fn in fns:
+            for i in range(3):
+                fn(i % n_in)
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(reps):
-            fn(i % n_in)
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    graphs = []
+    for fn in fns:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(reps):
+                fn(i % n_in)
+        graphs.append(graph)
+    for graph in graphs:
         graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graphs[j].replay()
+            end.record()
+            torch.cuda.synchronize()
+            times[j].append(start.elapsed_time(end) / reps)
+    del graphs
+    return [statistics.median(t) for t in times]
 
 
 def _bound(nbytes: int, flops: int,
@@ -978,21 +1000,25 @@ def kernels_batched_dot(gen) -> dict:
         plain = lambda i: batched_dot_ref(vs[i], q)  # noqa: E731
         lib = lambda i: torch.bmm(vs[i], q[:, :, None])  # noqa: E731
         ms, plain_ms, lib_ms = (_time_ms(f, 20) for f in (kern, plain, lib))
-        dev_ms, plain_dev_ms, lib_dev_ms = (_graph_ms(f, 20)
-                                            for f in (kern, plain, lib))
+        dev_ms, plain_dev_ms, lib_dev_ms = _graph_ms_alternating(
+            (kern, plain, lib), 20)
         bound_ms, bound_by = _bound((B * K * D + B * D + B * K) * 4,
                                     2 * B * K * D)
         cases.append({"B": B, "K": K, "D": D, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "device_ms": dev_ms,
                       "plain_device_ms": plain_dev_ms,
-                      "library_device_ms": lib_dev_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by})
+                      "library_device_ms": lib_dev_ms,
+                      "device_to_bmm": dev_ms / lib_dev_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"{tag}: {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, "
               f"torch.bmm {lib_ms * 1e3:.2f} us); device, graph-replayed: "
               f"{dev_ms * 1e3:.3f} us (plain {plain_dev_ms * 1e3:.3f} us, "
-              f"torch.bmm {lib_dev_ms * 1e3:.3f} us), bound "
-              f"{bound_ms * 1e3:.3f} us ({bound_by})")
-    return {"cases": cases, "max_abs_err": max_err}
+              f"torch.bmm {lib_dev_ms * 1e3:.3f} us; kernel/torch.bmm "
+              f"{dev_ms / lib_dev_ms:.3f}), bound {bound_ms * 1e3:.3f} us "
+              f"({bound_by})")
+    return {"cases": cases, "max_abs_err": max_err,
+            "device_to_bmm": {f"B{c['B']} K{c['K']} D{c['D']}":
+                              c["device_to_bmm"] for c in cases}}
 
 
 def _visible_keys(Tq: int, Tk: int, window, q_offset: int) -> int:
@@ -1133,11 +1159,33 @@ def kernels_wkv6(gen) -> dict:
     return {"cases": out, "max_abs_err": max_err}
 
 
+def _mamba_poly16() -> int:
+    """``kPoly16`` of ``csrc/mamba_scan.cu``: of every 16 exponentials,
+    those the kernel takes on the FP32 pipe (the rest on the SFUs)."""
+    import re
+
+    src = open(os.path.join(HERE, "src", "repro_torch", "csrc",
+                            "mamba_scan.cu")).read()
+    return int(re.search(r"constexpr int kPoly16 = (\d+);", src).group(1))
+
+
 def kernels_mamba(gen) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.ref import mamba_scan_ref
+
+    poly16 = _mamba_poly16()
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    # the SFUs retire 16 exponentials a clock per SM
+    sfu_per_s = 16 * torch.cuda.get_device_properties(0).multi_processor_count \
+        * max_mhz * 1e6
+    print(f"mamba_scan: {16 - poly16}/16 of the exponentials on the SFUs "
+          f"(ex2.approx), {poly16}/16 on the FP32 pipe (polynomial); SFU "
+          f"bound at the max SM clock, {max_mhz:.0f} MHz")
 
     cases = [("jamba prefill", 8, 2048, 16384, 16),
              ("T=1000", 8, 1000, 16384, 16),
@@ -1174,14 +1222,19 @@ def kernels_mamba(gen) -> dict:
                   + 2 * B * di * N) * 4
         exps = B * T * di * N
         bound_ms, bound_by = _bound(nbytes, 6 * exps)
+        sfu_ms = exps * (16 - poly16) / 16 / sfu_per_s * 1e3
         out.append({"case": name, "B": B, "T": T, "di": di, "N": N,
                     "ms": ms, "plain_ms": plain_ms, "library_ms": None,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "exps": exps, "max_abs_err": case_err})
+                    "sfu_bound_ms": sfu_ms, "exps": exps,
+                    "exps_on_fma_pipe": poly16 / 16,
+                    "max_abs_err": case_err})
         print(f"mamba_scan {name} (B {B}, T {T}, di {di}, N {N}): "
               f"{ms:.4f} ms (plain {plain_ms:.3f}), bound {bound_ms:.4f} ms "
               f"({bound_by}, {nbytes} B, {6 * exps / 1e9:.2f} GFLOP, "
-              f"{exps / 1e9:.3f} G exp), max err {case_err:.3e}")
+              f"{exps / 1e9:.3f} G exp); SFU bound {sfu_ms:.4f} ms "
+              f"({16 - poly16}/16 of the exponentials on the SFUs, "
+              f"{poly16}/16 on the FP32 pipe); max err {case_err:.3e}")
         del A, dt, Bm, Cm, x, h0, y, hT, args
         torch.cuda.empty_cache()
     return {"cases": out, "max_abs_err": max_err}
@@ -1249,6 +1302,7 @@ def main() -> int:
          "traced": traced["serve_reference_compact"],
          "max_abs_err": bd["max_abs_err"],
          **{k: b_main[k] for k in keys + dev_keys},
+         "device_to_bmm": bd["device_to_bmm"],
          "shape": {k: b_main[k] for k in ("B", "K", "D")}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1285,6 +1339,8 @@ def main() -> int:
          "max_abs_err": mb["max_abs_err"],
          **{k: mb["cases"][0][k] for k in keys},
          "exps": mb["cases"][0]["exps"],
+         "sfu_bound_ms": mb["cases"][0]["sfu_bound_ms"],
+         "exps_on_fma_pipe": mb["cases"][0]["exps_on_fma_pipe"],
          "shape": {k: mb["cases"][0][k] for k in ("B", "T", "di", "N")}},
     ]}
     print(f"chip_smoke: all phases passed in {time.time() - t_start:.1f}s")

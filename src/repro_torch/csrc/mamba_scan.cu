@@ -11,102 +11,350 @@
 // [B, T, di], Bm and Cm [B, T, N], the initial state h0 [B, di, N]; y
 // [B, T, di] and the final state h_T [B, di, N].  Everything is f32.
 //
-// What bounds it: on paper the bytes.  It reads dt and x and writes y
-// once (12 bytes per (b, t, d)), plus the small Bm, Cm, A, h0 and h_T: at
-// Jamba's prefill (B 8, T 2,048, di 16,384, N 16) 3.22 GB, 0.96 ms at
-// 3.35 TB/s.  The arithmetic is close behind: B * T * di * N = 4.29 G
-// exponentials (expf: one MUFU ex2 plus a few FMAs; the SFUs retire 16
-// a clock per SM, ~1 ms on 132 SMs) and 3 FMAs each for the update and
-// the output, so the exponentials and the FMA pipe, not the bytes, are
-// likely what this simple design runs into (measured on an H100: 2.7 ms
-// against the 0.97 ms byte bound).
+// What bounds it.  It reads dt and x and writes y once (12 bytes per
+// (b, t, d)), plus the small Bm, Cm, A, h0 and h_T: at Jamba's prefill
+// (B 8, T 2,048, di 16,384, N 16) 3.24 GB, 0.968 ms at 3.35 TB/s.  Beside
+// the bytes, each of the B * T * di * N = 4.29 G elements takes one
+// exponential and four FP32 instructions (dt * a, dx * B_n, the h FMA and
+// the y FMA).  An exponential on the SFUs (MUFU.EX2) costs one issue slot
+// but the SFUs retire 16 a clock per SM: 4.29 G alone take ~1.03 ms on
+// 132 SMs at 1.98 GHz.  An exponential on the FP32 pipe costs ~10 issue
+// slots.  So the scan meets three limits of about the same size: the
+// bytes, the SFUs and the issue slots.
 //
 // Design.  The TPU kernel tiles di by 256, carries h in a VMEM scratch
 // across a sequential time-chunk axis of its grid, and asserts
 // di % 256 == 0.  CUDA blocks run in no order, so here the time loop is
-// inside the block: one thread owns one (b, d) and keeps h[0..N) and its
-// row A[d, 0..N) in registers for the whole sequence, so the state never
-// leaves the SM.  A block is 128 consecutive channels of one b (grid
-// B x ceil(di / 128); the tail channels are masked, so any di works).
-// Per step, dt[b, t, d] and x[b, t, d] are read and y[b, t, d] written
-// coalesced across the block's threads, and the next step's dt and x are
-// loaded while this one computes.  Bm[b, t, :] and Cm[b, t, :] are the
-// same for every thread of the block: they are staged in shared memory
-// 64 steps at a time and read as broadcasts.  N is a template parameter
-// (NMAX in {4, 8, 16, 32, 64}); a smaller N runs in the next template
-// with zero-padded B/C and A, whose padded states stay 0.  Any T.  expf,
-// not __expf, so the kernel stays within f32 rounding of the plain
-// version.  No tensor cores, TMA or wgmma.
+// inside the block and h lives in registers for the whole sequence.
+//  - Exponentials split between two pipes.  A is pre-scaled by log2(e) in
+//    registers, so each exponential is 2^x, x = dt * a'.  In the fast form
+//    kPoly16 of every 16 (the thread's (channel, n) slots in order) are
+//    computed on the FP32 pipe (`ex2_fma`: round to an integer j with the
+//    1.5 * 2^23 trick, p(f) = 1 + f q(f) of degree 5 on f in [-0.5, 0.5],
+//    j added into the exponent bits), the rest by `ex2.approx.ftz.f32` on
+//    the SFUs.  Which slots go where is fixed at compile time (the loops
+//    are unrolled), so no branch is taken.
+//  - Decays close to 1.  ex2.approx.f32 has a relative error of up to
+//    2^-22 (the PTX ISA), and an error that keeps its sign builds up in h
+//    over ~1 / (1 - 2^x) steps: where dt * |A| stays small (A = -exp(N(0,
+//    1)) with dt as Mamba initialises it, log-uniform on [1e-3, 1e-1]) the
+//    fast form at that bound misses the rule by 1.2x (random signs) to 21x
+//    (one sign) in the CPU study below, and on an H100 it came to 0.93 of
+//    the rule against a scan in f64, where the plain version in f32 on
+//    that card came to 2.1x (tools/kernel_sweep.py mamba --accuracy; the
+//    guarded form 0.19).  So a warp takes the fast form for a chunk only if,
+//    in every lane, each SFU slot's mean x over the chunk is <= -kNear
+//    (then what the SFU's errors leave in h halves every chunk); else every
+//    exponential is guarded (`ex2_guarded`: the SFU only where x <=
+//    -kNear, a degree-3 polynomial exact at 0 elsewhere, whose error
+//    scales with 1 - 2^x).  The FP32-pipe polynomials' relative errors are
+//    at most 2^-22 and 2^-23, and both are exact at 0.
+//    tests/test_torch_mamba_exp_rounding.py emulates all of it on the CPU
+//    (the SFU at its documented error, random or one-signed) and holds it
+//    to the scan's 2e-5 + 2e-5 |ref| against an f64 scan.  Arguments below
+//    -126 are clamped in `ex2_fma` (2^-126 for a smaller value, which h
+//    never feels); dt >= 0 and A < 0 keep them <= 0.
+//  - Two channels a thread (for N <= 16; one for N 32 and 64, whose state
+//    fills the registers), channels tid and tid + 128 of a block of 128
+//    threads: each broadcast of B_t and C_t from shared memory serves both,
+//    and a step has 2 N independent chains.  A block covers 256 channels
+//    of one b: at Jamba's prefill a grid of 64 x 8 = 512 blocks, ~3.9 per
+//    SM, all resident at once (4 a SM fit by registers, 128 a thread, and
+//    by shared memory, 52 KB a block), so there is one wave and the
+//    busiest SMs hold 4 blocks against a mean of 3.88.
+//  - dt and x staged through shared memory kSteps steps at a time in a
+//    ring of kStages buffers: chunk k + kStages - 1 is brought by cp.async
+//    (16-byte copies where rows are 16-byte aligned, else 4-byte; zero
+//    fill past di and T) while chunk k computes, with the chunk's Bm and
+//    Cm [kSteps, N].  Each step reads its dt and x from shared memory and
+//    writes y[b, t, d] coalesced across the block's threads.
+// Measured on an H100 (tools/kernel_sweep.py mamba, at Jamba's prefill):
+// 1.55-1.57 ms, the fast form alone 1.53, the guarded form alone 1.98.
+// Without its device-memory reads the kernel takes as long, and the
+// staging alone 0.73 ms: it is bound by issue and the SFUs together.  The
+// fast form's step loop is 236 instructions (28 MUFU.EX2) a warp-step of
+// 32 exponentials a lane, the guarded form's 328; at 1.53 ms and the 1.97
+// GHz clock the card held that is ~0.6 of one instruction a clock per
+// scheduler.  kPoly16 = 0, 1, 2 take the same time; more slots on the FP32
+// pipe take longer, as do other rings, channels a thread or register caps.
+// N is a template parameter (NMAX in {4, 8, 16, 32, 64}); a smaller N
+// runs in the next template with zero-padded B/C and A, whose padded
+// states stay 0.  Any T and di (the last chunk is short, the tail
+// channels are masked).  No tensor cores: the scan has no matrix product.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 128;  // channels (threads) per block
-constexpr int kChunk = 64;   // time steps of Bm/Cm staged at a time
+constexpr int kThreads = 128;   // threads per block
+constexpr int kSteps = 8;       // time steps per staged chunk
+constexpr int kStages = 3;      // chunks in the ring of staging buffers
+constexpr int kPoly16 = 2;      // of 16 exponentials, those on the FP32 pipe
+constexpr int kChanSmall = 2;   // channels a thread for N <= 16
+constexpr int kSmWarps = 16;    // warps an SM holds at N <= 16: 128 registers
+constexpr float kLog2e = 1.4426950408889634f;
+// Decays close to 1 take no SFU exponential: in the guarded form a step's
+// 2^x comes from the SFU only where x <= -kNear, and a warp takes the fast
+// form for a chunk only where every SFU slot's mean x over it is <= -kNear.
+constexpr float kNear = 0.125f;
+
+__host__ __device__ constexpr int channels_per_thread(int nmax) {
+  return nmax <= 16 ? kChanSmall : 1;
+}
+
+// Slot e of a thread (channel c, state n: e = c * NMAX + n) takes its
+// exponential on the FP32 pipe: kPoly16 of every 16 consecutive slots,
+// spread out ((e * kPoly16) mod 16 < kPoly16 holds for exactly kPoly16).
+__host__ __device__ constexpr bool on_fma_pipe(int e) {
+  return ((e % 16) * kPoly16) % 16 < kPoly16;
+}
+
+// 2^x on the SFU: relative error <= 2^-22, flushes results below 2^-126
+__device__ __forceinline__ float ex2_mufu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 2^x on the FP32 pipe for x <= 127: j = round(x) through t = x + 1.5 *
+// 2^23 (j sits in t's low mantissa bits), f = x - j in [-0.5, 0.5], p(f)
+// = 1 + f (c1 + f (c2 + f (c3 + f (c4 + f c5)))) (a minimax fit of
+// (2^f - 1) / f in relative error), then j added into p's exponent.
+// Relative error <= 2^-22 over [-126, 0] in f32.
+__device__ __forceinline__ float ex2_fma(float x) {
+  x = fmaxf(x, -126.f);
+  const float t = x + 12582912.f;
+  const float f = x - (t - 12582912.f);
+  float q = 0x1.5d87e0p-10f;
+  q = fmaf(q, f, 0x1.3cbe5ap-7f);
+  q = fmaf(q, f, 0x1.c6b26ep-5f);
+  q = fmaf(q, f, 0x1.ebfa4ep-3f);
+  q = fmaf(q, f, 0x1.62e42ep-1f);
+  const float p = fmaf(q, f, 1.f);
+  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
+}
+
+// 2^x from the SFU where x <= -kNear, else from p(x) = 1 + x (c1 + x (c2
+// + x c3)) (a minimax fit of (2^x - 1) / x on [-1/8, 0] in relative error,
+// 8.4e-7): exact at 0, so close to 1 the error scales with 1 - 2^x.
+__device__ __forceinline__ float ex2_guarded(float x) {
+  const float m = ex2_mufu(x);
+  float q = fmaf(0x1.b82b62p-5f, x, 0x1.ebd066p-3f);
+  q = fmaf(q, x, 0x1.62e41cp-1f);
+  const float p = fmaf(q, x, 1.f);
+  return x > -kNear ? p : m;
+}
+
+// 4 or 16 bytes global -> shared, asynchronously; zeros where !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING) : "memory");
+}
+
+// Shared memory of a block, in floats: dt and x [kStages][kSteps][CH],
+// then Bm and Cm [kStages][kSteps][NMAX].
+template <int NMAX>
+constexpr int smem_floats() {
+  return 2 * kStages * kSteps * (kThreads * channels_per_thread(NMAX) + NMAX);
+}
+
+// The steps of one staged chunk: h and y for len steps from the chunk's
+// dt, x (sdt, sx [kSteps][CH]), Bm and Cm (sB, sC [kSteps][NMAX]).  FAST:
+// the kPoly16 slots on the FP32 pipe, the rest on the SFUs; else every
+// exponential guarded (ex2_guarded).
+template <int NMAX, bool FAST>
+__device__ __forceinline__ void scan_chunk(
+    float (&h)[channels_per_thread(NMAX)][NMAX],
+    const float (&a)[channels_per_thread(NMAX)][NMAX],
+    const float (*sdt)[kThreads * channels_per_thread(NMAX)],
+    const float (*sx)[kThreads * channels_per_thread(NMAX)],
+    const float (*sB)[NMAX], const float (*sC)[NMAX], int len, int tid,
+    const bool (&live)[channels_per_thread(NMAX)], float* __restrict__ y,
+    int64_t at,
+    int di) {
+  constexpr int CPT = channels_per_thread(NMAX);
+#pragma unroll 1
+  for (int s = 0; s < len; ++s, at += di) {
+    float dtv[CPT], dx[CPT], acc[CPT][4];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      dtv[c] = sdt[s][c * kThreads + tid];
+      dx[c] = dtv[c] * sx[s][c * kThreads + tid];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[c][j] = 0.f;
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < NMAX; n0 += 4) {
+      const float4 b4 = *reinterpret_cast<const float4*>(&sB[s][n0]);
+      const float4 c4 = *reinterpret_cast<const float4*>(&sC[s][n0]);
+      const float bb[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cc[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + j;
+          const float arg = dtv[c] * a[c][n];
+          const float e = !FAST                      ? ex2_guarded(arg)
+                          : on_fma_pipe(c * NMAX + n) ? ex2_fma(arg)
+                                                      : ex2_mufu(arg);
+          h[c][n] = fmaf(e, h[c][n], dx[c] * bb[j]);
+          acc[c][j] = fmaf(h[c][n], cc[j], acc[c][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      if (live[c])
+        y[at + c * kThreads] = (acc[c][0] + acc[c][1]) +
+                               (acc[c][2] + acc[c][3]);
+    }
+  }
+}
 
 template <int NMAX>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads,
+                  channels_per_thread(NMAX) * NMAX <= 32
+                      ? kSmWarps * 32 / kThreads
+                      : 1)
 mamba_scan_kernel(const float* __restrict__ A, const float* __restrict__ dt,
                   const float* __restrict__ Bm, const float* __restrict__ Cm,
                   const float* __restrict__ x, const float* __restrict__ h0,
                   float* __restrict__ y, float* __restrict__ hT, int steps,
-                  int di, int N) {
-  __shared__ __align__(16) float sB[kChunk][NMAX];
-  __shared__ __align__(16) float sC[kChunk][NMAX];
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = d < di;
-  const int64_t srow = (static_cast<int64_t>(b) * di + d) * N;  // h0, h_T
+                  int di, int N, int vec) {
+  constexpr int CPT = channels_per_thread(NMAX);
+  constexpr int CH = kThreads * CPT;  // channels of the block
+  extern __shared__ __align__(16) float smem[];
+  constexpr int RING = kStages * kSteps;  // rows of a ring
+  auto sdt = reinterpret_cast<float (*)[kSteps][CH]>(smem);
+  auto sx = reinterpret_cast<float (*)[kSteps][CH]>(smem + RING * CH);
+  auto sB = reinterpret_cast<float (*)[kSteps][NMAX]>(smem + 2 * RING * CH);
+  auto sC = reinterpret_cast<float (*)[kSteps][NMAX]>(
+      smem + 2 * RING * CH + RING * NMAX);
 
-  float a[NMAX], h[NMAX];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * CH;
+
+  // a' = A log2(e); amin: the least |a'| of the channel's SFU slots (of
+  // the fast form), +inf for a channel past di
+  float a[CPT][NMAX], h[CPT][NMAX], amin[CPT];
+  bool live[CPT];
 #pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    const bool in = live && n < N;
-    a[n] = in ? A[static_cast<int64_t>(d) * N + n] : 0.f;
-    h[n] = in ? h0[srow + n] : 0.f;
+  for (int c = 0; c < CPT; ++c) {
+    const int d = d0 + c * kThreads + tid;
+    const int64_t srow = (static_cast<int64_t>(b) * di + d) * N;
+    live[c] = d < di;
+    amin[c] = __int_as_float(0x7f800000);
+#pragma unroll
+    for (int n = 0; n < NMAX; ++n) {
+      const bool in = live[c] && n < N;
+      a[c][n] = in ? A[static_cast<int64_t>(d) * N + n] * kLog2e : 0.f;
+      h[c][n] = in ? h0[srow + n] : 0.f;
+      if (in && !on_fma_pipe(c * NMAX + n))
+        amin[c] = fminf(amin[c], fabsf(a[c][n]));
+    }
   }
   const int64_t seq = static_cast<int64_t>(b) * steps;  // row of (b, t=0)
-  const float* bm = Bm + seq * N;
-  const float* cm = Cm + seq * N;
 
-  for (int t0 = 0; t0 < steps; t0 += kChunk) {
-    const int len = min(kChunk, steps - t0);
-    __syncthreads();  // the previous chunk's B/C are no longer read
-    for (int i = threadIdx.x; i < kChunk * NMAX; i += kBlock) {
+  // Chunk k's dt, x, Bm and Cm into buffer k % kStages (zeros past di, N,
+  // T), as one cp.async group
+  auto fetch = [&](int k) {
+    const int t0 = k * kSteps, buf = k % kStages;
+    const int len = min(kSteps, steps - t0);
+    if (vec) {  // di % 4 == 0 and 16-byte aligned rows
+      for (int i = tid; i < kSteps * CH / 4; i += kThreads) {
+        const int s = i / (CH / 4), col = (i % (CH / 4)) * 4;
+        const bool ok = s < len && d0 + col < di;
+        const int64_t off = ok ? (seq + t0 + s) * di + d0 + col : 0;
+        cp_async16(&sdt[buf][s][col], dt + off, ok);
+        cp_async16(&sx[buf][s][col], x + off, ok);
+      }
+    } else {
+      for (int i = tid; i < kSteps * CH; i += kThreads) {
+        const int s = i / CH, col = i % CH;
+        const bool ok = s < len && d0 + col < di;
+        const int64_t off = ok ? (seq + t0 + s) * di + d0 + col : 0;
+        cp_async4(&sdt[buf][s][col], dt + off, ok);
+        cp_async4(&sx[buf][s][col], x + off, ok);
+      }
+    }
+    for (int i = tid; i < kSteps * NMAX; i += kThreads) {
       const int s = i / NMAX, n = i % NMAX;
-      const bool in = s < len && n < N;
-      const int64_t off = static_cast<int64_t>(t0 + s) * N + n;
-      sB[s][n] = in ? bm[off] : 0.f;
-      sC[s][n] = in ? cm[off] : 0.f;
+      const bool ok = s < len && n < N;
+      const int64_t off = ok ? (seq + t0 + s) * N + n : 0;
+      cp_async4(&sB[buf][s][n], Bm + off, ok);
+      cp_async4(&sC[buf][s][n], Cm + off, ok);
     }
-    __syncthreads();
-    int64_t at = (seq + t0) * di + d;  // (b, t0, d) in dt, x and y
-    float dtn = 0.f, xn = 0.f;
-    if (live) {
-      dtn = dt[at];
-      xn = x[at];
-    }
-    for (int s = 0; s < len; ++s, at += di) {
-      const float dtv = dtn, dx = dtn * xn;
-      if (live && s + 1 < len) {  // the next step's inputs, in flight now
-        dtn = dt[at + di];
-        xn = x[at + di];
-      }
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int n = 0; n < NMAX; ++n) {
-        h[n] = fmaf(expf(dtv * a[n]), h[n], dx * sB[s][n]);
-        acc[n & 3] = fmaf(h[n], sC[s][n], acc[n & 3]);
-      }
-      if (live) y[at] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-    }
+  };
+
+  // kStages - 1 chunks in flight ahead of the one computing; a group is
+  // committed every time, empty past the last chunk, so that waiting for
+  // all but the newest kStages - 1 groups always means chunk k
+  const int chunks = (steps + kSteps - 1) / kSteps;
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < chunks) fetch(k);
+    cp_async_commit();
   }
-  if (live) {
+  for (int k = 0; k < chunks; ++k) {
+    if (k + kStages - 1 < chunks) fetch(k + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // chunk k has landed for every thread
+    const int buf = k % kStages, t0 = k * kSteps;
+    const int len = min(kSteps, steps - t0);
+    // The fast form for this chunk only if, in every lane of the warp, the
+    // mean x = dt a' of each SFU slot over it is <= -kNear: then an error
+    // the SFU puts into h (<= 2^-22 relative a step, of either sign) decays
+    // by 2^(-len / 8) or more over the chunk, so all the fast chunks add
+    // stays below 2 * 8 * 2^-22 of |h|.  Else every exponential is guarded.
+    bool fast = true;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      float sum = 0.f;  // rows past len hold zeros
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) sum += sdt[buf][s][c * kThreads + tid];
+      fast = fast && (isinf(amin[c]) || sum * amin[c] >= len * kNear);
+    }
+    const int64_t at = (seq + t0) * di + d0 + tid;  // (b, t0, d0 + tid) in y
+    if (__all_sync(0xffffffffu, fast))
+      scan_chunk<NMAX, true>(h, a, sdt[buf], sx[buf], sB[buf], sC[buf], len,
+                             tid, live, y, at, di);
+    else
+      scan_chunk<NMAX, false>(h, a, sdt[buf], sx[buf], sB[buf], sC[buf], len,
+                              tid, live, y, at, di);
+    __syncthreads();  // buffer k % kStages is free for chunk k + kStages
+  }
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+    if (!live[c]) continue;
+    const int d = d0 + c * kThreads + tid;
+    const int64_t srow = (static_cast<int64_t>(b) * di + d) * N;
 #pragma unroll
     for (int n = 0; n < NMAX; ++n)
-      if (n < N) hT[srow + n] = h[n];
+      if (n < N) hT[srow + n] = h[c][n];
   }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 template <int NMAX>
@@ -114,12 +362,21 @@ cudaError_t launch(const void* A, const void* dt, const void* Bm,
                    const void* Cm, const void* x, const void* h0, void* y,
                    void* hT, int B, int steps, int di, int N,
                    cudaStream_t stream) {
-  const dim3 grid((di + kBlock - 1) / kBlock, B);
-  mamba_scan_kernel<NMAX><<<grid, kBlock, 0, stream>>>(
+  constexpr int CH = kThreads * channels_per_thread(NMAX);
+  constexpr size_t smem = smem_floats<NMAX>() * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mamba_scan_kernel<NMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int vec = di % 4 == 0 && aligned16(dt) && aligned16(x);
+  const dim3 grid((di + CH - 1) / CH, B);
+  mamba_scan_kernel<NMAX><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(A), static_cast<const float*>(dt),
       static_cast<const float*>(Bm), static_cast<const float*>(Cm),
       static_cast<const float*>(x), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(hT), steps, di, N);
+      static_cast<float*>(y), static_cast<float*>(hT), steps, di, N, vec);
   return cudaGetLastError();
 }
 

@@ -23,7 +23,7 @@ import torch
 from . import _build
 
 LAUNCHES = {"batched_dot": 0}
-MAX_D = 12288  # the staged query row must fit 48 KB of shared memory
+MAX_D = 12288  # the widths the wrapper takes (the kernel itself takes any)
 
 
 def batched_dot(

@@ -95,18 +95,27 @@ def test_batched_dot_dispatch_on_cpu():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,K,D", [(8, 17, 128), (256, 17, 128),
-                                   (128, 48, 128), (5, 9, 33), (4, 33, 24),
-                                   (3, 3, 1)])
-def test_cuda_batched_dot_matches_plain(cuda_device, B, K, D):
+@pytest.mark.parametrize("B,K,D,offset", [
+    (8, 17, 128, 0), (256, 17, 128, 0), (128, 48, 128, 0), (5, 9, 33, 0),
+    (4, 33, 24, 0), (3, 3, 1, 0), (7, 5, 1, 0), (6, 9, 3, 0),
+    (4, 11, 127, 0), (256, 17, 128, 1), (5, 9, 33, 1), (6, 9, 3, 1),
+    (1024, 33, 8, 0), (512, 17, 24, 1), (2, 3, 5000, 1)])
+def test_cuda_batched_dot_matches_plain(cuda_device, B, K, D, offset):
     """The hand-written kernel against its plain version on the card, at
-    the serving shapes and at ragged widths (scalar path)."""
+    the serving shapes, at D that leave floats at the ends of a block's
+    16-byte-aligned middle (1, 3, 24, 33, 127), with the slab starting
+    ``offset`` floats into its storage (unaligned at 1), with many rows
+    packed into a block (D 8 and 24 at B*K 33,792 and 8,704) and with rows
+    longer than a block's pass (D 5,000)."""
     from repro_torch.kernels.distance import LAUNCHES, batched_dot
 
     rng = np.random.default_rng(B + K + D)
     v = torch.from_numpy(rng.normal(size=(B, K, D)).astype(np.float32))
     q = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32))
-    v, q = v.to(cuda_device), q.to(cuda_device)
+    store = torch.empty(offset + B * K * D, device=cuda_device)
+    store[offset:] = v.flatten().to(cuda_device)
+    v, q = store[offset:].view(B, K, D), q.to(cuda_device)
+    assert v.is_contiguous() and v.storage_offset() == offset
     before = LAUNCHES["batched_dot"]
     got = batched_dot(v, q)
     torch.cuda.synchronize()
