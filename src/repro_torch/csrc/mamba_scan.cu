@@ -18,42 +18,31 @@
 // exponential and four FP32 instructions (dt * a, dx * B_n, the h FMA and
 // the y FMA).  An exponential on the SFUs (MUFU.EX2) costs one issue slot
 // but the SFUs retire 16 a clock per SM: 4.29 G alone take ~1.03 ms on
-// 132 SMs at 1.98 GHz.  An exponential on the FP32 pipe costs ~10 issue
-// slots.  So the scan meets three limits of about the same size: the
+// 132 SMs at 1.98 GHz.  Guarding it close to 1 (below) costs five more
+// FP32 slots.  So the scan meets three limits of about the same size: the
 // bytes, the SFUs and the issue slots.
 //
 // Design.  The TPU kernel tiles di by 256, carries h in a VMEM scratch
 // across a sequential time-chunk axis of its grid, and asserts
 // di % 256 == 0.  CUDA blocks run in no order, so here the time loop is
 // inside the block and h lives in registers for the whole sequence.
-//  - Exponentials split between two pipes.  A is pre-scaled by log2(e) in
-//    registers, so each exponential is 2^x, x = dt * a'.  In the fast form
-//    kPoly16 of every 16 (the thread's (channel, n) slots in order) are
-//    computed on the FP32 pipe (`ex2_fma`: round to an integer j with the
-//    1.5 * 2^23 trick, p(f) = 1 + f q(f) of degree 5 on f in [-0.5, 0.5],
-//    j added into the exponent bits), the rest by `ex2.approx.ftz.f32` on
-//    the SFUs.  Which slots go where is fixed at compile time (the loops
-//    are unrolled), so no branch is taken.
-//  - Decays close to 1.  ex2.approx.f32 has a relative error of up to
-//    2^-22 (the PTX ISA), and an error that keeps its sign builds up in h
-//    over ~1 / (1 - 2^x) steps: where dt * |A| stays small (A = -exp(N(0,
-//    1)) with dt as Mamba initialises it, log-uniform on [1e-3, 1e-1]) the
-//    fast form at that bound misses the rule by 1.2x (random signs) to 21x
-//    (one sign) in the CPU study below, and on an H100 it came to 0.93 of
-//    the rule against a scan in f64, where the plain version in f32 on
-//    that card came to 2.1x (tools/kernel_sweep.py mamba --accuracy; the
-//    guarded form 0.19).  So a warp takes the fast form for a chunk only if,
-//    in every lane, each SFU slot's mean x over the chunk is <= -kNear
-//    (then what the SFU's errors leave in h halves every chunk); else every
-//    exponential is guarded (`ex2_guarded`: the SFU only where x <=
-//    -kNear, a degree-3 polynomial exact at 0 elsewhere, whose error
-//    scales with 1 - 2^x).  The FP32-pipe polynomials' relative errors are
-//    at most 2^-22 and 2^-23, and both are exact at 0.
-//    tests/test_torch_mamba_exp_rounding.py emulates all of it on the CPU
-//    (the SFU at its documented error, random or one-signed) and holds it
-//    to the scan's 2e-5 + 2e-5 |ref| against an f64 scan.  Arguments below
-//    -126 are clamped in `ex2_fma` (2^-126 for a smaller value, which h
-//    never feels); dt >= 0 and A < 0 keep them <= 0.
+//  - Exponentials on the SFUs, guarded close to 1.  A is pre-scaled by
+//    log2(e) in registers, so each exponential is 2^x, x = dt * a', and
+//    `ex2.approx.ftz.f32` (MUFU.EX2) takes it in one issue slot.  Its
+//    relative error is up to 2^-22 (the PTX ISA), and an error that keeps
+//    its sign builds up in h over ~1 / (1 - 2^x) steps: where dt * |A|
+//    stays small, as with Mamba's init (A = -(1..N), dt log-uniform on
+//    [1e-3, 1e-1]), the SFU alone at that bound misses the rule (the CPU
+//    study below).  So where x > -kNear the kernel takes 2^x from p(x) = 1
+//    + x q(x) instead (`ex2_guarded`), a polynomial exact at 0 whose error
+//    scales with 1 - 2^x, so that it cannot build up; where x <= -kNear
+//    the SFU's errors fade within ~1 / (1 - 2^-kNear) = 12 steps.  Each
+//    exponential computes both and selects: a branch would split warps,
+//    whose lanes hold channels with different dt.
+//    tests/test_torch_mamba_exp_rounding.py emulates it on the CPU (the
+//    SFU at its documented error, random or one-signed) and holds it to
+//    the scan's 2e-5 + 2e-5 |ref| against an f64 scan.  dt >= 0 and A < 0
+//    keep x <= 0; results below 2^-126 flush to 0, which h never feels.
 //  - Two channels a thread (for N <= 16; one for N 32 and 64, whose state
 //    fills the registers), channels tid and tid + 128 of a block of 128
 //    threads: each broadcast of B_t and C_t from shared memory serves both,
@@ -68,15 +57,15 @@
 //    fill past di and T) while chunk k computes, with the chunk's Bm and
 //    Cm [kSteps, N].  Each step reads its dt and x from shared memory and
 //    writes y[b, t, d] coalesced across the block's threads.
-// Measured on an H100 (tools/kernel_sweep.py mamba, at Jamba's prefill):
-// 1.55-1.57 ms, the fast form alone 1.53, the guarded form alone 1.98.
-// Without its device-memory reads the kernel takes as long, and the
-// staging alone 0.73 ms: it is bound by issue and the SFUs together.  The
-// fast form's step loop is 236 instructions (28 MUFU.EX2) a warp-step of
-// 32 exponentials a lane, the guarded form's 328; at 1.53 ms and the 1.97
-// GHz clock the card held that is ~0.6 of one instruction a clock per
-// scheduler.  kPoly16 = 0, 1, 2 take the same time; more slots on the FP32
-// pipe take longer, as do other rings, channels a thread or register caps.
+// Measured on an H100 (tools/kernel_sweep.py mamba; PERF.md, PR 17): 1.96
+// ms at Jamba's prefill, 2.03x the byte bound.  The step loop is 326
+// instructions (32 MUFU.EX2) a warp-step of 32 exponentials a lane, ~0.67
+// of one instruction a clock per scheduler, beside an SFU bound of 1.03
+// ms; without device-memory reads it takes as long, the staging alone
+// 0.70 ms: it is bound by issue and the SFUs together.  The guard costs
+// ~0.44 ms (1.52 without it).  Other rings, channels a thread, register
+// caps and unrolling measured as long or longer, and exponentials moved
+// to the FP32 pipe (a degree-5 polynomial, ~11 issue slots) no faster.
 // N is a template parameter (NMAX in {4, 8, 16, 32, 64}); a smaller N
 // runs in the next template with zero-padded B/C and A, whose padded
 // states stay 0.  Any T and di (the last chunk is short, the tail
@@ -89,24 +78,15 @@ namespace {
 constexpr int kThreads = 128;   // threads per block
 constexpr int kSteps = 8;       // time steps per staged chunk
 constexpr int kStages = 3;      // chunks in the ring of staging buffers
-constexpr int kPoly16 = 2;      // of 16 exponentials, those on the FP32 pipe
 constexpr int kChanSmall = 2;   // channels a thread for N <= 16
 constexpr int kSmWarps = 16;    // warps an SM holds at N <= 16: 128 registers
 constexpr float kLog2e = 1.4426950408889634f;
-// Decays close to 1 take no SFU exponential: in the guarded form a step's
-// 2^x comes from the SFU only where x <= -kNear, and a warp takes the fast
-// form for a chunk only where every SFU slot's mean x over it is <= -kNear.
+// Decays close to 1 take no SFU exponential: 2^x comes from the SFU only
+// where x <= -kNear.
 constexpr float kNear = 0.125f;
 
 __host__ __device__ constexpr int channels_per_thread(int nmax) {
   return nmax <= 16 ? kChanSmall : 1;
-}
-
-// Slot e of a thread (channel c, state n: e = c * NMAX + n) takes its
-// exponential on the FP32 pipe: kPoly16 of every 16 consecutive slots,
-// spread out ((e * kPoly16) mod 16 < kPoly16 holds for exactly kPoly16).
-__host__ __device__ constexpr bool on_fma_pipe(int e) {
-  return ((e % 16) * kPoly16) % 16 < kPoly16;
 }
 
 // 2^x on the SFU: relative error <= 2^-22, flushes results below 2^-126
@@ -114,24 +94,6 @@ __device__ __forceinline__ float ex2_mufu(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
-}
-
-// 2^x on the FP32 pipe for x <= 127: j = round(x) through t = x + 1.5 *
-// 2^23 (j sits in t's low mantissa bits), f = x - j in [-0.5, 0.5], p(f)
-// = 1 + f (c1 + f (c2 + f (c3 + f (c4 + f c5)))) (a minimax fit of
-// (2^f - 1) / f in relative error), then j added into p's exponent.
-// Relative error <= 2^-22 over [-126, 0] in f32.
-__device__ __forceinline__ float ex2_fma(float x) {
-  x = fmaxf(x, -126.f);
-  const float t = x + 12582912.f;
-  const float f = x - (t - 12582912.f);
-  float q = 0x1.5d87e0p-10f;
-  q = fmaf(q, f, 0x1.3cbe5ap-7f);
-  q = fmaf(q, f, 0x1.c6b26ep-5f);
-  q = fmaf(q, f, 0x1.ebfa4ep-3f);
-  q = fmaf(q, f, 0x1.62e42ep-1f);
-  const float p = fmaf(q, f, 1.f);
-  return __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
 }
 
 // 2^x from the SFU where x <= -kNear, else from p(x) = 1 + x (c1 + x (c2
@@ -176,10 +138,8 @@ constexpr int smem_floats() {
 }
 
 // The steps of one staged chunk: h and y for len steps from the chunk's
-// dt, x (sdt, sx [kSteps][CH]), Bm and Cm (sB, sC [kSteps][NMAX]).  FAST:
-// the kPoly16 slots on the FP32 pipe, the rest on the SFUs; else every
-// exponential guarded (ex2_guarded).
-template <int NMAX, bool FAST>
+// dt, x (sdt, sx [kSteps][CH]), Bm and Cm (sB, sC [kSteps][NMAX]).
+template <int NMAX>
 __device__ __forceinline__ void scan_chunk(
     float (&h)[channels_per_thread(NMAX)][NMAX],
     const float (&a)[channels_per_thread(NMAX)][NMAX],
@@ -187,8 +147,7 @@ __device__ __forceinline__ void scan_chunk(
     const float (*sx)[kThreads * channels_per_thread(NMAX)],
     const float (*sB)[NMAX], const float (*sC)[NMAX], int len, int tid,
     const bool (&live)[channels_per_thread(NMAX)], float* __restrict__ y,
-    int64_t at,
-    int di) {
+    int64_t at, int di) {
   constexpr int CPT = channels_per_thread(NMAX);
 #pragma unroll 1
   for (int s = 0; s < len; ++s, at += di) {
@@ -211,10 +170,7 @@ __device__ __forceinline__ void scan_chunk(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int n = n0 + j;
-          const float arg = dtv[c] * a[c][n];
-          const float e = !FAST                      ? ex2_guarded(arg)
-                          : on_fma_pipe(c * NMAX + n) ? ex2_fma(arg)
-                                                      : ex2_mufu(arg);
+          const float e = ex2_guarded(dtv[c] * a[c][n]);
           h[c][n] = fmaf(e, h[c][n], dx[c] * bb[j]);
           acc[c][j] = fmaf(h[c][n], cc[j], acc[c][j]);
         }
@@ -253,23 +209,19 @@ mamba_scan_kernel(const float* __restrict__ A, const float* __restrict__ dt,
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * CH;
 
-  // a' = A log2(e); amin: the least |a'| of the channel's SFU slots (of
-  // the fast form), +inf for a channel past di
-  float a[CPT][NMAX], h[CPT][NMAX], amin[CPT];
+  // a' = A log2(e)
+  float a[CPT][NMAX], h[CPT][NMAX];
   bool live[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) {
     const int d = d0 + c * kThreads + tid;
     const int64_t srow = (static_cast<int64_t>(b) * di + d) * N;
     live[c] = d < di;
-    amin[c] = __int_as_float(0x7f800000);
 #pragma unroll
     for (int n = 0; n < NMAX; ++n) {
       const bool in = live[c] && n < N;
       a[c][n] = in ? A[static_cast<int64_t>(d) * N + n] * kLog2e : 0.f;
       h[c][n] = in ? h0[srow + n] : 0.f;
-      if (in && !on_fma_pipe(c * NMAX + n))
-        amin[c] = fminf(amin[c], fabsf(a[c][n]));
     }
   }
   const int64_t seq = static_cast<int64_t>(b) * steps;  // row of (b, t=0)
@@ -320,26 +272,8 @@ mamba_scan_kernel(const float* __restrict__ A, const float* __restrict__ dt,
     __syncthreads();  // chunk k has landed for every thread
     const int buf = k % kStages, t0 = k * kSteps;
     const int len = min(kSteps, steps - t0);
-    // The fast form for this chunk only if, in every lane of the warp, the
-    // mean x = dt a' of each SFU slot over it is <= -kNear: then an error
-    // the SFU puts into h (<= 2^-22 relative a step, of either sign) decays
-    // by 2^(-len / 8) or more over the chunk, so all the fast chunks add
-    // stays below 2 * 8 * 2^-22 of |h|.  Else every exponential is guarded.
-    bool fast = true;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      float sum = 0.f;  // rows past len hold zeros
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) sum += sdt[buf][s][c * kThreads + tid];
-      fast = fast && (isinf(amin[c]) || sum * amin[c] >= len * kNear);
-    }
-    const int64_t at = (seq + t0) * di + d0 + tid;  // (b, t0, d0 + tid) in y
-    if (__all_sync(0xffffffffu, fast))
-      scan_chunk<NMAX, true>(h, a, sdt[buf], sx[buf], sB[buf], sC[buf], len,
-                             tid, live, y, at, di);
-    else
-      scan_chunk<NMAX, false>(h, a, sdt[buf], sx[buf], sB[buf], sC[buf], len,
-                              tid, live, y, at, di);
+    scan_chunk<NMAX>(h, a, sdt[buf], sx[buf], sB[buf], sC[buf], len, tid,
+                     live, y, (seq + t0) * di + d0 + tid, di);
     __syncthreads();  // buffer k % kStages is free for chunk k + kStages
   }
 #pragma unroll

@@ -3,45 +3,37 @@ unchanged rule (2e-5 + 2e-5 |ref|, the JAX package's tolerance for the
 scan).
 
 On the card the kernel pre-scales A by log2(e) in f32 and takes each
-decay as 2^x, x = dt * a', in one of two forms, chosen per warp and
-staged chunk of ``kSteps`` steps.  The fast form takes ``kPoly16`` of every
-16 exponentials of a thread on the FP32 pipe (``ex2_fma``: round to an
-integer j with the 1.5 * 2^23 trick, a degree-5 polynomial p(f) = 1 + f
-q(f) in f32 Horner steps, j added into the exponent bits) and the rest
-with ``ex2.approx.ftz.f32`` on the SFUs, whose relative error the PTX ISA
-bounds by 2^-22.  The guarded form (``ex2_guarded``) takes 2^x from the
-SFU only where x <= -kNear and from a degree-3 polynomial exact at 0
-elsewhere.  A warp takes the fast form for a chunk only where, in all its
-lanes, every SFU slot's mean x over the chunk is <= -kNear.
+decay as 2^x, x = dt * a', with ``ex2.approx.ftz.f32`` on the SFUs, whose
+relative error the PTX ISA bounds by 2^-22, where x <= -kNear, and from a
+degree-3 polynomial exact at 0, p(x) = 1 + x q(x), where x > -kNear
+(``ex2_guarded``).
 
 The reason: close to 1 an exponential's error that keeps one sign builds
-up in h over ~1 / (1 - 2^x) steps.  An SFU error of 2^-22, one-signed or
-even random, moves a scan whose decays stay within ~2^-(1/1000) of 1 past
-the rule (A = -exp(N(0, 1)) with dt log-uniform on [1e-3, 1e-1], Mamba's
-dt init: ``test_ungated_split_misses_rule``).
+up in h over ~1 / (1 - 2^x) steps.  An SFU error of 2^-22 of one sign
+moves a scan whose decays stay close to 1 past the rule (A =
+-exp(N(0, 1)) with dt log-uniform on [1e-3, 1e-1], Mamba's dt init:
+``test_sfu_alone_misses_rule``); the polynomial's error scales with
+1 - 2^x and cannot build up.
 
 ``emulate_scan`` repeats the kernel's arithmetic step by step in f32
-torch: the pre-scaled product, the gate (the warps of 32 lanes x 2
-channels of the kernel's blocks of 128 threads, at N = 16), the SFU
-exponential as the exact 2^x times (1 + s 2^-22) with s = +-1
-(seeded-random per exponential, or all +1 or all -1), results below
-2^-126 flushed to zero, the polynomials op by op with the coefficients
-and constants read from ``csrc/mamba_scan.cu``, then the kernel's order
-of the h and y FMAs (y summed in 4 partial sums, n mod 4).  A fused
-multiply-add is emulated by its exact product in f64 rounded once to f32
-after the add (twice, through f64: a 1-ulp difference in rare ties, far
-below the rule).  Here the kernel's arithmetic, the guarded form alone
-and the FP32-pipe polynomial alone lie within the rule of an f64 scan at
-B 2, T 2,048, di 256, N 16, with A as Mamba initialises it (-(1..N),
-spread per channel) or -exp(N(0, 1)) (decays much closer to 1), and dt
-as the smoke draws it (softplus(randn - 1)) or as Mamba's dt init spans
-it.  The polynomials' own relative errors are held to 2^-22 over the
-arguments they see, and both are exact at 0.
+torch: the pre-scaled product, the SFU exponential as the exact 2^x times
+(1 + s 2^-22) with s = +-1 (seeded-random per exponential, or all +1 or
+all -1), results below 2^-126 flushed to zero, the polynomial op by op
+with the coefficients and the threshold read from ``csrc/mamba_scan.cu``,
+then the kernel's order of the h and y FMAs (y summed in 4 partial sums,
+n mod 4).  A fused multiply-add is emulated by its exact product in f64
+rounded once to f32 after the add (twice, through f64: a 1-ulp difference
+in rare ties, far below the rule).  Here the kernel's arithmetic lies
+within the rule of an f64 scan at B 2, T 2,048, di 256, N 16, with A as
+Mamba initialises it (-(1..N), spread per channel) or -exp(N(0, 1))
+(decays much closer to 1), and dt as the smoke draws it (softplus(randn -
+1)) or as Mamba's dt init spans it.  The polynomial's own relative error
+is held to 2^-23 over the arguments it sees, and it is exact at 0.
 
     python tests/test_torch_mamba_exp_rounding.py
 
 prints, per draw and route, the largest error as a share of the rule and
-the share of warp-chunks that took the fast form.
+the share of exponentials that the polynomial takes.
 """
 import functools
 import math
@@ -55,9 +47,7 @@ import torch
 SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
        / "mamba_scan.cu").read_text()
 EX2_REL = 2.0 ** -22  # PTX ISA: ex2.approx.f32, maximum relative error
-POLY_BOUND = 2.0 ** -22  # the polynomial route's, over [-126, 0]
 RULE = 2e-5  # rtol and atol of the scan
-MAGIC = 12582912.0  # 1.5 * 2^23
 SHAPE = (2, 2048, 256, 16)  # B, T, di, N
 
 
@@ -76,19 +66,8 @@ def _coefficients(fn: str, count: int) -> list[float]:
     return coeffs
 
 
-POLY16 = int(_constant("kPoly16"))  # of 16 exponentials, on the FP32 pipe
-STEPS = int(_constant("kSteps"))  # steps a staged chunk
-THREADS = int(_constant("kThreads"))
-CPT = int(_constant("kChanSmall"))  # channels a thread at N <= 16
 NEAR = _constant("kNear")
-COEFFS = _coefficients("ex2_fma", 5)  # c5 .. c1
 NEAR_COEFFS = _coefficients("ex2_guarded", 3)  # c3, c2, c1 (in use order)
-
-
-def on_fma_pipe(e: int, poly16: int) -> bool:
-    """The kernel's ``on_fma_pipe``: slot e's exponential on the FP32
-    pipe."""
-    return ((e % 16) * poly16) % 16 < poly16
 
 
 def fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
@@ -96,19 +75,6 @@ def fma(a: torch.Tensor, b: torch.Tensor, c) -> torch.Tensor:
     add (through f64)."""
     c = c.double() if torch.is_tensor(c) else c
     return (a.double() * b.double() + c).float()
-
-
-def ex2_fma(x: torch.Tensor) -> torch.Tensor:
-    """The kernel's ``ex2_fma`` in f32, op by op."""
-    x = torch.clamp(x, min=-126.0)
-    t = x + MAGIC
-    j = t - MAGIC
-    f = x - j
-    q = torch.full_like(f, COEFFS[0])
-    for c in COEFFS[1:]:
-        q = fma(q, f, c)
-    p = fma(q, f, 1.0)
-    return torch.ldexp(p, j)  # exact: j added into the exponent
 
 
 def ex2_near(x: torch.Tensor) -> torch.Tensor:
@@ -137,59 +103,33 @@ def _signs(mode: str, shape, gen: torch.Generator) -> torch.Tensor:
 def emulate_scan(A, dt, Bm, Cm, x, h0, route: str = "kernel",
                  signs: str = "random", seed: int = 0):
     """The kernel's arithmetic in f32 torch -> (y [B, T, di], h_T, the share
-    of warp-chunks in the fast form).  ``route``: "kernel" (the gate picks
-    the form per warp and chunk), "guarded" (every chunk guarded), "split"
-    (every chunk fast: the split without the gate), "sfu" (every
-    exponential on the SFUs), "fma" (every one on the FP32 pipe) or
+    of exponentials taken from the polynomial).  ``route``: "kernel" (the
+    SFU guarded close to 1), "sfu" (every exponential on the SFU) or
     "accurate" (f32 ``exp`` of the unscaled product, the first kernel's
     expf)."""
     B, T, di = x.shape
     N = A.shape[1]
-    assert N == 16 and di % (THREADS * CPT) == 0, "the N = 16 layout"
     a2 = A * np.float32(math.log2(math.e))  # the pre-scaled A, in f32
-    # slot e = c N + n of a thread: at N = 16, e mod 16 = n
-    poly = torch.tensor([on_fma_pipe(n, POLY16) for n in range(N)])
-    amin = torch.where(poly, torch.full_like(a2, math.inf),
-                       a2.abs()).amin(dim=1)  # [di]
     gen = torch.Generator().manual_seed(seed)
     h = h0.clone()
-    ys, fast_chunks, chunks = [], 0, 0
-    for t0 in range(0, T, STEPS):
-        n_steps = min(STEPS, T - t0)
-        total = torch.zeros(B, di)
-        for t in range(t0, t0 + n_steps):  # the kernel's f32 sum
-            total = total + dt[:, t]
-        ok = total * amin >= n_steps * NEAR
-        # channel d: block d // (THREADS CPT), slot c, lane of a warp
-        warp = ok.view(B, -1, CPT, THREADS // 32, 32).all(4, keepdim=True) \
-                 .all(2, keepdim=True).expand(B, -1, CPT, THREADS // 32, 32)
-        fast = warp.reshape(B, di, 1)
-        if route in ("split", "sfu", "fma"):
-            fast = torch.ones_like(fast)
-        elif route == "guarded":
-            fast = torch.zeros_like(fast)
-        fast_chunks += int(warp.sum()) // 32
-        chunks += warp.numel() // 32
-        for t in range(t0, t0 + n_steps):
-            dtv = dt[:, t, :, None]
-            dx = dt[:, t] * x[:, t]
-            arg = dtv * a2
-            if route == "accurate":
-                e = torch.exp(dtv * A)
-            elif route == "fma":
-                e = ex2_fma(arg)
-            else:
-                sfu = ex2_mufu(arg, _signs(signs, arg.shape, gen))
-                guarded = torch.where(arg > -NEAR, ex2_near(arg), sfu)
-                split = sfu if route == "sfu" else torch.where(
-                    poly, ex2_fma(arg), sfu)
-                e = torch.where(fast, split, guarded)
-            h = fma(e, h, dx[..., None] * Bm[:, t, None, :])
-            acc = torch.zeros(B, di, 4)
-            for n0 in range(0, N, 4):
-                acc = fma(h[..., n0:n0 + 4], Cm[:, t, None, n0:n0 + 4], acc)
-            ys.append((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3]))
-    return torch.stack(ys, dim=1), h, fast_chunks / chunks
+    ys, near = [], 0
+    for t in range(T):
+        dtv = dt[:, t, :, None]
+        dx = dt[:, t] * x[:, t]
+        arg = dtv * a2
+        if route == "accurate":
+            e = torch.exp(dtv * A)
+        else:
+            e = ex2_mufu(arg, _signs(signs, arg.shape, gen))
+            if route == "kernel":
+                e = torch.where(arg > -NEAR, ex2_near(arg), e)
+        near += int((arg > -NEAR).sum())
+        h = fma(e, h, dx[..., None] * Bm[:, t, None, :])
+        acc = torch.zeros(B, di, 4)
+        for n0 in range(0, N, 4):
+            acc = fma(h[..., n0:n0 + 4], Cm[:, t, None, n0:n0 + 4], acc)
+        ys.append((acc[..., 0] + acc[..., 1]) + (acc[..., 2] + acc[..., 3]))
+    return torch.stack(ys, dim=1), h, near / (B * T * di * N)
 
 
 def scan_f64(A, dt, Bm, Cm, x, h0):
@@ -230,68 +170,38 @@ def _case(draw: str):
 
 def _share(draw: str, **route) -> tuple[float, float]:
     """-> (the largest |emulation - f64 scan| / (2e-5 + 2e-5 |ref|) over y
-    and h_T, the share of fast warp-chunks)."""
+    and h_T, the share of exponentials the polynomial takes)."""
     args, ref = _case(draw)
-    *got, fast = emulate_scan(*args, **route)
+    *got, near = emulate_scan(*args, **route)
     return max(float(((g.double() - r).abs() / (RULE + RULE * r.abs()))
-                     .max()) for g, r in zip(got, ref)), fast
+                     .max()) for g, r in zip(got, ref)), near
 
 
 DRAWS = ["init-softplus", "init-loguniform", "lognormal-softplus",
          "lognormal-loguniform"]
-ROUTES = {
-    "kernel-random": dict(route="kernel", signs="random"),
-    "kernel-plus": dict(route="kernel", signs="plus"),
-    "kernel-minus": dict(route="kernel", signs="minus"),
-    "guarded-plus": dict(route="guarded", signs="plus"),
-    "guarded-minus": dict(route="guarded", signs="minus"),
-    "fma": dict(route="fma"),
-}
+SIGNS = ["random", "plus", "minus"]
+ROUTES = {f"kernel-{s}": dict(route="kernel", signs=s) for s in SIGNS}
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("draw", DRAWS)
 def test_exponential_routes_within_scan_rule(draw, route):
-    """The kernel's arithmetic (the gate, the fast and guarded forms, the
-    SFU at its documented worst error, random or one-signed), the guarded
-    form in every chunk and the FP32-pipe polynomial for every exponential
-    keep y and h_T within 2e-5 + 2e-5 |ref| of the f64 scan."""
+    """The kernel's arithmetic (the SFU at its documented worst error,
+    random or one-signed, the polynomial close to 1) keeps y and h_T
+    within 2e-5 + 2e-5 |ref| of the f64 scan."""
     assert _share(draw, **ROUTES[route])[0] <= 1.0
 
 
-def test_ungated_split_misses_rule():
-    """The gate is needed: the fast form in every chunk, with the SFU's
+def test_sfu_alone_misses_rule():
+    """The guard is needed: the SFU for every exponential, with its
     documented error of one sign, misses the rule where decays stay close
     to 1 (A = -exp(N(0, 1)), dt log-uniform on [1e-3, 1e-1])."""
-    assert _share("lognormal-loguniform", route="split", signs="plus")[0] > 1
-
-
-def test_gate_takes_fast_form_at_smoke_draw():
-    """At the smoke's draw (A as initialised, dt = softplus(randn - 1))
-    nearly every warp-chunk takes the fast form."""
-    assert _share("init-softplus", route="kernel", signs="random")[1] > 0.9
-
-
-@pytest.mark.parametrize("lo,hi", [(-126.0, -64.0), (-64.0, -1.0),
-                                   (-1.0, 0.0)])
-def test_polynomial_exp2_error_bound(lo, hi):
-    """``ex2_fma`` in f32 within 2^-22 relative of 2^x over [lo, hi], on
-    a dense grid of the reduced argument f in [-0.5, 0.5] at every
-    integer j of the range, and at seeded-random points."""
-    f = torch.linspace(-0.5, 0.5, 20001, dtype=torch.float64)
-    j = torch.arange(math.ceil(lo), math.floor(hi) + 1, dtype=torch.float64)
-    x = (j[:, None] + f[None, :]).flatten()
-    rng = np.random.default_rng(int(-lo))
-    x = torch.cat([x, torch.from_numpy(rng.uniform(lo, hi, 200000))])
-    x = x[(x >= lo) & (x <= hi)].float()
-    exact = torch.exp2(x.double())
-    rel = ((ex2_fma(x).double() - exact) / exact).abs()
-    assert float(rel.max()) <= POLY_BOUND
+    assert _share("lognormal-loguniform", route="sfu", signs="plus")[0] > 1
 
 
 def test_near_one_polynomial_error_bound():
     """``ex2_guarded``'s polynomial within 2^-23 relative of 2^x on [-1/8,
-    0], where the guarded form takes it, and exact at 0."""
+    0], where the kernel takes it, and exact at 0."""
     x = torch.linspace(-NEAR, 0.0, 400001, dtype=torch.float64).float()
     exact = torch.exp2(x.double())
     rel = ((ex2_near(x).double() - exact) / exact).abs()
@@ -299,25 +209,16 @@ def test_near_one_polynomial_error_bound():
     assert float(ex2_near(torch.zeros(1))) == 1.0
 
 
-def test_polynomial_exp2_exact_at_integers():
-    """p(0) = 1: 2^j is exact for every integer j in [-126, 0], so the
-    FP32-pipe route has no bias where 2^x is close to 1."""
-    j = torch.arange(-126, 1, dtype=torch.float32)
-    assert torch.equal(ex2_fma(j).double(), torch.exp2(j.double()))
-
-
 if __name__ == "__main__":
-    # the numbers behind the routes: per draw, each route's largest error
-    # as a share of the rule (and the share of fast warp-chunks)
-    routes = {**ROUTES, "split-random": dict(route="split", signs="random"),
-              "split-plus": dict(route="split", signs="plus"),
-              "sfu-plus": dict(route="sfu", signs="plus"),
+    # the numbers behind the route: per draw, the kernel's and the SFU's
+    # largest error as a share of the rule, and the polynomial's share of
+    # the exponentials
+    routes = {**ROUTES,
+              **{f"sfu-{s}": dict(route="sfu", signs=s) for s in SIGNS},
               "accurate expf": dict(route="accurate")}
     for draw in DRAWS:
         out = []
         for name, r in routes.items():
-            share, fast = _share(draw, **r)
-            out.append(f"{name} {share:.3f}"
-                       + (f" (fast {fast:.3f})" if r["route"] == "kernel"
-                          else ""))
-        print(draw, ", ".join(out))
+            share, near = _share(draw, **r)
+            out.append(f"{name} {share:.3f}")
+        print(f"{draw} (polynomial {near:.3f}):", ", ".join(out))

@@ -1,52 +1,62 @@
 #!/usr/bin/env python3
-"""Time variants of the ``mamba_scan`` and ``batched_dot`` CUDA kernels on
-the card.
+"""Time variants of the ``mamba_scan``, ``batched_dot`` and ``wkv6`` CUDA
+kernels on the card.
 
     python3 tools/kernel_sweep.py mamba [--T 2048] [--probes] [--profile]
     python3 tools/kernel_sweep.py mamba --accuracy
     python3 tools/kernel_sweep.py batched_dot [--probes] [--also FILE.cu]
+    python3 tools/kernel_sweep.py wkv6 [--T 2048] [--B 8] [--probes]
 
 Each kernel fixes its layout in a few constants.  This script writes
 variants of the source with other values into ``build/kernel_sweep/``,
 compiles them with ``nvcc`` in parallel with the flags of
 ``repro_torch.kernels._build``, checks each against the plain version and
-times it.  One line a variant: its constants, registers and spills (for
-``mamba_scan`` those of the N = 16 template) and its time.
+times it with ``chip_smoke.py``'s timers.  One line a variant: its
+constants, registers and spills and its time.  ``--probes`` times instead
+the source beside probes that compute wrong answers on purpose, to show
+what bounds the kernel.
 
-``mamba``: ``kPoly16`` (of every 16 exponentials, those on the FP32 pipe
-in the fast form), ``kSteps`` (time steps per staged chunk), ``kStages``
-(chunks in the ring of staging buffers), ``kChanSmall`` (channels a
-thread at N <= 16), ``kSmWarps`` (warps an SM must hold, which caps the
-registers) and the unrolling of the step loop, at Jamba's prefill (B 8,
-T 2,048 or ``--T``, di 16,384, N 16, f32, A as Mamba initialises it, dt =
-softplus(randn - 1), a nonzero h0), held to ``mamba_scan_ref`` within
-2e-5 + 2e-5 |ref|, timed by CUDA events (median of 5 rounds of 5
-launches) beside the byte bound and the SFU bound (the exponentials on
-the SFUs at 16 a clock per SM on 132 SMs at the SM clock ``nvidia-smi``
-reads).  ``--probes`` times instead the source's constants and probes
-that compute wrong answers on purpose, to show what bounds the kernel:
-``fast_only`` and ``guarded_only`` (every chunk in one form, whatever the
-gate says), ``no_exp`` (the argument in place of its exponential: no SFU
-or polynomial work), ``no_fetch`` (zeros staged instead of dt, x, Bm and
-Cm from device memory, in the fast form), ``no_store`` (y not written)
-and ``no_steps`` (the staging ring alone, no step computed).
-``--profile`` prints the source's SASS opcode counts (``cuobjdump
--sass``; the whole kernel and its two step loops) and the SM clock and
-power ``nvidia-smi`` samples while it runs.  ``--accuracy`` prints, at
-the draw where decays stay closest to 1 (the CUDA test's), the largest
-error against a scan in f64 of the plain version in f32 (card and CPU),
-the source and the source in one form only.
+``mamba``: ``kSteps`` (time steps per staged chunk), ``kStages`` (chunks
+in the ring of staging buffers), ``kChanSmall`` (channels a thread at
+N <= 16), ``kSmWarps`` (warps an SM must hold, which caps the registers)
+and the unrolling of the step loop, at Jamba's prefill (B 8, T 2,048 or
+``--T``, di 16,384, N 16, f32, A = -(1..N) spread per channel, dt =
+softplus(randn - 1), a nonzero h0; the N = 16 template), held to
+``mamba_scan_ref`` within 2e-5 + 2e-5 |ref|, timed by CUDA events (median
+of 5 rounds of 5 launches) beside the byte bound and the SFU bound (every
+exponential on the SFUs at 16 a clock per SM on 132 SMs at the SM clock
+``nvidia-smi`` reads).  Probes: ``unguarded`` (the SFU alone, no
+polynomial close to 1), ``no_exp`` (the argument in place of its
+exponential), ``no_fetch`` (zeros staged instead of dt, x, Bm and Cm from
+device memory), ``no_store`` (y not written) and ``no_steps`` (the
+staging ring alone).  ``--profile`` prints the source's SASS opcode
+counts (``cuobjdump -sass``; the whole kernel and its step loop) and the
+SM clock and power ``nvidia-smi`` samples while it runs.  ``--accuracy``
+prints, at the draw where decays stay closest to 1 (the CUDA test's: A =
+-exp(N(0, 1)), dt log-uniform on [1e-3, 1e-1]), the largest error
+against a scan in f64 of the plain version in f32 (card and CPU), the
+source and ``unguarded``.
 
 ``batched_dot``: ``kWarps`` (warps a block) and ``kQuadMax`` (the widest
 row that takes 8 lanes), at the smoke's five shapes, each held to
 ``batched_dot_ref`` within 1e-5 |v| |q| and timed device to device
 beside ``torch.bmm`` on the same inputs (20 launches of each captured as
-one CUDA graph, the two graphs replayed in turns and timed by CUDA
-events, the median of 11 rounds).
-``--probes`` times the source beside ``q_aligned``, which reads the
-query's floats as aligned float4s of the wrong row; ``--also FILE.cu``
-times another version of the source beside them, as it is (e.g. an older
-one: ``git show REV:src/repro_torch/csrc/batched_dot.cu > build/x.cu``).
+one CUDA graph, the two graphs replayed in turns, the median of 11
+rounds).  Probe: ``q_aligned`` reads the query's floats as aligned
+float4s of the wrong row.  ``--also FILE.cu`` times another version of
+the source beside them, as it is (e.g. an older one: ``git show
+REV:src/repro_torch/csrc/batched_dot.cu > build/x.cu``).
+
+``wkv6``: ``kGroups`` (threads that share a value column, each summing
+its rows of y_t[j]), ``kCols`` (value columns of a thread) and the
+unrolling of the step loop, for N = 64 at rwkv6-1.6b's prefill (B 8 or
+``--B``, H 32, N 64, f32, a nonzero state), held to ``wkv6_chunked``
+within 3e-4.  Probes: ``no_fp`` (3 FP32 operations a row instead of 3 a
+row and column), ``no_lds`` (r, k, w as constants instead of from shared
+memory), ``no_steps`` (the staging, b_t and y passes alone),
+``no_ypass`` (no pass adding the partial sums into y) and ``no_fetch``
+(zeros staged instead of r, k, w, v from device memory).  ``--B 4``
+shows whether the time is per SM (it halves) or per block (it stays).
 
 Needs one card and nvcc.
 """
@@ -57,24 +67,24 @@ import ctypes
 import itertools
 import math
 import re
-import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from chip_smoke import (  # noqa: E402
+    HBM_BYTES_PER_S, _graph_ms_alternating, _time_ms)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    batched_dot_ref, mamba_scan_ref)
+    batched_dot_ref, mamba_scan_ref, wkv6_chunked)
 
 OUT = ROOT / "build" / "kernel_sweep"
-HBM_BYTES_PER_S = 3.35e12
 SMS, SFU_PER_CLOCK = 132, 16
 
 
@@ -85,6 +95,8 @@ def constants(name: str, keys) -> dict:
 
 
 def variant_source(name: str, values: dict, replace=()) -> str:
+    """``name``'s source with the constants ``values`` and each (regular
+    expression, replacement) of ``replace`` applied."""
     src = (_build.CSRC / f"{name}.cu").read_text()
     for key, val in values.items():
         src, n = re.subn(rf"constexpr int {key} = \d+;",
@@ -94,6 +106,10 @@ def variant_source(name: str, values: dict, replace=()) -> str:
         src, n = re.subn(pattern, new, src)
         assert n >= 1, pattern
     return src
+
+
+def tag_of(values: dict) -> str:
+    return "_".join(f"{k[1:]}-{v}" for k, v in values.items())
 
 
 def build(sources: dict) -> dict:
@@ -124,63 +140,35 @@ def ptxas(log: str, kernel: str) -> str:
     return "no report"
 
 
-def bind(tag: str, name: str):
-    fn = getattr(ctypes.CDLL(str(OUT / f"{tag}.so")), name)
+def built(logs: dict):
+    """(tag, log, the bound C entry's loader) of each variant that built;
+    prints the others."""
+    for tag, (rc, log) in logs.items():
+        if rc != 0:
+            print(f"{tag}: does not build: {log.strip()[-600:]}")
+            continue
+        yield tag, log, ctypes.CDLL(str(OUT / f"{tag}.so"))
+
+
+def bind(lib, name: str):
+    fn = getattr(lib, name)
     fn.argtypes = list(_build.SIGNATURES[name])
     fn.restype = ctypes.c_int
     return fn
 
 
-def event_ms(call, reps: int = 5, rounds: int = 5) -> float:
-    for _ in range(3):
-        call()
-    times = []
-    for _ in range(rounds):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            call()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+def checked(tag: str, fn, *args):
+    """A no-argument launch of ``fn(*args, stream)`` that raises on a
+    refused launch."""
+    def call(_=None):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{tag}: cudaError {err}")
+    return call
 
 
-def graph_ms(calls, reps: int = 20, rounds: int = 11) -> list:
-    """Per-launch device ms of each of ``calls``: ``reps`` launches captured
-    as one CUDA graph each, the graphs replayed in turns (the order
-    alternating round by round) and timed by CUDA events; the median of
-    ``rounds`` for each."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for call in calls:
-            for _ in range(3):
-                call()
-    torch.cuda.current_stream().wait_stream(side)
-    graphs = []
-    for call in calls:
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                call()
-        graphs.append(graph)
-    for graph in graphs:
-        graph.replay()
-    torch.cuda.synchronize()
-    times = [[] for _ in calls]
-    for r in range(rounds):
-        for j in (range(len(calls)) if r % 2 == 0
-                  else reversed(range(len(calls)))):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graphs[j].replay()
-            end.record()
-            torch.cuda.synchronize()
-            times[j].append(start.elapsed_time(end) / reps)
-    return [statistics.median(t) for t in times]
+def event_ms(call, reps: int = 5) -> float:
+    return _time_ms(call, 1, reps=reps, rounds=5)
 
 
 def sm_clock_mhz() -> float:
@@ -190,44 +178,35 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.split()[0])
 
 
-MAMBA_KEYS = ("kThreads", "kPoly16", "kSteps", "kStages", "kChanSmall",
-              "kSmWarps")
+MAMBA_KEYS = ("kThreads", "kSteps", "kStages", "kChanSmall", "kSmWarps")
+MAMBA_ONLY16 = [(f"launch<{n}>", "launch<16>") for n in (4, 8, 32, 64)]
 STEP_UNROLL = (r"#pragma unroll \d+(\n\s*for \(int s = 0; s < len; "
                r"\+\+s, at \+= di\))")
 MAMBA_PROBES = {  # (regular expression, replacement)
-    # every chunk in the fast form, or in the guarded form
-    "fast_only": [(re.escape("if (__all_sync(0xffffffffu, fast))"),
-                   "if (true)")],
-    "guarded_only": [(re.escape("if (__all_sync(0xffffffffu, fast))"),
-                      "if (false)")],
-    "no_exp": [(r"const float e = !FAST[^;]*;", "const float e = arg;")],
+    "unguarded": [(re.escape("return x > -kNear ? p : m;"), "return m;")],
+    "no_exp": [(re.escape("const float e = ex2_guarded(dtv[c] * a[c][n]);"),
+                "const float e = dtv[c] * a[c][n];")],
     # cp.async with a source size of 0: zero fill, no device-memory read
-    # (and the fast form, which zeros would not pass)
     "no_fetch": [(re.escape('"r"(ok ? 16 : 0)'), '"r"(0)'),
-                 (re.escape('"r"(ok ? 4 : 0)'), '"r"(0)'),
-                 (re.escape("if (__all_sync(0xffffffffu, fast))"),
-                  "if (true)")],
+                 (re.escape('"r"(ok ? 4 : 0)'), '"r"(0)')],
     "no_store": [(re.escape("y[at + c * kThreads] ="),
                   "if (dtv[c] == 12345.f) y[at + c * kThreads] =")],
     # the staging ring alone: no step is computed
-    "no_steps": [(r"if \(__all_sync\(0xffffffffu, fast\)\)\s*scan_chunk",
-                  "if (false) scan_chunk"),
-                 (r"else\s*scan_chunk<NMAX, false>", "else if (false) "
-                  "scan_chunk<NMAX, false>")],
+    "no_steps": [(re.escape("scan_chunk<NMAX>(h, a,"),
+                  "if (false) scan_chunk<NMAX>(h, a,")],
 }
 
 
 def mamba_variants(probes: bool) -> dict:
     """tag -> source, N = 16 only (every dispatch goes to launch<16>)."""
-    only16 = [(f"launch<{n}>", "launch<16>") for n in (4, 8, 32, 64)]
     src = constants("mamba_scan", MAMBA_KEYS)
-    tag = "_".join(f"{k[1:]}-{v}" for k, v in src.items())
     if probes:
-        out = {f"{tag}_source": variant_source("mamba_scan", {}, only16)}
+        out = {f"{tag_of(src)}_source":
+               variant_source("mamba_scan", {}, MAMBA_ONLY16)}
         for name, rep in MAMBA_PROBES.items():
-            out[name] = variant_source("mamba_scan", {}, only16 + rep)
+            out[name] = variant_source("mamba_scan", {}, MAMBA_ONLY16 + rep)
         return out
-    grid = [(dict(src, kPoly16=p), 1) for p in (0, 1, 2, 3, 4, 6, 8, 16)]
+    grid = [(dict(src), 1)]
     grid += [(dict(src, kSteps=t, kStages=r), 1)
              for t, r in ((8, 2), (8, 4), (4, 3), (16, 2))]
     grid += [(dict(src, kChanSmall=c, kSmWarps=w), 1)
@@ -235,9 +214,8 @@ def mamba_variants(probes: bool) -> dict:
     grid += [(dict(src), 2)]
     out = {}
     for values, unroll in grid:
-        tag = "_".join(f"{k[1:]}-{v}" for k, v in values.items())
-        rep = only16 + [(STEP_UNROLL, rf"#pragma unroll {unroll}\1")]
-        out.setdefault(f"{tag}_Unroll-{unroll}",
+        rep = MAMBA_ONLY16 + [(STEP_UNROLL, rf"#pragma unroll {unroll}\1")]
+        out.setdefault(f"{tag_of(values)}_Unroll-{unroll}",
                        variant_source("mamba_scan", values, rep))
     return out
 
@@ -256,9 +234,9 @@ def _opcodes(lines) -> str:
 
 def sass_histogram(so: Path, kernel: str) -> str:
     """Opcode counts of the SASS of the entry whose name has ``kernel``
-    (``cuobjdump -sass``), most frequent first, and of its two longest
-    innermost loops (a branch back to a lower address closes a loop: for
-    ``mamba_scan``, the step loops of the two forms)."""
+    (``cuobjdump -sass``), most frequent first, and of its longest
+    innermost loop (a branch back to a lower address closes a loop: for
+    ``mamba_scan``, the step loop)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
@@ -279,7 +257,7 @@ def sass_histogram(so: Path, kernel: str) -> str:
     loops = sorted((lines[a:b + 1] for a, b in inner), key=len, reverse=True)
     return "\n".join([f"whole kernel: {_opcodes(lines)}"]
                      + [f"loop {j + 1}: {_opcodes(loop)}"
-                        for j, loop in enumerate(loops[:2])])
+                        for j, loop in enumerate(loops[:1])])
 
 
 def clocks_under_load(call, seconds: float = 2.0) -> str:
@@ -307,9 +285,7 @@ def clocks_under_load(call, seconds: float = 2.0) -> str:
 def sweep_mamba(T: int, probes: bool, profile: bool = False) -> None:
     variants = mamba_variants(probes)
     if profile:  # the source's constants only
-        variants = dict(list(variants.items())[:1]) if probes else {
-            "source": variant_source("mamba_scan", {}, [
-                (f"launch<{n}>", "launch<16>") for n in (4, 8, 32, 64)])}
+        variants = dict(list(variants.items())[:1])
     logs = build(variants)
     B, di, N = 8, 16384, 16
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -326,18 +302,8 @@ def sweep_mamba(T: int, probes: bool, profile: bool = False) -> None:
     y, hT = torch.empty_like(x), torch.empty_like(h0)
     ptrs = [t.data_ptr() for t in (A, dt, Bm, Cm, x, h0, y, hT)]
     print(f"B {B} T {T} di {di} N {N} f32: byte bound {byte_ms:.4f} ms")
-    for tag, (rc, log) in logs.items():
-        if rc != 0:
-            print(f"{tag}: does not build: {log.strip()[-600:]}")
-            continue
-        fn = bind(tag, "mamba_scan")
-
-        def call():
-            err = fn(*ptrs, B, T, di, N,
-                     torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"{tag}: cudaError {err}")
-
+    for tag, log, lib in built(logs):
+        call = checked(tag, bind(lib, "mamba_scan"), *ptrs, B, T, di, N)
         call()
         torch.cuda.synchronize()
         ok = all(bool(((a - b).abs() <= 2e-5 + 2e-5 * b.abs()).all())
@@ -345,15 +311,12 @@ def sweep_mamba(T: int, probes: bool, profile: bool = False) -> None:
         ms = event_ms(call)
         mhz = sm_clock_mhz()  # read right after the timed launches
         sfu_ms = B * T * di * N / (SFU_PER_CLOCK * SMS * mhz * 1e6) * 1e3
-        poly = int(re.search(r"constexpr int kPoly16 = (\d+);",
-                             variants[tag]).group(1))
         if profile:
             print(sass_histogram(OUT / f"{tag}.so", "mamba_scan_kernelILi16E"))
             print(clocks_under_load(call))
         print(f"{tag}: {ptxas(log, 'mamba_scan_kernelILi16E')}, {ms:.4f} ms, "
-              f"{ms / byte_ms:.2f}x the byte bound; SFU bound "
-              f"{sfu_ms * (16 - poly) / 16:.4f} ms ({16 - poly}/16 of the "
-              f"exponentials, SM clock {mhz:.0f} MHz); "
+              f"{ms / byte_ms:.2f}x the byte bound; SFU bound {sfu_ms:.4f} "
+              f"ms (SM clock {mhz:.0f} MHz); "
               f"{'agrees' if ok else 'DIFFERS from mamba_scan_ref'}")
 
 
@@ -362,15 +325,17 @@ def accuracy_mamba() -> None:
     2,048, di 256, N 16, A = -exp(N(0, 1)), dt log-uniform on [1e-3,
     1e-1]), each version's largest error against a scan in f64, as a share
     of the rule 2e-5 + 2e-5 |ref|: the plain version in f32 on the card
-    and on the CPU, the source, and the source in one form only."""
+    and on the CPU, the source, and the source unguarded."""
+    import numpy as np
+
     sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_mamba import _scan_inputs, _t
     from test_torch_mamba_exp_rounding import scan_f64
 
     A, _, Bm, Cm, x, h0 = _scan_inputs(2, 2048, 256, 16, seed=5)
-    rng = __import__("numpy").random.default_rng(6)
-    dt = __import__("numpy").exp(rng.uniform(
-        math.log(1e-3), math.log(1e-1), x.shape)).astype("float32")
+    rng = np.random.default_rng(6)
+    dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1), x.shape)) \
+        .astype(np.float32)
     args = _t(A, dt, Bm, Cm, x, h0)
     ry, rh = scan_f64(*args)
 
@@ -383,29 +348,21 @@ def accuracy_mamba() -> None:
     cuda = tuple(a.cuda() for a in args)
     print(f"plain, f32 on the card: {share(*mamba_scan_ref(*cuda))}")
     print(f"plain, f32 on the CPU: {share(*mamba_scan_ref(*args))}")
-    only16 = [(f"launch<{n}>", "launch<16>") for n in (4, 8, 32, 64)]
-    variants = {"source": variant_source("mamba_scan", {}, only16)}
-    for name in ("fast_only", "guarded_only"):
-        variants[name] = variant_source("mamba_scan", {},
-                                        only16 + MAMBA_PROBES[name])
-    for tag, (rc, log) in build(variants).items():
-        if rc != 0:
-            print(f"{tag}: does not build: {log.strip()[-600:]}")
-            continue
-        fn = bind(tag, "mamba_scan")
+    variants = {"source": variant_source("mamba_scan", {}, MAMBA_ONLY16),
+                "unguarded": variant_source(
+                    "mamba_scan", {},
+                    MAMBA_ONLY16 + MAMBA_PROBES["unguarded"])}
+    for tag, _, lib in built(build(variants)):
         y, h = torch.empty_like(cuda[4]), torch.empty_like(cuda[5])
-        err = fn(*(t.data_ptr() for t in cuda), y.data_ptr(), h.data_ptr(),
-                 2, 2048, 256, 16, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{tag}: cudaError {err}")
+        checked(tag, bind(lib, "mamba_scan"),
+                *(t.data_ptr() for t in cuda), y.data_ptr(), h.data_ptr(),
+                2, 2048, 256, 16)()
         torch.cuda.synchronize()
         print(f"{tag}: {share(y, h)}")
 
 
 DOT_SHAPES = ((8, 17, 128), (256, 17, 128), (128, 48, 128), (256, 17, 24),
               (256, 17, 33))
-
-
 DOT_PROBES = {  # (regular expression, replacement)
     # the query's floats read as aligned float4s (of the row itself)
     "q_aligned": [(re.escape("const int m = misalign(qb + head);"),
@@ -424,8 +381,7 @@ def sweep_batched_dot(also: list, probes: bool) -> None:
     else:
         grid = [dict(src, kWarps=w, kQuadMax=m)
                 for w, m in itertools.product((4, 8), (32, 48, 64))]
-        variants = {"_".join(f"{k[1:]}-{v}" for k, v in g.items())
-                    + ("_source" if g == src else ""):
+        variants = {tag_of(g) + ("_source" if g == src else ""):
                     variant_source("batched_dot", g) for g in grid}
     for path in also:  # another version of the source, as it is
         variants[Path(path).stem] = Path(path).read_text()
@@ -437,26 +393,20 @@ def sweep_batched_dot(also: list, probes: bool) -> None:
         q = torch.randn(B, D, device="cuda", generator=gen)
         out = torch.empty(B, K, device="cuda")
         atol = v.double().norm(dim=2) * q.double().norm(dim=1)[:, None]
-        bmm = (lambda v=v, q=q: torch.bmm(v, q[:, :, None]))
+        bmm = (lambda _, v=v, q=q: torch.bmm(v, q[:, :, None]))
         data[(B, K, D)] = (v, q, out, batched_dot_ref(v, q), atol, bmm)
-    for tag, (rc, log) in logs.items():
-        if rc != 0:
-            print(f"{tag}: does not build: {log.strip()[-600:]}")
-            continue
-        fn = bind(tag, "batched_dot")
+    for tag, log, lib in built(logs):
+        fn = bind(lib, "batched_dot")
         cells = []
         for (B, K, D), (v, q, out, exp, atol, bmm) in data.items():
-            def call(v=v, q=q, out=out, B=B, K=K, D=D):
-                err = fn(v.data_ptr(), q.data_ptr(), out.data_ptr(), B, K, D,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"{tag}: cudaError {err}")
-
+            call = checked(tag, fn, v.data_ptr(), q.data_ptr(),
+                           out.data_ptr(), B, K, D)
             call()
             torch.cuda.synchronize()
             err = (out.double() - exp.double()).abs()
             ok = bool((err <= 1e-5 * exp.double().abs() + 1e-5 * atol).all())
-            us, bmm_us = (t * 1e3 for t in graph_ms((call, bmm)))
+            us, bmm_us = (t * 1e3
+                          for t in _graph_ms_alternating((call, bmm), 1))
             cells.append(f"D{D} B{B} K{K} {us:.3f} us against {bmm_us:.3f} "
                          f"({us / bmm_us:.2f}x"
                          f"{'' if ok else ', DIFFERS'})")
@@ -464,10 +414,85 @@ def sweep_batched_dot(also: list, probes: bool) -> None:
               + ", ".join(cells))
 
 
+# N = 64 only: the other widths may not take every layout
+WKV6_ONLY64 = [(re.escape("launch<T, 32>"), "launch<T, 64>"),
+               (re.escape("launch<T, 128>"), "launch<T, 64>")]
+WKV6_UNROLL = r"#pragma unroll \d+(\n\s*for \(int t = 0; t < n; \+\+t\))"
+WKV6_STEP_FP = """            acc[q][e & 1] = fmaf(rr[e], s, acc[q][e & 1]);
+            s = fmaf(ww[e], s, kk[e] * vv[q]);"""
+WKV6_PROBES = {  # (regular expression, replacement)
+    "no_fp": [(re.escape(WKV6_STEP_FP),
+               "            if (q == 0) "
+               "acc[0][e & 1] += rr[e] * kk[e] * ww[e];")],
+    "no_lds": [(re.escape(f"*reinterpret_cast<const float4*>(&{a}[b][t][row])"),
+                "make_float4(0.5f, 0.5f, 0.5f, 0.5f)")
+               for a in ("sr", "sk", "sw")],
+    "no_steps": [(re.escape("for (int t = 0; t < n; ++t) {"),
+                  "for (int t = 0; t < 0; ++t) {")],
+    "no_ypass": [(re.escape("idx < n * (NMAX / 4); idx += kThreads"),
+                  "idx < 0; ++idx")],
+    # cp.async with a source size of 0: zero fill, no device-memory read
+    "no_fetch": [(re.escape(f'"r"(ok ? {n} : 0)'), '"r"(0)')
+                 for n in (4, 16)],
+}
+
+
+def wkv6_variants(probes: bool) -> dict:
+    src = (_build.CSRC / "wkv6.cu").read_text()
+    layout = dict(constants("wkv6", ("kGroups", "kCols")), kUnroll=int(
+        re.search(WKV6_UNROLL.replace(r"\d+", r"(\d+)", 1), src).group(1)))
+
+    def source(groups, cols, unroll, extra=()):
+        return variant_source(
+            "wkv6", {"kGroups": groups, "kCols": cols},
+            WKV6_ONLY64 + [(WKV6_UNROLL, rf"#pragma unroll {unroll}\1")]
+            + list(extra))
+
+    if probes:
+        out = {f"{tag_of(layout)}_source": source(*layout.values())}
+        out.update({name: source(*layout.values(), rep)
+                    for name, rep in WKV6_PROBES.items()})
+        return out
+    # 4 rows a group at least, 32 to 512 threads (b_t's reduction stays in
+    # a warp)
+    return {tag_of({"kGroups": g, "kCols": c, "kUnroll": u}): source(g, c, u)
+            for g, c, u in itertools.product((2, 4, 8, 16), (4, 8), (1, 2, 4))
+            if 64 // g >= 4 and 32 <= 64 // c * g <= 512}
+
+
+def sweep_wkv6(T: int, B: int, probes: bool) -> None:
+    logs = build(wkv6_variants(probes))
+    H, N = 32, 64
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    r, k, v = (torch.randn(B, H, T, N, device="cuda", generator=gen)
+               for _ in range(3))
+    w = 0.05 + 0.949 * torch.rand(B, H, T, N, device="cuda", generator=gen)
+    u = torch.randn(H, N, device="cuda", generator=gen)
+    s0 = torch.randn(B, H, N, N, device="cuda", generator=gen)
+    ey, es = wkv6_chunked(r, k, v, w, u, state=s0, chunk=32)
+    nbytes = 5 * B * H * T * N * 4 + 2 * B * H * N * N * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    y, s = torch.empty_like(r), torch.empty_like(s0)
+    print(f"B {B} H {H} T {T} N {N} f32: byte bound {bound:.4f} ms")
+    for tag, log, lib in built(logs):
+        call = checked(tag, bind(lib, "wkv6"),
+                       *(t.data_ptr() for t in (r, k, v, w, u, s0, y, s)),
+                       B, H, T, N, 0)
+        call()
+        torch.cuda.synchronize()
+        ok = all(bool(((a - b).abs() <= 3e-4 + 3e-4 * b.abs()).all())
+                 for a, b in ((y, ey), (s, es)))
+        ms = event_ms(call)
+        print(f"{tag}: {ptxas(log, 'wkv6_kernelIf')}, {ms:.4f} ms, "
+              f"{ms / bound:.2f}x the bound, "
+              f"{'agrees' if ok else 'DIFFERS from wkv6_chunked'}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("kernel", choices=("mamba", "batched_dot"))
+    ap.add_argument("kernel", choices=("mamba", "batched_dot", "wkv6"))
     ap.add_argument("--T", type=int, default=2048)
+    ap.add_argument("--B", type=int, default=8, help="wkv6: the batch")
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--also", action="append", default=[],
                     help="batched_dot: time this .cu file too, as it is")
@@ -490,8 +515,10 @@ def main() -> int:
             accuracy_mamba()
         else:
             sweep_mamba(args.T, args.probes, args.profile)
-    else:
+    elif args.kernel == "batched_dot":
         sweep_batched_dot(args.also, args.probes)
+    else:
+        sweep_wkv6(args.T, args.B, args.probes)
     return 0
 
 
