@@ -123,7 +123,10 @@ before the path and reads the counters just after it:
      as one CUDA graph, its replay timed by CUDA events (for
      ``batched_dot``, the kernel's, the plain version's and
      ``torch.bmm``'s graphs replayed in turns, 11 rounds, so that the
-     ratio compares them under the same clock).
+     ratio compares them under the same clock; for ``gather_norm_dot``,
+     the kernel's and the plain version's, and for its 2^21-row table
+     after evicting L2 before each replay, as a gather from a table far
+     larger than L2 finds it: ``_cold_l2``).
      ``flash_attention`` at qwen2-7b's prefill (B 8, T 2,048,
      Hq 28, Hkv 4, D 128) in f32 and bf16, at Jamba's (64/8 heads, bf16),
      at T = 1,000 (the ragged tail) in f32 and bf16, at h2o-danube-3-4b's
@@ -158,7 +161,12 @@ before the path and reads the counters just after it:
      SFUs, at 16 a clock per SM at the card's maximum SM clock).
      ``batched_dot``'s device time is also given as a ratio to
      ``torch.bmm``'s (``device_to_bmm``, per shape);
-  8. report — the kernels JSON line, then the ok line last.
+  8. report — the kernels JSON line, then the ok line last.  The WoW
+     kernels' entries add ``executions``: the wrapper's launches in the
+     device-build phase plus the launches that the phase's replayed hop
+     graphs ran (``device_search.KERNEL_REPLAYS``); ``gather_norm_dot``'s
+     adds ``device_by_case``, its device time in us at each of the nine
+     cases.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
 at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
@@ -224,10 +232,10 @@ def fail(msg: str) -> None:
 
 
 def reset_counts() -> None:
-    from repro_torch.core.device_search import GRAPH_REPLAYS
+    from repro_torch.core.device_search import GRAPH_REPLAYS, KERNEL_REPLAYS
     from repro_torch.kernels import launch_counters
 
-    for c in (*launch_counters(), GRAPH_REPLAYS):
+    for c in (*launch_counters(), GRAPH_REPLAYS, KERNEL_REPLAYS):
         for key in c:
             c[key] = 0
 
@@ -497,7 +505,10 @@ def phase_device_build() -> dict:
         if n["gather_norm_dot"] <= 0 or n["batched_dot"] != 0:
             fail(f"device {what}: launches {n}")
     replays = read_replays()
-    from repro_torch.core.device_search import graph_cache_stats, to_device_index
+    from repro_torch.core.device_search import (
+        KERNEL_REPLAYS, graph_cache_stats, to_device_index)
+
+    kernel_replays = dict(KERNEL_REPLAYS)
 
     graphs = graph_cache_stats()
     plain_bitwise = plain_batch_dependence(
@@ -514,11 +525,14 @@ def phase_device_build() -> dict:
           f"DC {st.dc}, arena {out['arena_bytes']} bytes; ingest "
           f"{N_INGEST} in {out['ingest_s']:.2f} s "
           f"({N_INGEST / out['ingest_s']:.1f} inserts/s)")
-    print(f"device-build path launches: {counts}; graph replays {replays}; "
-          f"{graphs['graphs']} captured chunks cached in a shared pool of "
-          f"{graphs['pool_bytes']} bytes "
-          f"(memory reserved {torch.cuda.memory_reserved()} bytes)")
-    return {"launches": counts, "replays": replays, "out": out}
+    executions = {k: counts[k] + kernel_replays[k] for k in kernel_replays}
+    print(f"device-build path launches: {counts}; graph replays {replays}, "
+          f"kernel launches they replayed {kernel_replays} (executions "
+          f"{executions}); {graphs['graphs']} captured chunks cached in a "
+          f"shared pool of {graphs['pool_bytes']} bytes (memory reserved "
+          f"{torch.cuda.memory_reserved()} bytes)")
+    return {"launches": counts, "replays": replays,
+            "executions": executions, "out": out}
 
 
 def phase_int8_build(f32_recall: float) -> dict:
@@ -863,19 +877,16 @@ def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def _graph_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
-    """``_graph_ms_alternating`` of ``fn`` alone."""
-    return _graph_ms_alternating((fn,), n_in, reps, rounds)[0]
-
-
 def _graph_ms_alternating(fns, n_in: int, reps: int = 20,
-                          rounds: int = 11) -> list:
+                          rounds: int = 11, before=None) -> list:
     """Median per-launch device ms of each ``fn(i)`` of ``fns``: ``reps``
     launches captured as one CUDA graph, its replay timed by CUDA events,
     so the host's enqueue is not in the time (for kernels of a few us,
     where ``_time_ms`` measures the host).  The graphs are replayed in
     turns, round by round, in an order that alternates, so that functions
-    compared in one run see the same clock and the same neighbours."""
+    compared in one run see the same clock and the same neighbours.
+    ``before()``, if given, runs before each timed replay, outside the
+    time (``_cold_l2``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capturing stream
@@ -897,6 +908,8 @@ def _graph_ms_alternating(fns, n_in: int, reps: int = 20,
     for r in range(rounds):
         order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
         for j in order:
+            if before is not None:
+                before()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -906,6 +919,20 @@ def _graph_ms_alternating(fns, n_in: int, reps: int = 20,
             times[j].append(start.elapsed_time(end) / reps)
     del graphs
     return [statistics.median(t) for t in times]
+
+
+def _cold_l2(keep):
+    """A ``before`` for ``_graph_ms_alternating`` that evicts the card's
+    50 MB L2 (it writes 128 MB) and then reads the tensors of ``keep`` back
+    into it: what a caller finds that gathers rows from a table far larger
+    than L2, its ids and queries fresh from the ops before it."""
+    scratch = torch.empty(2**25, device="cuda")
+
+    def before():
+        scratch.zero_()
+        for t in keep:
+            t.sum()
+    return before
 
 
 def _bound(nbytes: int, flops: int,
@@ -961,7 +988,10 @@ def kernels_gather(gen) -> dict:
             plain = lambda i: gather_norm_dot_ref(  # noqa: E731
                 table, ids[i], q, scales=scales)
             ms, plain_ms = _time_ms(kern, 20), _time_ms(plain, 20)
-            dev_ms, plain_dev_ms = _graph_ms(kern, 20), _graph_ms(plain, 20)
+            # a table far larger than L2 is gathered from cold
+            cold = _cold_l2([*ids, q]) if n > 2**20 else None
+            dev_ms, plain_dev_ms = _graph_ms_alternating((kern, plain), 20,
+                                                         before=cold)
             rows = int(torch.unique(ids[0]).numel())
             nbytes = (rows * D * table.element_size()
                       + (rows * 4 if scales is not None else 0)
@@ -981,7 +1011,10 @@ def kernels_gather(gen) -> dict:
             del table, scales
         del f32
         torch.cuda.empty_cache()
-    return {"cases": cases, "max_abs_err": max_err}
+    return {"cases": cases, "max_abs_err": max_err,
+            "device_by_case": {
+                f"{c['vec_dtype']} n{c['n']} B{c['B']} K{c['K']} D{c['D']}":
+                c["device_ms"] * 1e3 for c in cases}}
 
 
 def kernels_batched_dot(gen) -> dict:
@@ -1306,14 +1339,17 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_norm_dot.cu",
          "replaces": "src/repro/kernels/gather_distance.py:123",
          "launches": device["launches"]["gather_norm_dot"],
+         "executions": device["executions"]["gather_norm_dot"],
          "traced": traced["serve_fused_compact"],
          "max_abs_err": gnd["max_abs_err"],
          **{k: g_main[k] for k in keys + dev_keys},
+         "device_by_case": gnd["device_by_case"],
          "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
         {"name": "batched_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/batched_dot.cu",
          "replaces": "src/repro/kernels/distance.py:38",
          "launches": device["launches"]["batched_dot"],
+         "executions": device["executions"]["batched_dot"],
          "traced": traced["serve_reference_compact"],
          "max_abs_err": bd["max_abs_err"],
          **{k: b_main[k] for k in keys + dev_keys},

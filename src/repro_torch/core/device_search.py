@@ -732,11 +732,13 @@ class _GraphedChunk:
 
     Capturing launches nothing and a replay goes past the kernel wrappers,
     so neither adds to their ``LAUNCHES``; ``GRAPH_REPLAYS`` counts the
-    replays and the hops they ran.  Every graph captures into one shared
-    memory pool: the static inputs live outside it and ``run`` clones the
-    outputs before any other replay can start, so graphs may reuse each
-    other's intermediates as long as replays run one at a time on one
-    stream, as here."""
+    replays and the hops they ran, and ``KERNEL_REPLAYS`` the kernel
+    launches those hops replayed (one a hop, of the pipeline's kernel,
+    unless the plain versions were captured).  Every graph captures into
+    one shared memory pool: the static inputs live outside it and ``run``
+    clones the outputs before any other replay can start, so graphs may
+    reuse each other's intermediates as long as replays run one at a time
+    on one stream, as here."""
 
     def __init__(self, di: DeviceIndex, cfg: HopCfg, st: HopState, h: int):
         self.static = st._replace(**{
@@ -748,6 +750,11 @@ class _GraphedChunk:
                 out = _hop_body(di, cfg, out)
         self.out = out
         self.h = h
+        # the kernel each captured hop launched (graphs exist only on the
+        # card, where "auto" is the kernel)
+        self.kernel = None if cfg.backend == "ref" else (
+            "batched_dot" if cfg.pipeline == "reference"
+            else "gather_norm_dot")
 
     def run(self, st: HopState) -> HopState:
         for f in _STATE_TENSORS:
@@ -755,6 +762,8 @@ class _GraphedChunk:
         self.graph.replay()
         GRAPH_REPLAYS["chunks"] += 1
         GRAPH_REPLAYS["hops"] += self.h
+        if self.kernel is not None:
+            KERNEL_REPLAYS[self.kernel] += self.h
         # clone: the next replay overwrites the graph's outputs
         return self.out._replace(t=st.t + self.h, **{
             f: getattr(self.out, f).clone() for f in _STATE_TENSORS})
@@ -762,6 +771,9 @@ class _GraphedChunk:
 
 _STATE_TENSORS = tuple(f for f in HopState._fields if f != "t")
 GRAPH_REPLAYS = {"chunks": 0, "hops": 0}  # replays and the hops they ran
+# kernel launches replayed by captured hops, by kernel (the fused
+# pipeline's and the reference pipeline's)
+KERNEL_REPLAYS = {"gather_norm_dot": 0, "batched_dot": 0}
 _GRAPH_CACHE: dict = {}  # key -> _GraphedChunk, or None once seen
 _GRAPH_CACHE_SIZE = 128
 _GRAPH_POOL = None  # the memory pool every captured chunk shares

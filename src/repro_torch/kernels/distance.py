@@ -13,8 +13,9 @@ allocates the output, launches on the current stream and raises if the
 launch was refused.  ``LAUNCHES`` counts the launches it makes, so a run
 can show that its main path went through the kernel; a call under CUDA-graph
 capture only records a launch, and the graph's replays go past the wrapper
-(``core.device_search.GRAPH_REPLAYS`` counts those).  ``l2_distance`` composes the
-factorised L2 around the kernel, as the JAX wrapper does.
+(``core.device_search.KERNEL_REPLAYS`` counts the launches they run).
+``l2_distance`` composes the factorised L2 around the kernel, as the JAX
+wrapper does.
 """
 from __future__ import annotations
 

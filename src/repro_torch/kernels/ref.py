@@ -40,8 +40,9 @@ def gather_norm_dot_ref(
     """-> (<deq(table[ids[b,k]]), queries[b]>, |deq(table[ids[b,k]])|^2).
 
     Dequantizing twin of the CUDA kernel: bf16 tables upcast, int8 tables
-    multiply the gathered rows by their per-row f32 ``scales`` — the same
-    math the kernel does in registers, expressed over a materialized
+    multiply the gathered rows by their per-row f32 ``scales`` — the
+    function the kernel computes in registers (it scales an int8 row's
+    two sums instead of its values), expressed over a materialized
     gather."""
     n = table.shape[0]
     idc = ids.long().clamp(0, n - 1)

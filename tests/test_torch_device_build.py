@@ -234,7 +234,8 @@ def test_cuda_graphed_chunks_match_eager(cuda_device, arenas, visited):
     its hop chunks: a replayed chunk of a construction search equals the
     eager ``_run_hops`` from the same state bitwise, twice over, and
     neither the capture nor a replay adds to the wrapper's launch count
-    (``GRAPH_REPLAYS`` counts the replays)."""
+    (``GRAPH_REPLAYS`` counts the replays, ``KERNEL_REPLAYS`` the kernel
+    launches they ran: one a hop)."""
     from repro_torch.kernels.gather_distance import LAUNCHES
 
     ti, _, _, (targets, ranges, eps, si, sd), _ = arenas
@@ -254,6 +255,7 @@ def test_cuda_graphed_chunks_match_eager(cuda_device, arenas, visited):
     h = 8
     eager = tds._run_hops(prep.di, fresh(), prep.cfg, h)  # also warms up
     launches, replays = LAUNCHES["gather_norm_dot"], dict(tds.GRAPH_REPLAYS)
+    kernel_replays = dict(tds.KERNEL_REPLAYS)
     chunk = tds._GraphedChunk(prep.di, prep.cfg, fresh(), h)
     for i in (1, 2):
         graphed = chunk.run(fresh())
@@ -262,4 +264,7 @@ def test_cuda_graphed_chunks_match_eager(cuda_device, arenas, visited):
             assert torch.equal(getattr(graphed, f), getattr(eager, f)), f
         assert tds.GRAPH_REPLAYS == {"chunks": replays["chunks"] + i,
                                      "hops": replays["hops"] + i * h}
+        assert tds.KERNEL_REPLAYS == {
+            "gather_norm_dot": kernel_replays["gather_norm_dot"] + i * h,
+            "batched_dot": kernel_replays["batched_dot"]}
     assert LAUNCHES["gather_norm_dot"] == launches

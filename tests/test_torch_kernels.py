@@ -152,21 +152,36 @@ def cuda_device():
     return torch.device("cuda")
 
 
+CUDA_CASES = [  # (n, B, K, D, offset): table = rows[offset:]
+    # the serving shapes, and ragged widths
+    (32768, 8, 17, 128, 0), (32768, 256, 17, 128, 0), (64, 5, 9, 33, 0),
+    (200, 4, 33, 24, 0),
+    # each width round the lane groups' thresholds
+    *[(300, 3, 17, D, 0) for D in (24, 33, 48, 64, 127, 128, 129, 256, 768)],
+    (300, 5, 1, 128, 0), (300, 5, 48, 128, 0),  # K = 1 and 48
+    (300, 1, 3, 128, 0), (300, 3, 7, 40, 0),  # B K short of a warp's rows
+    # a contiguous row slice: a table base past a 16-byte boundary
+    (100, 4, 5, 33, 1), (100, 4, 5, 127, 1), (100, 4, 5, 129, 1),
+    (1, 2, 5, 33, 0), (1, 3, 4, 128, 0),  # n = 1
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("vec_dtype", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("n,B,K,D", [(32768, 8, 17, 128), (32768, 256, 17, 128),
-                                     (64, 5, 9, 33), (200, 4, 33, 24)])
-def test_cuda_kernel_matches_plain(cuda_device, n, B, K, D, vec_dtype):
+@pytest.mark.parametrize("n,B,K,D,offset", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda_device, n, B, K, D, offset,
+                                   vec_dtype):
     """The hand-written kernel against its plain version on the card, at
-    the serving shape and at ragged widths (scalar path), with
-    out-of-range ids."""
+    the serving shape, at every lane-group boundary of the row's width, at
+    ragged widths, short and ragged warps and unaligned tables (narrow
+    loads at the row ends), with out-of-range ids."""
     from repro_torch.kernels.gather_distance import LAUNCHES, gather_norm_dot
 
     rng = np.random.default_rng(D + K)
-    f32 = rng.normal(size=(n, D)).astype(np.float32)
+    f32 = rng.normal(size=(n + offset, D)).astype(np.float32)
     _, _, tt, ts = _tables(f32, vec_dtype)
-    tt = tt.to(cuda_device)
-    ts = None if ts is None else ts.to(cuda_device)
+    tt = tt.to(cuda_device)[offset:]
+    ts = None if ts is None else ts.to(cuda_device)[offset:]
     ids = torch.from_numpy(rng.integers(-3, n + 3, size=(B, K))).to(cuda_device)
     qs = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(
         cuda_device)
@@ -179,3 +194,66 @@ def test_cuda_kernel_matches_plain(cuda_device, n, B, K, D, vec_dtype):
     qnorm = qs.double().norm(dim=1).cpu().numpy()[:, None]
     _assert_close(kd.cpu(), rd.cpu(), vnorm, qnorm)
     _assert_close(kv.cpu(), rv.cpu(), vnorm, vnorm)
+
+
+def _source_constants(*keys) -> dict:
+    import re
+    from pathlib import Path
+
+    src = (Path(tref.__file__).resolve().parents[1] / "csrc"
+           / "gather_norm_dot.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in keys}
+
+
+def _first_query(r0, K: int, rows: int):
+    """The kernel's query of row r0: (r0 + 1/2) * (1/K) in f32, truncated,
+    while rows < 2^22, else the integer division."""
+    r0 = np.asarray(r0, np.int64)
+    if rows < (1 << 22):
+        inv_k = np.float32(1) / np.float32(K)
+        return ((r0.astype(np.float32) + np.float32(0.5)) * inv_k).astype(
+            np.int64)
+    return r0 // K
+
+
+def test_gather_row_to_query_mapping():
+    """The CUDA kernel's row -> (query, group, lane) mapping, emulated in
+    numpy: the f32 query of a warp's first row equals r0 // K for every row
+    below 2^22 and K <= 64 (and misses just above, so the integer division
+    there is needed); each group's query, stepped on from it, is its row's;
+    each row is stored once, by its group's first lane; and the lane groups
+    sized to the row give each lane 1-4 words of 4 values at D = 128."""
+    limit = 1 << 22
+    r = np.arange(limit, dtype=np.int64)
+    for K in range(1, 65):
+        assert np.array_equal(_first_query(r, K, limit - 1), r // K), K
+    above = np.arange(limit, limit + (1 << 20), dtype=np.int64)
+    assert not np.array_equal(_first_query(above, 63, limit - 1), above // 63)
+    assert np.array_equal(_first_query(above, 63, limit + (1 << 20)),
+                          above // 63)
+
+    c = _source_constants("kMax8", "kMax16")
+    rng = np.random.default_rng(0)
+    for D in (24, 48, 128, 768):
+        G = 8 if D <= c["kMax8"] else 16 if D <= c["kMax16"] else 32
+        if D == 128:
+            assert 1 <= D // 4 // G <= 4, G
+        R = 32 // G
+        for K in (1, 17, 48):
+            for B in (1, 7, 256):
+                rows = B * K
+                for r0 in range(0, rows, R):  # one warp a step
+                    lane = np.arange(32)
+                    g = lane // G
+                    live = r0 + g < rows
+                    b = _first_query(r0, K, rows) + np.zeros(32, np.int64)
+                    k = r0 - b * K + g
+                    while (k >= K).any():  # the kernel's carry loop
+                        b, k = b + (k >= K), k - K * (k >= K)
+                    assert np.array_equal(b[live], (r0 + g[live]) // K)
+                    stores = r0 + g[(lane % G == 0) & live]
+                    assert np.array_equal(stores, np.arange(
+                        r0, min(r0 + R, rows)))
+        big = int(rng.integers(limit, 1 << 30))
+        assert _first_query(big, 48, big + 1) == big // 48

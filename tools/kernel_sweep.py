@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time variants of the ``mamba_scan``, ``batched_dot`` and ``wkv6`` CUDA
-kernels on the card.
+"""Time variants of the ``mamba_scan``, ``batched_dot``, ``wkv6`` and
+``gather_norm_dot`` CUDA kernels on the card.
 
     python3 tools/kernel_sweep.py mamba [--T 2048] [--probes] [--profile]
     python3 tools/kernel_sweep.py mamba --accuracy
     python3 tools/kernel_sweep.py batched_dot [--probes] [--also FILE.cu]
     python3 tools/kernel_sweep.py wkv6 [--T 2048] [--B 8] [--probes]
+    python3 tools/kernel_sweep.py gather [--probes | --pdl] [--also FILE.cu]
 
 Each kernel fixes its layout in a few constants.  This script writes
 variants of the source with other values into ``build/kernel_sweep/``,
@@ -42,10 +43,11 @@ row that takes 8 lanes), at the smoke's five shapes, each held to
 ``batched_dot_ref`` within 1e-5 |v| |q| and timed device to device
 beside ``torch.bmm`` on the same inputs (20 launches of each captured as
 one CUDA graph, the two graphs replayed in turns, the median of 11
-rounds).  Probe: ``q_aligned`` reads the query's floats as aligned
-float4s of the wrong row.  ``--also FILE.cu`` times another version of
-the source beside them, as it is (e.g. an older one: ``git show
-REV:src/repro_torch/csrc/batched_dot.cu > build/x.cu``).
+rounds).  Probes: ``q_aligned`` reads the query's floats as aligned
+float4s of the wrong row; ``empty`` is the same grid returning at once
+(the launch floor of a replayed graph).  ``--also FILE.cu`` times another
+version of the source beside them, as it is (e.g. an older one: ``git
+show REV:src/repro_torch/csrc/batched_dot.cu > build/x.cu``).
 
 ``wkv6``: ``kGroups`` (threads that share a value column, each summing
 its rows of y_t[j]), ``kCols`` (value columns of a thread) and the
@@ -57,6 +59,26 @@ memory), ``no_steps`` (the staging, b_t and y passes alone),
 ``no_ypass`` (no pass adding the partial sums into y) and ``no_fetch``
 (zeros staged instead of r, k, w, v from device memory).  ``--B 4``
 shows whether the time is per SM (it halves) or per block (it stays).
+
+``gather``: ``kWarps`` (warps a block), ``kMax8`` and ``kMax16`` (the
+widest rows, in values, that take 8 and 16 lanes), ``kSlots`` (words a
+lane loads before its first FMA) and ``warp_store`` (lane r stores row
+r0 + r, its sums shuffled from the row's group, instead of each group's
+first lane storing its row), at ``chip_smoke.py``'s nine cases (n
+32,768, B 8 and 256, K 17; n 2^21, B 128, K 48; D 128; f32, bf16, int8),
+each held to ``gather_norm_dot_ref`` within 1e-5 |v| |q| and timed device
+to device: 20 launches on 20 id sets captured as one CUDA graph, every
+variant's graph replayed in turns with the others, the median of 11
+rounds (for the 2^21-row table after evicting L2, the ids and queries
+read back: ``chip_smoke._cold_l2``), the source twice (``source`` and
+``source'``: their gap is the in-turns spread).  Probes: ``empty`` (the
+same grid returning at once: the launch floor of a replayed graph), ``no_fetch`` (every row read from id 0: no
+id load and no dependent gather) and ``no_reduce`` (no butterfly).
+``--pdl`` times the source against a programmatic dependent launch of it
+(``cudaLaunchKernelEx`` with programmatic stream serialization,
+``griddepcontrol.wait`` before the first read), each launch behind a
+torch op that writes its ids (a clamp), as a hop does, and the clamp
+alone.  ``--also FILE.cu`` as for ``batched_dot``.
 
 Needs one card and nvcc.
 """
@@ -79,10 +101,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
-    HBM_BYTES_PER_S, _graph_ms_alternating, _time_ms)
+    HBM_BYTES_PER_S, _cold_l2, _graph_ms_alternating, _quantize, _time_ms)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    batched_dot_ref, mamba_scan_ref, wkv6_chunked)
+    batched_dot_ref, gather_norm_dot_ref, mamba_scan_ref, wkv6_chunked)
 
 OUT = ROOT / "build" / "kernel_sweep"
 SMS, SFU_PER_CLOCK = 132, 16
@@ -369,6 +391,9 @@ DOT_PROBES = {  # (regular expression, replacement)
                    "const int m = 0;"),
                   (re.escape("reinterpret_cast<const float4*>(qb + head - m);"),
                    "reinterpret_cast<const float4*>(vb + head);")],
+    # the same grid, returning at once
+    "empty": [(re.escape("  const int lane = threadIdx.x & 31;\n"),
+               r"  if (rows > 0) return;\n\g<0>")],
 }
 
 
@@ -488,14 +513,171 @@ def sweep_wkv6(T: int, B: int, probes: bool) -> None:
               f"{'agrees' if ok else 'DIFFERS from wkv6_chunked'}")
 
 
+GATHER_KEYS = ("kWarps", "kMax8", "kMax16", "kSlots")
+GATHER_CASES = [(n, B, K, 128, vd)
+                for n, B, K in ((32768, 8, 17), (32768, 256, 17),
+                                (2**21, 128, 48))
+                for vd in ("f32", "bf16", "int8")]
+GATHER_ENTRY = re.escape(
+    "  const int lane = threadIdx.x & 31, g = lane / G, lg = lane % G;\n")
+GATHER_PROBES = {  # (regular expression, replacement)
+    "empty": [(GATHER_ENTRY, r"  if (rows > 0) return;\n\g<0>")],
+    "no_fetch": [(re.escape("id = __ldg(ids + r0 + g);"), "id = 0;")],
+    "no_reduce": [(re.escape("int off = G / 2; off > 0;"),
+                   "int off = G / 2; off > G;")],
+}
+GATHER_WARP_STORE = [(re.escape("""  if (lg == 0 && live) {
+    dots[r0 + g] = d * s;
+    v2[r0 + g] = e * (s * s);"""),
+                      """  d = __shfl_sync(kFull, d * s, lane * G);
+  e = __shfl_sync(kFull, e * (s * s), lane * G);
+  if (lane < R && r0 + lane < rows) {
+    dots[r0 + lane] = d;
+    v2[r0 + lane] = e;""")]
+GATHER_PDL = [
+    (GATHER_ENTRY,
+     r'  asm volatile("griddepcontrol.wait;" ::: "memory");\n\g<0>'),
+    (re.escape("kern<<<static_cast<unsigned>(grid), kWarps * 32, 0, "
+               "stream>>>("),
+     """cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(grid));
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kern, """)]
+
+
+def gather_variants(probes: bool, pdl: bool) -> dict:
+    src = constants("gather_norm_dot", GATHER_KEYS)
+    if pdl:
+        return {"source": variant_source("gather_norm_dot", {}),
+                "pdl": variant_source("gather_norm_dot", {}, GATHER_PDL)}
+    if probes:
+        out = {"source": variant_source("gather_norm_dot", {})}
+        out.update({name: variant_source("gather_norm_dot", {}, rep)
+                    for name, rep in GATHER_PROBES.items()})
+        return out
+    grid = [dict(src, kWarps=w) for w in (4, 8, 16)]
+    # D = 128 takes 8, 16 or 32 lanes
+    grid += [dict(src, kMax8=a, kMax16=b) for a, b in ((128, 256), (48, 64))]
+    grid += [dict(src, kSlots=k) for k in (1, 4)]
+    out = {}
+    for g in grid:
+        out.setdefault(tag_of(g) + ("_source" if g == src else ""),
+                       variant_source("gather_norm_dot", g))
+    out["warp_store"] = variant_source("gather_norm_dot", {},
+                                       GATHER_WARP_STORE)
+    return out
+
+
+def gather_ptxas(log: str, source: str) -> str:
+    """registers and spills of the aligned instantiation each type takes
+    at D = 128 (``source`` gives the thresholds), or of a source without
+    them"""
+    found = {k: int(m.group(1)) for k in ("kMax8", "kMax16")
+             if (m := re.search(rf"constexpr int {k} = (\d+);", source))}
+    out = []
+    for name, mangled in (("f32", "f"), ("bf16", "13__nv_bfloat16"),
+                          ("int8", "a")):
+        if len(found) == 2:
+            G = (8 if 128 <= found["kMax8"] else 16 if 128 <= found["kMax16"]
+                 else 32)
+            pattern = f"gather_norm_dot_kernelI{mangled}Li{G}ELb1E"
+        else:
+            pattern = f"gather_norm_dot_kernelI{mangled}E"
+        out.append(f"{name} {ptxas(log, pattern)}")
+    return "; ".join(out)
+
+
+def sweep_gather(also: list, probes: bool, pdl: bool) -> None:
+    variants = gather_variants(probes, pdl)
+    for path in also:  # another version of the source, as it is
+        variants[Path(path).stem] = Path(path).read_text()
+    logs = build(variants)
+    libs = []
+    for tag, log, lib in built(logs):
+        print(f"{tag}: {gather_ptxas(log, variants[tag])}")
+        libs.append((tag, bind(lib, "gather_norm_dot")))
+    # the source twice: their gap is the in-turns spread
+    at = next(i for i, (tag, _) in enumerate(libs) if "source" in tag)
+    libs.insert(at + 1, (libs[at][0] + "'", libs[at][1]))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    codes = {"f32": 0, "bf16": 1, "int8": 2}
+    results = {tag: [] for tag, _ in libs}
+    heads = []
+    for n, B, K, D, vd in GATHER_CASES:
+        table, scales = _quantize(torch.randn(n, D, device="cuda",
+                                              generator=gen), vd)
+        ids = [torch.randint(0, n, (B, K), device="cuda", generator=gen)
+               for _ in range(20)]
+        idb = [torch.empty_like(i) for i in ids]  # the clamp's output
+        q = torch.randn(B, D, device="cuda", generator=gen)
+        rd, rv = gather_norm_dot_ref(table, ids[0], q, scales=scales)
+        vn = rv.double().sqrt()
+        atol = vn * q.double().norm(dim=1)[:, None]
+        calls = []
+        for tag, fn in libs:
+            dots, v2 = (torch.empty(B, K, device="cuda") for _ in range(2))
+
+            def call(i, fn=fn, dots=dots, v2=v2, tag=tag):
+                src = ids[i]
+                if pdl:  # a torch op writes the ids, as in a hop
+                    src = torch.clamp(ids[i], 0, n - 1, out=idb[i])
+                checked(tag, fn, table.data_ptr(), codes[vd],
+                        None if scales is None else scales.data_ptr(),
+                        src.data_ptr(), q.data_ptr(), dots.data_ptr(),
+                        v2.data_ptr(), B, K, D, n)()
+            call(0)
+            torch.cuda.synchronize()
+            ok = all(bool(((got.double() - exp.double()).abs()
+                           <= 1e-5 * exp.double().abs() + 1e-5 * tol).all())
+                     for got, exp, tol in ((dots, rd, atol),
+                                           (v2, rv, vn * vn)))
+            calls.append((tag, call, ok))
+        fns = [c for _, c, _ in calls]
+        if pdl:  # the clamp alone
+            fns.append(lambda i: torch.clamp(ids[i], 0, n - 1, out=idb[i]))
+        # the 2^21-row table: rows gathered from a cold L2, as a caller
+        # finds them (its 20 id sets would otherwise stay in L2 from one
+        # replay to the next for bf16 and int8)
+        cold = _cold_l2([*ids, q]) if n > 2**20 else None
+        times = _graph_ms_alternating(fns, 20, before=cold)
+        for (tag, _, ok), t in zip(calls, times):
+            results[tag].append(f"{t * 1e3:.3f}{'' if ok else ' DIFFERS'}")
+        if pdl:
+            results.setdefault("clamp alone", []).append(
+                f"{times[-1] * 1e3:.3f}")
+        rows = int(torch.unique(ids[0]).numel())
+        nbytes = (rows * D * table.element_size()
+                  + (rows * 4 if scales is not None else 0)
+                  + B * K * 8 + B * D * 4 + 2 * B * K * 4)
+        heads.append(f"{vd} n{n} B{B} K{K} (bound "
+                     f"{nbytes / HBM_BYTES_PER_S * 1e6:.3f}"
+                     f"{', cold L2' if cold else ''})")
+        del table, scales
+        torch.cuda.empty_cache()
+    print("us a launch, device to device; " + " | ".join(heads))
+    for tag, cells in results.items():
+        print(f"{tag}: " + " | ".join(cells))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("kernel", choices=("mamba", "batched_dot", "wkv6"))
+    ap.add_argument("kernel",
+                    choices=("mamba", "batched_dot", "wkv6", "gather"))
     ap.add_argument("--T", type=int, default=2048)
     ap.add_argument("--B", type=int, default=8, help="wkv6: the batch")
     ap.add_argument("--probes", action="store_true")
     ap.add_argument("--also", action="append", default=[],
-                    help="batched_dot: time this .cu file too, as it is")
+                    help="batched_dot, gather: time this .cu file too, as "
+                         "it is")
+    ap.add_argument("--pdl", action="store_true",
+                    help="gather: the source against a programmatic "
+                         "dependent launch of it, behind a torch op")
     ap.add_argument("--accuracy", action="store_true",
                     help="mamba: errors against an f64 scan where decays "
                          "stay close to 1")
@@ -517,6 +699,8 @@ def main() -> int:
             sweep_mamba(args.T, args.probes, args.profile)
     elif args.kernel == "batched_dot":
         sweep_batched_dot(args.also, args.probes)
+    elif args.kernel == "gather":
+        sweep_gather(args.also, args.probes, args.pdl)
     else:
         sweep_wkv6(args.T, args.B, args.probes)
     return 0
