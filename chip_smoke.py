@@ -58,6 +58,27 @@ before the path and reads the counters just after it:
      make, not those of replayed CUDA graphs, so each traced run also
      checks that the kernel events the profiler recorded equal the
      wrappers' launches plus one per replayed hop (``GRAPH_REPLAYS``);
+  5b. engine — the request-lifecycle ``ServeEngine`` on the device-built
+     index of phase 3 (its current snapshot; no second build), through
+     ``repro_torch.launch.serve._serve_engine`` with ``backend="cuda"``
+     and then ``"ref"``, m/k/width as above, max_wave 64: per backend
+     ``warmup()`` then three runs over the 256 queries, each its own
+     engine: (a) a closed burst — recall@10 >= 0.90, through the kernel
+     every undegraded reply (ids, dists, hops, DC) equal to the kernel's
+     one-shot ``search_batch`` bit for bit (the plain versions: the tie
+     rule); (c) the same burst on the same snapshot under a deadline at
+     (a)'s p50 latency: degraded replies > 0, each a valid prefix
+     (distances sorted, at least one id, no more hops than in (a), some
+     with fewer; through the kernel a late one with all its hops equal to
+     (a)'s reply, an expired one empty); (b) open-loop arrivals at half
+     of (a)'s QPS while 4,096 rows (attributes above every query range)
+     are ingested through ``submit_ingest`` with the device build: ingest
+     rows/s, whether the snapshot refreshed, the graph cache before and
+     after.  Each run prints QPS, latency p50/p95/p99 from
+     admission to reply, waves, chunks, shed waves, degraded and expired
+     counts, the chunk schedule, the ``gather_norm_dot`` launches and
+     replayed hops (one of the two > 0 in every kernel run, none in a
+     plain run) and the graph captures after warm-up;
   6. LM serve — ``repro_torch.serve.LMServer`` serves qwen2-7b (28
      layers, d 3,584, 28/4 heads x 128, d_ff 18,944, vocab 152,064) in
      f32, the same model again in bf16 (15.2 GB; ``compute_dtype=torch.
@@ -84,7 +105,23 @@ before the path and reads the counters just after it:
      device memory (after one warm-up request per backend), and traces one
      T = 2,048 kernel prefill and one decode step after it, for each model
      (device busy, idle share, each kernel's share, top device ops).  Each
-     model's weights are freed before the next is built;
+     model's weights are freed before the next is built.  In the bf16
+     run of qwen2-7b, the RAG phase reuses its weights:
+     ``repro_torch.serve.RagPipeline`` at full width (d 3,584, f32 slab,
+     ``build_backend="device"``, m 16) embeds RAG_DOCS documents of 64
+     seeded tokens (years 1990-2024), 512 a call, retrieves 256 queries
+     of 16 tokens under mixed year ranges (``retrieve_batch``, k 5, width
+     48), ingests 512 more documents, re-serves, and serves the same 256
+     through ``engine()`` (after ``warmup()``), whose replies must equal
+     ``retrieve_batch``'s bit for bit; ``gather_norm_dot`` at D = 3,584
+     (B 256, K 17, the pipeline's own table and query embeddings) held to
+     its plain version and timed like phase 7's cases; ``flash_attention``
+     launched 28 times by every embed; the kernel path's embeds of 512
+     documents x 64 tokens and of the 256 queries x 16 held to a
+     ``backend="ref"`` server's on the same weights by the embed rule
+     above (LM_REL_TOL of max |embed| or 4x the one-ulp sensitivity).  Prints docs embedded/s, ingest
+     rows/s, the batch latency, recall@5 against brute force (not gated:
+     random-weight embeddings), the launches;
   6b. Jamba serve — the same batches, checks and traces for
      jamba-1.5-large-398b at full width (d 8,192, d_ff 24,576, 64/8 heads
      x 128, 16 experts top-2 on odd layers, Mamba expand 2, d_state 16,
@@ -166,7 +203,8 @@ before the path and reads the counters just after it:
      device-build phase plus the launches that the phase's replayed hop
      graphs ran (``device_search.KERNEL_REPLAYS``); ``gather_norm_dot``'s
      adds ``device_by_case``, its device time in us at each of the nine
-     cases.
+     cases, and ``rag_d3584``, its case at the RAG width; both kernels of
+     the engine and RAG paths add ``launches_by_path``.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
 at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
@@ -199,6 +237,10 @@ N_HOST = 8192  # host-built (ops) serve phase
 N_DEVICE = 65536  # device-build phase (see the module docstring)
 N_INGEST = 4096
 QUERIES = 256
+RAG_ARCH_RUN = "qwen2-7b-bf16"  # the LM run the RAG phase rides on
+RAG_DOCS = 4096  # corpus documents (64 seeded tokens each)
+RAG_INGEST = 512
+RAG_QUERIES = 256
 LM_PROMPTS = (512, 1000, 2048)  # prompt lengths of the LM serve batches
 LM_BATCH = 8
 LM_DECODE = 32
@@ -669,6 +711,359 @@ def phase_trace(out: dict) -> dict:
     return traced
 
 
+def _engine_run(tag: str, backend: str, wl, idx, snap, extra=(),
+                ingest=None) -> dict:
+    """One ``_serve_engine`` run of the launcher on ``idx`` with the
+    counts set to 0 just before it and read just after it."""
+    from repro_torch.launch import serve
+
+    args = serve._parser().parse_args(
+        [*COMMON, "--backend", backend, "--build-backend", "device",
+         "--engine", *extra])
+    reset_counts()
+    run = serve._serve_engine(args, wl, idx, snap, "cuda", ingest=ingest)
+    run["path_counts"] = read_counts()
+    c, st = run["counts"], run["stats"]
+    gnd = c["gather_norm_dot"] + c["replayed_gather_norm_dot"]
+    if backend == "cuda" and gnd <= 0:
+        fail(f"engine {tag}: gather_norm_dot neither launched nor replayed")
+    # (the device build of an ingest launches the kernel in either run)
+    if backend == "ref" and ingest is None and any(
+            run["path_counts"].values()):
+        fail(f"engine {tag}: the plain run launched kernels "
+             f"{run['path_counts']}")
+    if not run["answered"].all():
+        fail(f"engine {tag}: {int((~run['answered']).sum())} queries "
+             "without a reply")
+    lat = run["latency_ms"]
+    print(f"engine {tag}: warmup {run['warmup_s']:.3f} s "
+          f"({run['warmup_counts']['captures']} captures); "
+          f"{run['qps']:.1f} QPS, latency p50 {lat['p50']:.3f} p95 "
+          f"{lat['p95']:.3f} p99 {lat['p99']:.3f} ms, waves {st['waves']}, "
+          f"chunks {st['chunks']}, shed waves {st['shed_waves']}, degraded "
+          f"{st['degraded']}, expired {st['expired']}, rejected "
+          f"{run['rejected']}, chunk schedule {st['chunk_schedule']}, "
+          f"recall@10 {run['recall']:.4f}; gather_norm_dot launches "
+          f"{c['gather_norm_dot']} + replayed {c['replayed_gather_norm_dot']}"
+          f", graph replays {c['graph_chunks']}, captures after warmup "
+          f"{run['captures_after_warmup']}; path launches "
+          f"{run['path_counts']}")
+    return run
+
+
+def _engine_bitwise(tag: str, run: dict, ref, snap, scale: float,
+                    kernel: bool) -> int:
+    """Undegraded replies against the one-shot ``search_batch`` on the
+    snapshot the engine served: bitwise through the kernel, else the tie
+    rule.  Returns the tie flips."""
+    import numpy as np
+
+    from repro_torch.core.device_search import SearchResult
+
+    want = SearchResult(
+        ids=np.where(ref.ids >= 0,
+                     snap.ids_map[np.clip(ref.ids, 0, None)], -1),
+        dists=ref.dists, dc=ref.dc, hops=ref.hops)
+    got = run["result"]
+    ok = run["answered"] & ~run["degraded"]
+    if kernel:
+        for a, b in zip(got, want):
+            if not (np.asarray(a)[ok] == np.asarray(b)[ok]).all():
+                fail(f"engine {tag}: replies differ from the kernel's "
+                     "one-shot search_batch")
+        return 0
+    return _agree(f"engine {tag}", SearchResult(*(np.asarray(a)[ok]
+                                                  for a in got)),
+                  SearchResult(*(np.asarray(b)[ok] for b in want)), scale)
+
+
+def phase_engine(out: dict) -> dict:
+    """The request-lifecycle engine on the device-built index (see the
+    module docstring, phase 5b)."""
+    import numpy as np
+
+    from repro_torch.core.datasets import make_attrs, make_vectors
+    from repro_torch.core.device_search import search_batch
+    from repro_torch.core.snapshot import take_snapshot
+    from repro_torch.serve import ServeEngine
+
+    idx, wl = out["index"], out["workload"]
+    snap = take_snapshot(idx, prev=out["snapshot_after"])
+    scale = _scale(out, snap)
+    top = float(np.max(idx.store.attrs[: idx.store.n])) + 1.0
+    runs = {}
+    for b, backend in enumerate(("cuda", "ref")):
+        kernel = backend == "cuda"
+        a = _engine_run(f"{backend} (a) closed burst", backend, wl, idx,
+                        snap)
+        if a["recall"] < 0.90:
+            fail(f"engine {backend} (a): recall@10 {a['recall']:.4f} < 0.90")
+        if a["captures_after_warmup"]:
+            fail(f"engine {backend} (a): {a['captures_after_warmup']} "
+                 "chunks captured after warmup on a static engine")
+        ref = search_batch(snap, wl.queries, wl.ranges, k=a["config"].k,
+                           width=a["config"].width, backend=backend,
+                           device="cuda")
+        flips = _engine_bitwise(f"{backend} (a)", a, ref, snap, scale,
+                                kernel)
+        print(f"ok engine {backend} (a): {'bitwise' if kernel else 'tie rule'}"
+              f" equal to the one-shot search_batch ({flips} tie flips)")
+        if kernel:  # where the engine's time goes: one more burst, traced
+            eng = ServeEngine(index=idx, snapshot=snap, config=a["config"],
+                              device="cuda")
+            eng.warmup()
+
+            def burst(eng=eng):
+                for i in range(len(wl.queries)):
+                    eng.submit(wl.queries[i], wl.ranges[i])
+                eng.drain()
+
+            traced = _traced_launches(burst, "engine_burst")
+
+        # (c) on (a)'s snapshot: the same work under a deadline at (a)'s
+        # median latency; (a)'s replies are the undeadlined run
+        dl = a["latency_ms"]["p50"]
+        c = _engine_run(f"{backend} (c) deadline {dl:.3f} ms", backend, wl,
+                        idx, snap, extra=("--deadline-ms", str(dl)))
+        full = a["result"]
+        deg = np.flatnonzero(c["degraded"])
+        if deg.size == 0:
+            fail(f"engine {backend} (c): no degraded reply")
+        res, kinds = c["result"], {"truncated": 0, "late": 0, "expired": 0}
+        for i in deg:
+            ids, d = res.ids[i], res.dists[i]
+            if c["reason"][i] == "queue_deadline":
+                if (ids != -1).any() or res.hops[i] != 0:
+                    fail(f"engine {backend} (c): expired reply {i} not empty")
+                kinds["expired"] += 1
+                continue
+            if not ((ids >= 0).any() and (np.diff(d[ids >= 0]) >= 0).all()):
+                fail(f"engine {backend} (c): degraded reply {i} is not a "
+                     "valid prefix")
+            if kernel and res.hops[i] > full.hops[i]:
+                fail(f"engine {backend} (c): degraded reply {i} ran "
+                     f"{res.hops[i]} hops > {full.hops[i]}")
+            if res.hops[i] < full.hops[i]:
+                kinds["truncated"] += 1
+            else:
+                kinds["late"] += 1
+                if kernel and not np.array_equal(ids, full.ids[i]):
+                    fail(f"engine {backend} (c): late reply {i} differs "
+                         "from the undeadlined run")
+        if kinds["truncated"] == 0:
+            fail(f"engine {backend} (c): no reply truncated in flight")
+        print(f"ok engine {backend} (c): {deg.size} degraded replies, all "
+              f"valid prefixes {kinds}")
+
+        vecs = make_vectors(N_INGEST, snap.vectors.shape[1], seed=200 + b)
+        attrs = make_attrs(vecs, seed=200 + b) + top
+        rate = a["qps"] / 2.0
+        bb = _engine_run(f"{backend} (b) open loop at {rate:.1f} QPS + "
+                         f"{N_INGEST} ingested", backend, wl, idx, snap,
+                         extra=("--rate", str(rate), "--ingest",
+                                str(N_INGEST)), ingest=(vecs, attrs))
+        if bb["stats"]["ingest"]["rows"] != N_INGEST or len(idx) != \
+                len(snap.attrs) + N_INGEST:
+            fail(f"engine {backend} (b): ingest incomplete")
+        print(f"engine {backend} (b): ingested {N_INGEST} rows in "
+              f"{bb['ingest_s']:.3f} s ({N_INGEST / bb['ingest_s']:.1f} "
+              f"rows/s), snapshot refreshed {bb['snapshot_refreshed']}; "
+              f"graph cache before {bb['graphs_before']}, after "
+              f"{bb['graphs_after']}")
+        snap = take_snapshot(idx, prev=snap)
+        top = float(np.max(attrs)) + 1.0
+        runs[backend] = {"a": a, "b": bb, "c": c}
+    launches = {k: sum(r["path_counts"][k] for rr in runs.values()
+                       for r in rr.values())
+                for k in ("gather_norm_dot", "batched_dot")}
+    replayed = sum(r["counts"]["replayed_gather_norm_dot"]
+                   for rr in runs.values() for r in rr.values())
+    return {"runs": runs, "launches": launches, "replayed": replayed,
+            "traced": traced}
+
+
+def phase_rag(cfg, params, kw: dict) -> dict:
+    """The RAG pipeline at qwen2-7b's full width on the bf16 model's
+    weights (see the module docstring, phase 6)."""
+    import numpy as np
+
+    from repro_torch.core.device_search import to_device_index
+    from repro_torch.kernels.gather_distance import gather_norm_dot
+    from repro_torch.kernels.ref import gather_norm_dot_ref
+    from repro_torch.serve import LMServer, RagPipeline
+
+    rng = np.random.default_rng(11)
+    server = LMServer(cfg, params, backend="auto", **kw)
+    rag = RagPipeline(server, dim=cfg.d_model, build_backend="device")
+    docs = rng.integers(0, cfg.vocab_size, (RAG_DOCS + RAG_INGEST, 64)
+                        ).astype(np.int32)
+    years = 1990.0 + rng.integers(0, 35, RAG_DOCS + RAG_INGEST)
+    qt = rng.integers(0, cfg.vocab_size, (RAG_QUERIES, 16)).astype(np.int32)
+    lo = rng.integers(1990, 2025, RAG_QUERIES)
+    span = rng.choice([0, 1, 4, 9, 34], RAG_QUERIES)
+    qr = np.stack([lo, np.minimum(lo + span, 2024)], 1).astype(np.float32)
+
+    server.embed(docs[:8])  # warm (first-call costs out of the timings)
+    reset_counts()
+    t0 = time.perf_counter()
+    embs = server.embed(docs[:512])
+    embed_s = time.perf_counter() - t0
+    n_embed = read_counts()["flash_attention"]
+    if n_embed != cfg.num_layers:
+        fail(f"rag embed: {n_embed} flash_attention launches, expected "
+             f"{cfg.num_layers}")
+    if not np.isfinite(embs).all():
+        fail("rag embed: non-finite embedding")
+    # the kernel's embeds held to the plain path's at the two shapes this
+    # phase sends it: 512 documents x 64 tokens and the 256 queries x 16
+    plain = LMServer(cfg, params, backend="ref", **kw)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q_emb = server.embed(qt)
+    reset_counts()
+    held = {"docs_512x64": _hold_embed(
+                "rag embed 512 x 64", params, cfg, docs[:512], embs,
+                plain.embed(docs[:512]), gen, kw["compute_dtype"]),
+            "queries_256x16": _hold_embed(
+                "rag embed 256 x 16", params, cfg, qt, q_emb,
+                plain.embed(qt), gen, kw["compute_dtype"])}
+    if any(read_counts().values()):
+        fail(f"rag: the plain embeds launched a kernel {read_counts()}")
+    for name, h in held.items():
+        print(f"ok rag embed {name}, kernel against plain: {h['text']}")
+    del plain
+
+    embed, embed_s_in = server.embed, [0.0]
+
+    def timed_embed(tokens):  # the embed's share of add_documents
+        t = time.perf_counter()
+        out = embed(tokens)  # a host array: the device has finished
+        embed_s_in[0] += time.perf_counter() - t
+        return out
+
+    server.embed = timed_embed
+    reset_counts()
+    t0 = time.perf_counter()
+    for s in range(0, RAG_DOCS, 512):
+        res = rag.add_documents(docs[s:s + 512], years[s:s + 512])
+        if res.accepted != min(512, RAG_DOCS - s):
+            fail(f"rag add_documents: {res!r}")
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    corpus_embed_s = embed_s_in[0]
+    server.embed = embed
+    t0 = time.perf_counter()
+    ids, dists = rag.retrieve_batch(qt, qr)
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rag.add_documents(docs[RAG_DOCS:], years[RAG_DOCS:])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids, dists = rag.retrieve_batch(qt, qr)
+    batch2_s = time.perf_counter() - t0
+    counts = read_counts()
+    calls = RAG_DOCS // 512 + 3  # corpus, two query batches, the ingest
+    if counts["flash_attention"] != calls * cfg.num_layers:
+        fail(f"rag: flash_attention launched {counts['flash_attention']} "
+             f"times, expected {calls * cfg.num_layers}")
+    if counts["gather_norm_dot"] <= 0:
+        fail("rag: gather_norm_dot was never launched")
+
+    # the same 256 through the request lifecycle
+    emb = server.embed(qt)
+    if not (np.array_equal(emb, q_emb)
+            and np.array_equal(emb, server.embed(qt))):
+        fail("rag: embed is not deterministic")
+    eng = rag.engine(k=5, width=48)
+    reset_counts()
+    warm_s = eng.warmup()
+    tickets = [eng.submit(emb[i], qr[i]) for i in range(RAG_QUERIES)]
+    replies = {r.rid: r for r in eng.drain()}
+    eng_counts = read_counts()
+    for i, t in enumerate(tickets):
+        r = replies[t.rid]
+        if r.degraded or not (np.array_equal(r.ids, ids[i])
+                              and np.array_equal(r.dists, dists[i])):
+            fail(f"rag engine(): reply {i} differs from retrieve_batch")
+    est = eng.engine_stats()
+    if eng_counts["gather_norm_dot"] <= 0:
+        fail("rag engine(): gather_norm_dot was never launched")
+
+    # recall@5 against brute force over the stored embeddings
+    store = rag.index.store
+    vecs = store.vectors[: store.n].astype(np.float64)
+    attrs = store.attrs[: store.n]
+    recs, ties = [], 0
+    for i in range(RAG_QUERIES):
+        inr = np.flatnonzero((attrs >= qr[i, 0]) & (attrs <= qr[i, 1]))
+        d = ((vecs[inr] - emb[i].astype(np.float64)) ** 2).sum(1)
+        order = np.argsort(d, kind="stable")
+        gt = inr[order[:5]]
+        if len(order) > 5 and d[order[4]] == d[order[5]]:
+            ties += 1
+        got = ids[i][ids[i] >= 0]
+        recs.append(len(set(got.tolist()) & set(gt.tolist()))
+                    / max(min(5, len(inr)), 1))
+    rec = float(np.mean(recs))
+
+    # gather_norm_dot at the RAG width, on the pipeline's own table
+    di = to_device_index(rag._snap, device="cuda")
+    n_live = store.n
+    q = torch.as_tensor(emb, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    K = rag.index.params.m + 1
+    idl = [torch.randint(0, n_live, (RAG_QUERIES, K), device="cuda",
+                         generator=gen) for _ in range(20)]
+    kd, kv = gather_norm_dot(di.vectors, idl[0], q)
+    rd, rv = gather_norm_dot_ref(di.vectors, idl[0], q)
+    torch.cuda.synchronize()
+    vn = rv.double().sqrt()
+    qn = q.double().norm(dim=1)[:, None]
+    tag = f"gather_norm_dot f32 D={cfg.d_model}"
+    err = max(_check_close(tag, kd, rd, vn * qn),
+              _check_close(tag, kv, rv, vn * vn))
+    kern = lambda i: gather_norm_dot(di.vectors, idl[i], q)  # noqa: E731
+    plain = lambda i: gather_norm_dot_ref(di.vectors, idl[i], q)  # noqa: E731
+    ms, plain_ms = _time_ms(kern, 20), _time_ms(plain, 20)
+    dev_ms, plain_dev_ms = _graph_ms_alternating((kern, plain), 20)
+    D, B = cfg.d_model, RAG_QUERIES
+    rows = int(torch.unique(idl[0]).numel())
+    nbytes = rows * D * 4 + B * K * 8 + B * D * 4 + 2 * B * K * 4
+    bound_ms, bound_by = _bound(nbytes, 4 * B * K * D)
+    case = {"vec_dtype": "f32", "n": n_live, "B": B, "K": K, "D": D,
+            "ms": ms, "plain_ms": plain_ms, "device_ms": dev_ms,
+            "plain_device_ms": plain_dev_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err}
+    print(f"{tag} n={n_live} B={B} K={K}: {ms * 1e3:.2f} us (plain "
+          f"{plain_ms * 1e3:.2f} us); device, graph-replayed: "
+          f"{dev_ms * 1e3:.3f} us (plain {plain_dev_ms * 1e3:.3f} us), "
+          f"bound {bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} B), max err "
+          f"{err:.3e}")
+    st = rag.stats()
+    print(f"ok rag (d {cfg.d_model}, {RAG_DOCS} + {RAG_INGEST} documents): "
+          f"embed {512 / embed_s:.1f} docs/s (512 x 64 tokens in "
+          f"{embed_s:.3f} s); corpus embedded and built in {corpus_s:.2f} s "
+          f"({RAG_DOCS / corpus_s:.1f} docs/s; embeds {corpus_embed_s:.2f} "
+          f"s, the device build {RAG_DOCS / (corpus_s - corpus_embed_s):.1f} "
+          f"rows/s); ingest {RAG_INGEST} in "
+          f"{ingest_s:.2f} s ({RAG_INGEST / ingest_s:.1f} rows/s); "
+          f"retrieve_batch of {RAG_QUERIES}: {batch_s * 1e3:.1f} ms, after "
+          f"the ingest {batch2_s * 1e3:.1f} ms; recall@5 vs brute force "
+          f"{rec:.4f} ({ties} queries with a tie at the 5th); engine() "
+          f"equal to retrieve_batch bitwise (warmup {warm_s:.2f} s, "
+          f"{est['waves']} waves, {est['chunks']} chunks, p50 "
+          f"{est['p50_ms']:.1f} ms); launches {counts}, engine "
+          f"{eng_counts}; index {st['index_size']} rows")
+    return {"launches": counts, "engine_launches": eng_counts,
+            "recall": rec, "embed_docs_per_s": 512 / embed_s,
+            "corpus_s": corpus_s, "corpus_embed_s": corpus_embed_s,
+            "ingest_rows_per_s": RAG_INGEST / ingest_s,
+            "batch_ms": batch_s * 1e3, "batch_after_ingest_ms":
+            batch2_s * 1e3, "gather": case,
+            "embed_vs_plain": {k: {f: v for f, v in h.items() if f != "text"}
+                               for k, h in held.items()}}
+
+
 def _noise(params, names, gen) -> None:
     """Add 0.02 * N(0, 1) from ``gen`` to the tensors ``names`` (dotted
     paths under each layer) of every layer that has them, in place."""
@@ -718,6 +1113,27 @@ def _sensitivity(params, cfg, toks, gen, dtype) -> tuple[float, float]:
             embs.append(torch.softmax(logits[-1], -1) @ table)
     return (float((logits[0] - logits[1]).abs().max()),
             float((embs[0] - embs[1]).abs().max()))
+
+
+def _hold_embed(tag: str, params, cfg, toks, ek, ep, gen, dtype) -> dict:
+    """Hold the kernel path's embed ``ek`` of ``toks`` to the plain path's
+    ``ep``: finite, and within LM_REL_TOL of max |embed| or 4x how far a
+    one-ulp perturbation of the input embeddings moves the plain embed,
+    whichever is larger; fails the phase otherwise."""
+    import numpy as np
+
+    e_err = float(np.abs(ek - ep).max())
+    e_scale = float(np.abs(ep).max())
+    _, sens = _sensitivity(params, cfg, toks, gen, dtype)
+    e_tol = max(LM_REL_TOL * e_scale, 4.0 * sens)
+    if not (np.isfinite(ek).all() and e_err <= e_tol):
+        fail(f"{tag}: differs by {e_err} > {e_tol} (max |embed| "
+             f"{e_scale}, one-ulp input sensitivity {sens})")
+    return {"err": e_err, "max_embed": e_scale, "sensitivity": sens,
+            "tol": e_tol, "text": (
+                f"err {e_err:.3e} of max {e_scale:.4e} (tolerance "
+                f"{e_tol:.3e}; a one-ulp perturbation of the input "
+                f"embeddings moves the plain embed by {sens:.3e})")}
 
 
 def phase_lm(run: str) -> dict:
@@ -819,17 +1235,11 @@ def phase_lm(run: str) -> dict:
         fail(f"{run} embed: launches {ck}, plain {cp}")
     for k in launches:
         launches[k] += ck[k]
-    e_err = float(np.abs(ek - ep).max())
-    e_scale = float(np.abs(ep).max())
-    _, sens = _sensitivity(params, cfg, toks, gen, dtype)
-    e_tol = max(LM_REL_TOL * e_scale, 4.0 * sens)
-    if not (np.isfinite(ek).all() and e_err <= e_tol):
-        fail(f"{run} embed: differs by {e_err} > {e_tol} (max |embed| "
-             f"{e_scale}, one-ulp input sensitivity {sens})")
-    print(f"ok {run} embed {LM_EMBED}: err {e_err:.3e} of max "
-          f"{e_scale:.4e} (tolerance {e_tol:.3e}; a one-ulp perturbation "
-          f"of the input embeddings moves the plain embed by {sens:.3e}), "
-          f"launches {ck}")
+    held = _hold_embed(f"{run} embed {LM_EMBED}", params, cfg, toks, ek, ep,
+                       gen, dtype)
+    print(f"ok {run} embed {LM_EMBED}: {held['text']}, launches {ck}")
+
+    rag = phase_rag(cfg, params, kw) if run == RAG_ARCH_RUN else None
 
     srv = LMServer(cfg, params, max_len=LM_PROMPTS[-1] + LM_DECODE,
                    backend="auto", **kw)
@@ -856,7 +1266,9 @@ def phase_lm(run: str) -> dict:
     torch.cuda.empty_cache()
     return {"run": run, "arch": spec["arch"], "launches": launches,
             "params": n_params, "param_bytes": n_bytes, "batches": batches,
-            "embed_err": e_err, "trace": trace, "decode_trace": decode_trace}
+            "embed_err": held["err"], "trace": trace,
+            "decode_trace": decode_trace,
+            "rag": rag}
 
 
 def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
@@ -1314,6 +1726,7 @@ def main() -> int:
     device = lap("device_build", phase_device_build)
     lap("int8_build", phase_int8_build, host["f32_recall"])
     traced = lap("trace", phase_trace, device["out"])
+    engine = lap("engine", phase_engine, device["out"])
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions'
     torch.backends.cudnn.allow_tf32 = False  # einsums stay full f32
     lm = {run: lap(run, phase_lm, run) for run in LM_MODELS}
@@ -1344,6 +1757,14 @@ def main() -> int:
          "max_abs_err": gnd["max_abs_err"],
          **{k: g_main[k] for k in keys + dev_keys},
          "device_by_case": gnd["device_by_case"],
+         "rag_d3584": lm[RAG_ARCH_RUN]["rag"]["gather"],
+         "traced_engine": engine["traced"],
+         "launches_by_path": {
+             "engine": engine["launches"]["gather_norm_dot"],
+             "engine_replayed": engine["replayed"],
+             "rag": lm[RAG_ARCH_RUN]["rag"]["launches"]["gather_norm_dot"],
+             "rag_engine": lm[RAG_ARCH_RUN]["rag"]["engine_launches"][
+                 "gather_norm_dot"]},
          "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
         {"name": "batched_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/batched_dot.cu",
@@ -1362,6 +1783,8 @@ def main() -> int:
          "launches_by_model": {a: r["launches"]["flash_attention"]
                                for a, r in lm.items()
                                if "flash_attention" in r["launches"]},
+         "launches_by_path": {"rag": lm[RAG_ARCH_RUN]["rag"]["launches"][
+             "flash_attention"]},
          "traced": lm["qwen2-7b"]["trace"]["shares"],
          "traced_bf16": {r: lm[r]["trace"]["shares"]
                          for r in ("qwen2-7b-bf16", JAMBA)},

@@ -328,6 +328,80 @@ def visited_filter_bits(
     return _bloom_bits(budget, fp, hashes)
 
 
+def _measured_bits_from_p99(
+    p99: float, m: int, fp: float, hashes: int, slack: float,
+    floor_hops: int,
+) -> int:
+    budget = (max(floor_hops, int(math.ceil(slack * p99))) + 1) * (m + 1)
+    return _bloom_bits(budget, fp, hashes)
+
+
+def visited_filter_bits_measured(
+    hops,
+    m: int,
+    fp: float = 0.02,
+    hashes: int = 2,
+    slack: float = 1.5,
+    floor_hops: int = 16,
+) -> int:
+    """Adaptive hash-filter sizing from *measured* per-query hop counts:
+    ``slack * p99(hops)`` hops (never below ``floor_hops``) instead of the
+    worst-case ``2*width + 64``.  An under-estimate only costs extra
+    skipping on outlier queries; pow2 rounding makes repeated re-estimates
+    land on the same size (and the same captured graphs)."""
+    hops = np.asarray(hops)
+    p99 = float(np.percentile(hops, 99)) if hops.size else 0.0
+    return _measured_bits_from_p99(p99, m, fp, hashes, slack, floor_hops)
+
+
+def hist_percentile(hist, q: float) -> float:
+    """Percentile of a hop histogram (bin i = searches that took i hops),
+    ``np.percentile``'s linear interpolation from the cumulative counts;
+    0.0 for an empty histogram."""
+    hist = np.asarray(hist, np.int64)
+    total = int(hist.sum())
+    if total == 0:
+        return 0.0
+    rank = (total - 1) * (q / 100.0)
+    lo_k = int(math.floor(rank))
+    hi_k = int(math.ceil(rank))
+    cum = np.cumsum(hist)
+    v_lo = int(np.searchsorted(cum, lo_k + 1))  # 0-indexed order stats
+    v_hi = int(np.searchsorted(cum, hi_k + 1))
+    return v_lo + (rank - lo_k) * (v_hi - v_lo)
+
+
+def visited_filter_bits_from_hist(
+    hist,
+    m: int,
+    fp: float = 0.02,
+    hashes: int = 2,
+    slack: float = 1.5,
+    floor_hops: int = 16,
+) -> int:
+    """``visited_filter_bits_measured`` from a hop histogram (the serve
+    engine's rolling per-wave histogram); both size alike for the same
+    data."""
+    p99 = hist_percentile(hist, 99.0)
+    return _measured_bits_from_p99(p99, m, fp, hashes, slack, floor_hops)
+
+
+def chunk_schedule_from_hist(
+    hist, lo: int = 4, hi: int = 64
+) -> tuple[int, int]:
+    """Compaction schedule ``(h0, h)`` from a live hop histogram: ``h0``
+    just past p50 retires the fast half of a wave at the first boundary,
+    ``h`` a quarter of the p50..p99 spread re-buckets the stragglers a few
+    times; both pow2 in ``[lo, hi]`` so re-estimates reuse a handful of
+    captured chunk shapes."""
+    p50 = hist_percentile(hist, 50.0)
+    p99 = hist_percentile(hist, 99.0)
+    h0 = _pow2ceil(max(int(math.ceil(p50)) + 1, 1))
+    h1 = _pow2ceil(max(int(math.ceil((p99 - p50) / 4.0)), 1))
+    clamp = lambda x: max(lo, min(hi, x))  # noqa: E731
+    return clamp(h0), clamp(h1)
+
+
 def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
     """``(h * c) mod 2^32`` for int64 ``h`` < 2^32 and a constant ``c`` <
     2^32, in 16-bit halves so no int64 product overflows."""
@@ -363,6 +437,24 @@ def _hash_wordmask(ids: torch.Tensor, v_words: int, nh: int):
     for i in range(nh):
         mask = mask | (one << ((b0 + i * step) & 31))
     return word, mask
+
+
+def _hash_positions(ids: torch.Tensor, v_bits: int, nh: int) -> torch.Tensor:
+    """Flat probe bit positions of ids [...] -> int64 [..., nh] in
+    [0, v_bits): the blocked layout as positions (every probe of an id
+    lies in one 32-bit block), as the dense oracle and host twin read it."""
+    h, b0, step = _hash_probe(ids)
+    word = h & (v_bits // 32 - 1)
+    i = torch.arange(nh, dtype=torch.int64, device=ids.device)
+    bits = (b0[..., None] + i * step[..., None]) & 31
+    return word[..., None] * 32 + bits
+
+
+def _visited_test(vstate: torch.Tensor, ids: torch.Tensor,
+                  valid: torch.Tensor, cfg: HopCfg) -> torch.Tensor:
+    """Membership of clipped ids [B, ...] in the visited filter -> bool
+    (invalid lanes arbitrary); one word gather per candidate."""
+    return _visited_test_cached(vstate, ids, valid, cfg)[0]
 
 
 def _visited_test_cached(vstate: torch.Tensor, ids: torch.Tensor,
@@ -743,6 +835,7 @@ class _GraphedChunk:
     def __init__(self, di: DeviceIndex, cfg: HopCfg, st: HopState, h: int):
         self.static = st._replace(**{
             f: getattr(st, f).clone() for f in _STATE_TENSORS})
+        GRAPH_CAPTURES["chunks"] += 1
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=_graph_pool()):
             out = self.static
@@ -771,6 +864,7 @@ class _GraphedChunk:
 
 _STATE_TENSORS = tuple(f for f in HopState._fields if f != "t")
 GRAPH_REPLAYS = {"chunks": 0, "hops": 0}  # replays and the hops they ran
+GRAPH_CAPTURES = {"chunks": 0}  # chunks captured (a capture launches nothing)
 # kernel launches replayed by captured hops, by kernel (the fused
 # pipeline's and the reference pipeline's)
 KERNEL_REPLAYS = {"gather_norm_dot": 0, "batched_dot": 0}
@@ -787,15 +881,16 @@ def _graph_pool():
 
 
 def graph_cache_stats() -> dict:
-    """Captured chunks held by the cache and the device bytes their shared
-    pool has reserved (0 before the first capture)."""
+    """Captured chunks held by the cache, the chunks captured so far
+    (``captures``, cumulative) and the device bytes their shared pool has
+    reserved (0 before the first capture)."""
     pool = _GRAPH_POOL
     nbytes = 0
     if pool is not None:
         nbytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                      if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
     return {"graphs": sum(c is not None for c in _GRAPH_CACHE.values()),
-            "pool_bytes": nbytes}
+            "captures": GRAPH_CAPTURES["chunks"], "pool_bytes": nbytes}
 
 
 def _graph_key(di: DeviceIndex, cfg: HopCfg, st: HopState, h: int):

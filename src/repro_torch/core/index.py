@@ -141,8 +141,13 @@ class WoWIndex:
         # (take_snapshot(prev=...)): "all" forces a full rebuild; reset by
         # every take_snapshot, fed by the batched commit.
         self._snap_tracker: dict = {"stamp": -1, "all": True, "dirty": {}}
-        # (the reference's checkpoint tracker, write-ahead log and
-        # replication epoch come with persistence, ROADMAP A6)
+        # durable lifecycle: attached write-ahead log, replay guard and the
+        # LSN of the last logged-and-applied record, read by the serve
+        # engine's ingest.  Nothing attaches a log yet (ROADMAP A6, with
+        # the reference's checkpoint tracker and replication epoch).
+        self._wal = None
+        self._wal_replaying = False
+        self._applied_lsn = 0
         # background compaction cadence policy: auto-trigger compact_rows()
         # when len(deleted)/n crosses the threshold, checked at
         # insert_batch and checkpoint boundaries.  The latch

@@ -1,12 +1,15 @@
 """Serving launcher: build a WoW index (on the host, or on the device with
 ``--build-backend device``), upload its snapshot to the device once, and
 serve batched range-filtered queries through the device hop loop
-(``repro_torch.core.device_search``).
+(``repro_torch.core.device_search``), or through the request-lifecycle
+engine (``--engine``, ``repro_torch.serve.lifecycle``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --n 4000 --queries 256
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 1200 --dim 16
     PYTHONPATH=src python -m repro_torch.launch.serve --build-backend device \\
         --pipeline fused reference --ingest 400
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine --rate 500 \\
+        --deadline-ms 50 --ingest 400
 
 ``--vec-dtype``, ``--pipeline``, ``--visited``, ``--compact`` and
 ``--backend`` each take one or more values; every combination is served
@@ -14,10 +17,20 @@ over the one build (the build dominates the run time), each as one warm-up
 batch and one timed batch.  ``--ingest N`` then streams N more vectors
 through ``insert_batch`` on the build backend, refreshes the snapshot
 incrementally (``take_snapshot(prev=...)``) and re-serves every
-combination once.  ``main(argv)`` also returns what it printed — the
-build's rate and kernel launches, per configuration the recall, mean DC,
-hop percentiles, QPS, the kernel launches of the timed batch and the raw
-results — with the snapshots and workload it served.
+combination once (with ``--visited hash --adaptive-filter``, the hash
+filter re-sized from the first wave's measured hop counts).  ``main(argv)``
+also returns what it printed — the build's rate and kernel launches, per
+configuration the recall, mean DC, hop percentiles, QPS, the kernel
+launches of the timed batch and the raw results — with the snapshots and
+workload it served.
+
+``--engine`` serves one configuration (one value of each knob; the engine
+sets its own chunk schedule, so no ``--compact``) through ``ServeEngine``:
+the queries are admitted open-loop at ``--rate`` or as a closed burst,
+with ``--deadline-ms``, ``--max-wave`` and ``--queue-cap``, and ``--ingest``
+rides the engine's ingest queue.  ``main`` then returns the engine's run
+under ``"engine"`` (``_serve_engine``).  The durable branches
+(``--index-dir``) wait for persistence (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -33,7 +46,7 @@ def _parse_compact(spec: str):
     return (h0, h1)
 
 
-def main(argv: list[str] | None = None) -> dict:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="repro_torch WoW serving launcher")
     ap.add_argument("--n", type=int, default=4000)
     ap.add_argument("--dim", type=int, default=32)
@@ -85,10 +98,58 @@ def main(argv: list[str] | None = None) -> dict:
                          "stream N extra vectors through insert_batch, "
                          "refresh the snapshot incrementally and re-serve "
                          "the queries")
+    ap.add_argument("--adaptive-filter", action="store_true",
+                    help="with --visited hash: re-size the visited filter "
+                         "for the post-ingest re-serve from the measured "
+                         "hop counts of the first wave (p99 + slack; "
+                         "worst-case sizing stays the cold-start default); "
+                         "with --engine, from the engine's live hop "
+                         "histogram (and the chunk schedule with it)")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve through the request-lifecycle engine "
+                         "(repro_torch.serve.lifecycle): admission queue, "
+                         "deadlines, backpressure, degraded replies; "
+                         "--ingest rides the engine's ingest queue")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="with --engine: open-loop arrival rate in "
+                         "queries/s (0 = submit everything at once, a "
+                         "closed burst)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="with --engine: per-request deadline; requests "
+                         "that cannot finish in time complete degraded "
+                         "(reduced hop budget), never time out")
+    ap.add_argument("--max-wave", type=int, default=64,
+                    help="with --engine: widest scheduled wave")
+    ap.add_argument("--queue-cap", type=int, default=512,
+                    help="with --engine: admission-queue bound; submits "
+                         "past it are rejected with a retry-after hint")
+    ap.add_argument("--index-dir", default="",
+                    help="durable lifecycle root (not ported yet: "
+                         "ROADMAP A6)")
     ap.add_argument("--device", default=None,
                     help="torch device to build and serve on (default: "
                          "cuda)")
+    return ap
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = _parser()
     args = ap.parse_args(argv)
+    if args.index_dir:
+        raise NotImplementedError(
+            "--index-dir (serve-from-checkpoint, WAL-logged ingest) needs "
+            "persistence, not ported yet: ROADMAP A6")
+    if args.engine:
+        many = [f"--{k.replace('_', '-')}" for k in
+                ("vec_dtype", "visited", "backend")
+                if len(getattr(args, k)) > 1]
+        if many:
+            ap.error(f"--engine serves one configuration: one value of "
+                     f"{', '.join(many)}")
+        if args.compact != ["none"]:
+            ap.error("--engine sets its own chunk schedule (no --compact)")
+        if args.pipeline != ["fused"]:
+            ap.error("--engine runs the fused pipeline")
     if "reference" in args.pipeline and set(args.vec_dtype) != {"f32"}:
         ap.error("--vec-dtype int8/bf16 requires --pipeline fused (the "
                  "reference pipeline has no fused-dequant gather)")
@@ -102,6 +163,7 @@ def main(argv: list[str] | None = None) -> dict:
     from ..core.datasets import make_attrs, make_vectors
     from ..core.device_search import (
         device_search, pad_queries, to_device_index,
+        visited_filter_bits_measured,
     )
     from ..core.snapshot import take_snapshot
     from ..kernels import launch_counters
@@ -163,7 +225,13 @@ def main(argv: list[str] | None = None) -> dict:
         "snapshot": snap, "workload": wl, "index": idx,
     }
 
-    def serve_all(snap, warm: bool, tag: str) -> list[dict]:
+    if args.engine:
+        out["engine"] = _serve_engine(args, wl, idx, snap, dev)
+        return out
+
+    def serve_all(snap, warm: bool, tag: str, first=None) -> list[dict]:
+        """Serve every combination; ``first`` (the pre-ingest runs) feeds
+        the adaptive filter its measured hop counts."""
         runs = []
         for vec_dtype in args.vec_dtype:
             t0 = time.time()
@@ -172,12 +240,25 @@ def main(argv: list[str] | None = None) -> dict:
             upload_s = time.time() - t0
             for pipeline, visited, compact, backend in itertools.product(
                     args.pipeline, args.visited, compacts, args.backend):
-                def serve():
+                v_bits = args.visited_bits
+                if first is not None and args.adaptive_filter \
+                        and visited == "hash":
+                    prev = next(r for r in first if (
+                        r["vec_dtype"], r["pipeline"], r["visited"],
+                        r["compact"], r["backend"]) == (
+                        vec_dtype, pipeline, visited, compact, backend))
+                    v_bits = visited_filter_bits_measured(
+                        prev["result"].hops, args.m)
+                    print(f"adaptive visited filter: {v_bits} bits/query "
+                          f"from the measured hop counts (p99="
+                          f"{prev['hops_p99']:.0f})")
+
+                def serve(v_bits=v_bits):
                     return device_search(
                         di, q, r, k=args.k, width=args.width, m=snap.m,
                         o=snap.o, metric=metric, backend=backend,
                         pipeline=pipeline, visited=visited,
-                        visited_bits=args.visited_bits, compact=compact)
+                        visited_bits=v_bits, compact=compact)
 
                 if warm:
                     serve()  # warm-up batch (first-use costs, kernel build)
@@ -196,7 +277,7 @@ def main(argv: list[str] | None = None) -> dict:
                 run = {
                     "vec_dtype": vec_dtype, "pipeline": pipeline,
                     "visited": visited, "compact": compact,
-                    "backend": backend,
+                    "backend": backend, "visited_bits": v_bits,
                     "recall": float(np.mean(recs)),
                     "mean_dc": float(np.mean(res.dc[:B])),
                     "mean_hops": float(np.mean(hops)),
@@ -242,8 +323,181 @@ def main(argv: list[str] | None = None) -> dict:
               f"{t_snap * 1e3:.0f} ms ({snap.n} live)")
         out.update(ingest_s=t_ing, ingest_launches=ingest_launches,
                    snapshot_s=t_snap, snapshot_after=snap)
-        out["ingest_runs"] = serve_all(snap, warm=False, tag="post-ingest ")
+        out["ingest_runs"] = serve_all(snap, warm=False, tag="post-ingest ",
+                                       first=out["runs"])
     return out
+
+
+def _serve_engine(args, wl, idx, snap, device=None, ingest=None) -> dict:
+    """Engine-driven serving: admit the workload through the request
+    lifecycle (open-loop at ``args.rate`` or as a closed burst), drive the
+    scheduler until it drains, print the latency percentiles and QPS
+    (admission -> reply) and the shutdown summary, and return them.
+
+    ``idx``/``snap`` are the index and its snapshot (an index built
+    elsewhere may be served, as ``chip_smoke.py`` does).  With
+    ``args.ingest`` rows (``ingest`` = (vectors, attrs) to give them, else
+    generated above every query range as the launcher's ingest does) are
+    admitted through ``submit_ingest`` before traffic and applied between
+    the query chunks.  The returned dict holds the replies in query order
+    (``result``: ids, dists, dc, hops; ``degraded``, ``reason``), recall,
+    latency, QPS, the engine's stats, the kernel launches and replayed
+    graph chunks of the traffic (after warm-up), the captures during
+    warm-up and after it, the graph cache before and after, the ingest
+    rate and the snapshots served before and after."""
+    import numpy as np
+    import torch
+
+    from ..core import recall
+    from ..core.datasets import make_attrs, make_vectors
+    from ..core.device_search import (
+        GRAPH_CAPTURES, GRAPH_REPLAYS, KERNEL_REPLAYS, SearchResult,
+        graph_cache_stats,
+    )
+    from ..kernels import launch_counters
+    from ..serve.lifecycle import EngineConfig, Rejected, ServeEngine
+
+    def counts() -> dict:
+        out = {k: v for c in launch_counters() for k, v in c.items()}
+        out.update({f"replayed_{k}": v for k, v in KERNEL_REPLAYS.items()})
+        out.update({f"graph_{k}": v for k, v in GRAPH_REPLAYS.items()})
+        out["captures"] = GRAPH_CAPTURES["chunks"]
+        return out
+
+    def since(before: dict) -> dict:
+        return {k: v - before[k] for k, v in counts().items()}
+
+    cfg = EngineConfig(
+        k=args.k, width=args.width, backend=args.backend[0],
+        visited=args.visited[0], visited_bits=args.visited_bits,
+        adaptive=args.adaptive_filter, max_wave=args.max_wave,
+        queue_cap=args.queue_cap,
+        default_timeout_s=(args.deadline_ms / 1e3
+                           if args.deadline_ms > 0 else None),
+        build_backend=args.build_backend,
+        vec_dtype=args.vec_dtype[0],
+    )
+    eng = ServeEngine(index=idx, snapshot=snap, config=cfg, device=device)
+    dev = eng.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    n_ingest = 0
+    if args.ingest > 0:
+        if ingest is None:
+            extra_v = make_vectors(args.ingest, args.dim, seed=99)
+            extra_a = (make_attrs(extra_v, seed=99)
+                       + float(np.max(wl.attrs)) + 1.0)
+        else:
+            extra_v, extra_a = ingest
+        ir = eng.submit_ingest(extra_v, extra_a)
+        n_ingest = ir.accepted
+        print(f"ingest admitted (applies interleave with queries): {ir!r}")
+
+    graphs_before = graph_cache_stats()
+    before = counts()
+    warmup_s = eng.warmup()
+    warm = since(before)
+    print(f"engine warmup (all wave shapes) in {warmup_s:.2f} s, "
+          f"{warm['captures']} chunks captured")
+    snap_before = eng._snap
+
+    replies: list = []
+    rid_to_qi: dict = {}
+    rejected = 0
+    period = 1.0 / args.rate if args.rate > 0 else 0.0
+    before = counts()
+    t_loop = time.monotonic()
+    next_t = t_loop
+    ingest_done = None
+
+    def note_ingest():
+        nonlocal ingest_done
+        if n_ingest and ingest_done is None and eng.pending_ingest == 0:
+            ingest_done = time.monotonic()
+
+    for i in range(args.queries):
+        if period:
+            # open-loop arrivals: hold the offered load fixed and keep the
+            # scheduler busy between arrivals instead of sleeping idle
+            while True:
+                now = time.monotonic()
+                if now >= next_t:
+                    break
+                if not eng.idle:
+                    replies.extend(eng.step())
+                    note_ingest()
+                else:
+                    time.sleep(min(1e-3, next_t - now))
+            next_t += period
+        out = eng.submit(wl.queries[i], wl.ranges[i])
+        if isinstance(out, Rejected):
+            rejected += 1
+        else:
+            rid_to_qi[out.rid] = i
+        if period:
+            replies.extend(eng.step())
+            note_ingest()
+        # closed burst: no step between submits, so the scheduler sees the
+        # whole backlog and assembles full-width waves
+    while not eng.idle:
+        replies.extend(eng.step())
+        note_ingest()
+    sync()
+    traffic = since(before)
+
+    nq, k = len(wl.queries), args.k
+    ids = np.full((nq, k), -1, np.int64)
+    dists = np.full((nq, k), np.inf, np.float32)
+    dc = np.zeros(nq, np.int64)
+    hops = np.zeros(nq, np.int64)
+    answered = np.zeros(nq, bool)
+    degraded = np.zeros(nq, bool)
+    reason: list = [None] * nq
+    recs = []
+    for r in replies:
+        qi = rid_to_qi.get(r.rid)
+        if qi is None:
+            continue
+        ids[qi], dists[qi], dc[qi], hops[qi] = r.ids, r.dists, r.dc, r.hops
+        answered[qi], degraded[qi], reason[qi] = True, r.degraded, r.reason
+        recs.append(recall(np.asarray([j for j in r.ids if j >= 0]),
+                           wl.gt[qi]))
+    s = eng.engine_stats()
+    rec = float(np.mean(recs)) if recs else 0.0
+    print(f"engine served {s['served']} queries "
+          f"(admitted {s['admitted']}, rejected {rejected}, "
+          f"degraded {s['degraded']}, expired-in-queue {s['expired']}): "
+          f"recall@{k} = {rec:.4f}")
+    print(f"latency admission->reply: p50={s['p50_ms']:.1f} ms "
+          f"p95={s['p95_ms']:.1f} ms p99={s['p99_ms']:.1f} ms, "
+          f"throughput {s['qps']:.0f} QPS"
+          + (f" (offered {args.rate:.0f} QPS open-loop)"
+             if period else " (closed burst)"))
+    print(f"shutdown summary: waves={s['waves']} chunks={s['chunks']} "
+          f"shed_waves={s['shed_waves']} queue_peak={s['queue_peak']} "
+          f"ingest_batches={s['ingest']['batches']} "
+          f"ingest_rows={s['ingest']['rows']} "
+          f"chunk_schedule={s['chunk_schedule']} launches {traffic}")
+    ingest_s = (ingest_done - t_loop) if ingest_done is not None else None
+    if n_ingest:
+        print(f"ingested {n_ingest} rows through the engine in "
+              f"{ingest_s:.2f} s ({n_ingest / ingest_s:.1f} rows/s); "
+              f"snapshot refreshed: {eng._snap is not snap_before}")
+    return {
+        "config": cfg, "device": str(dev), "warmup_s": warmup_s,
+        "warmup_counts": warm, "counts": traffic,
+        "captures_after_warmup": traffic["captures"],
+        "graphs_before": graphs_before, "graphs_after": graph_cache_stats(),
+        "result": SearchResult(ids=ids, dists=dists, dc=dc, hops=hops),
+        "answered": answered, "degraded": degraded, "reason": reason,
+        "rejected": rejected, "recall": rec, "qps": s["qps"],
+        "latency_ms": {q: s[f"{q}_ms"] for q in ("p50", "p95", "p99")},
+        "stats": s, "ingest_rows": n_ingest, "ingest_s": ingest_s,
+        "snapshot_refreshed": eng._snap is not snap_before,
+    }
 
 
 if __name__ == "__main__":

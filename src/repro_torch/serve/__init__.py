@@ -1,6 +1,11 @@
-"""Serving surfaces of the port: ``engine.LMServer`` (LM prefill/decode).
-``RagPipeline`` and the request-lifecycle ``ServeEngine`` come later
-(ROADMAP A3, A7)."""
-from .engine import LMServer
+"""Serving surfaces of the port: ``engine.LMServer`` (LM prefill/decode),
+``engine.RagPipeline`` (retrieval over a WoW index) and the
+request-lifecycle ``lifecycle.ServeEngine``."""
+from .engine import LMServer, RagPipeline
+from .lifecycle import (
+    EngineConfig, IngestResult, Rejected, Reply, ServeEngine, ServeStats,
+    Ticket,
+)
 
-__all__ = ["LMServer"]
+__all__ = ["EngineConfig", "IngestResult", "LMServer", "RagPipeline",
+           "Rejected", "Reply", "ServeEngine", "ServeStats", "Ticket"]

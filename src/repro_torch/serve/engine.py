@@ -1,5 +1,5 @@
-"""LM serving: the prefill/decode loop of ``repro.serve.engine.LMServer`` on
-torch.
+"""Serving engine: the LM prefill/decode loop and WoW retrieval (RAG), the
+port of ``repro.serve.engine``.
 
 ``LMServer`` wraps an arch's prefill and decode steps with a KV/RWKV state
 and greedy or temperature sampling, and pools the final-token distribution
@@ -7,8 +7,13 @@ into a retrieval embedding.  Unlike the JAX server, which calls ``forward``
 with its ``backend="ref"`` default, it passes its ``backend`` through, so
 on the card a served model runs the flash-attention and WKV kernels.
 
-``RagPipeline`` (retrieval over a WoW index) waits for the port's
-``ServeEngine`` (ROADMAP A3).
+``RagPipeline`` composes it with a WoW index: the LM embeds documents and
+queries, WoW retrieves the nearest in-range documents.  ``retrieve_batch``
+is the synchronous surface (one call, one wave); ``engine()`` builds a
+request-lifecycle ``ServeEngine`` (``serve.lifecycle``) over the same
+index, knobs and ``ServeStats``.  Retrieval runs on the server's device.
+The durable branch (``index_dir``, ``checkpoint``) waits for the
+write-ahead log and checkpoints (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 from .. import resolve_device
 from ..configs.base import ArchConfig
 from ..models.model import ParamTree, forward, init_cache
+from .lifecycle import IngestResult, ServeStats, validate_rows
 
 
 class LMServer:
@@ -116,3 +122,190 @@ class LMServer:
         probs = torch.softmax(logits[:, -1].float(), dim=-1)
         emb = probs @ self.params["embed"].float()
         return emb.cpu().numpy().astype(np.float32)
+
+
+class RagPipeline:
+    """WoW-backed range-filtered retrieval for LM serving.
+
+    ``backend`` selects the distance-kernel dispatch of the batched device
+    path (``kernels.ops``: "auto" = the CUDA kernel on CUDA tensors, plain
+    torch on CPU tensors); single-query ``retrieve`` stays on the host
+    index.  ``build_backend`` selects the ``insert_batch`` engine for
+    ingest-while-serve (``"device"`` = the device-resident build, on the
+    server's device).  ``visited``/``compact`` are the ``device_search``
+    hop-loop knobs; with ``visited_adaptive`` the hash filter is re-sized
+    from the measured hop counts of the last 16 batches (worst-case sizing
+    is the cold-start fallback).  Batches are pow2-padded inside
+    ``search_batch``.
+
+    ``index_dir`` (the durable lifecycle) raises ``NotImplementedError``
+    until persistence is ported (ROADMAP A6).
+    """
+
+    def __init__(self, server: LMServer, dim: int, m: int = 16,
+                 ef_construction: int = 64, o: int = 4, backend: str = "auto",
+                 visited: str = "bitmap",
+                 compact: tuple[int, int] | None = None,
+                 build_backend: str = "numpy",
+                 visited_adaptive: bool = False,
+                 index_dir: str | None = None,
+                 compact_threshold: float | None = None,
+                 vec_dtype: str = "f32"):
+        from ..core.store import VEC_DTYPES
+
+        if vec_dtype not in VEC_DTYPES:
+            raise ValueError(
+                f"vec_dtype must be one of {VEC_DTYPES}, got {vec_dtype!r}"
+            )
+        if index_dir is not None:
+            raise NotImplementedError(
+                "RagPipeline(index_dir=...) needs the write-ahead log and "
+                "checkpoints, not ported yet: ROADMAP A6"
+            )
+        self.server = server
+        self.docs: list = []
+        self.backend = backend
+        # serving slab storage mode (int8/bf16 dequant fused in the gather
+        # kernel) with the f32 host index as the build/parity oracle
+        self.vec_dtype = vec_dtype
+        self.visited = visited
+        self.compact = compact
+        self.build_backend = build_backend
+        self.visited_adaptive = visited_adaptive
+        self._hop_log: list = []  # rolling hop counts (serve feedback)
+        self._stats = ServeStats()
+        self._snap = None
+        self._snap_key = None
+        from ..core import WoWIndex
+
+        self.index = WoWIndex(dim=dim, m=m, ef_construction=ef_construction,
+                              o=o, compact_threshold=compact_threshold,
+                              device=server.device)
+
+    def checkpoint(self) -> str:
+        raise NotImplementedError(
+            "RagPipeline.checkpoint needs the checkpoint format, not ported "
+            "yet: ROADMAP A6"
+        )
+
+    def add_document(self, doc_tokens: np.ndarray, attr: float,
+                     payload=None) -> int:
+        emb = self.server.embed(doc_tokens[None, :])[0]
+        vid = self.index.insert(emb, attr)
+        self.docs.append(payload)
+        return vid
+
+    def add_documents(self, doc_tokens: np.ndarray, attrs, payloads=None,
+                      batch_size: int = 128) -> IngestResult:
+        """Ingest-while-serve: one batched embed pass + ``insert_batch``
+        micro-batches.  The serving snapshot is refreshed lazily by the
+        next ``retrieve_batch``.  Rows are validated individually: a
+        half-bad batch commits its good rows and reports the bad ones in
+        ``IngestResult.rejected``; structural errors (payload/attr length,
+        embedding dimension) raise."""
+        doc_tokens = np.asarray(doc_tokens)
+        attrs = np.asarray(attrs, dtype=np.float64).reshape(-1)
+        if payloads is not None and len(payloads) != len(attrs):
+            raise ValueError(
+                f"{len(payloads)} payloads for {len(attrs)} documents"
+            )
+        embs = self.server.embed(doc_tokens)
+        keep, rejected = validate_rows(embs, attrs, self.index.dim)
+        vids = np.empty(0, np.int64)
+        if keep.any():
+            vids = self.index.insert_batch(
+                embs[keep], attrs[keep], batch_size=batch_size,
+                backend=self.build_backend,
+            )
+        if payloads is None:
+            payloads = [None] * len(attrs)
+        self.docs.extend(p for p, ok in zip(payloads, keep) if ok)
+        self._stats.ingest_batches += 1
+        self._stats.ingest_rows += int(keep.sum())
+        self._stats.ingest_rejected_rows += len(rejected)
+        return IngestResult(
+            vids=vids, accepted=int(keep.sum()), rejected=rejected,
+            lsn=self.index._applied_lsn, pending=False,
+        )
+
+    def stats(self) -> dict:
+        """Serving statistics of both surfaces (a ``ServeEngine`` built by
+        ``engine()`` feeds the same ``ServeStats``): per-request latency
+        percentiles and QPS (admission -> reply), degraded/shed fractions,
+        ingest accounting."""
+        out = self._stats.summary()
+        out["docs"] = len(self.docs)
+        out["index_size"] = len(self.index)
+        return out
+
+    def engine(self, config=None, now=None, fault_plan=None, **knobs):
+        """A request-lifecycle ``ServeEngine`` over this pipeline's index
+        on the server's device, inheriting its search/build knobs (override
+        any ``EngineConfig`` field through ``knobs``) and sharing its
+        ``ServeStats``; the current serving snapshot is handed over."""
+        from .lifecycle import EngineConfig, ServeEngine
+
+        if config is None:
+            base = dict(backend=self.backend, visited=self.visited,
+                        adaptive=self.visited_adaptive,
+                        build_backend=self.build_backend,
+                        vec_dtype=self.vec_dtype)
+            base.update(knobs)
+            config = EngineConfig(**base)
+        elif knobs:
+            raise ValueError("pass either config= or **knobs, not both")
+        return ServeEngine(index=self.index, snapshot=self._snap,
+                           config=config, now=now, fault_plan=fault_plan,
+                           stats=self._stats, device=self.server.device)
+
+    def retrieve(self, query_tokens: np.ndarray,
+                 attr_range: tuple[float, float], k: int = 5, ef: int = 48):
+        q = self.server.embed(query_tokens[None, :])[0]
+        ids, dists, stats = self.index.search(q, attr_range, k=k, ef=ef)
+        return ids, dists, stats
+
+    def retrieve_batch(self, query_tokens: np.ndarray,
+                       attr_ranges: np.ndarray, k: int = 5, width: int = 48):
+        """Batched retrieval on the device path (fused hop pipeline), on
+        the server's device.
+
+        ``query_tokens`` [B, T] int32, ``attr_ranges`` [B, 2] -> (ids,
+        dists), ids mapped back to ``WoWIndex`` vertex ids (-1 padded).
+        The snapshot is taken lazily and reused until the index mutates;
+        the refresh is incremental (``take_snapshot(prev=...)``)."""
+        from ..core.device_search import (
+            search_batch, visited_filter_bits_measured,
+        )
+        from ..core.snapshot import take_snapshot
+
+        t_arrival = time.monotonic()
+        # the index's monotone mutation stamp changes on any insert/delete/
+        # undelete (sizes alone would miss an undelete+delete pair)
+        key = self.index.mutations
+        if self._snap is None or self._snap_key != key:
+            self._snap = take_snapshot(self.index, prev=self._snap)
+            self._snap_key = key
+        qs = self.server.embed(query_tokens)
+        visited_bits = None
+        if self.visited == "hash" and self.visited_adaptive and self._hop_log:
+            visited_bits = visited_filter_bits_measured(
+                np.concatenate(self._hop_log), self._snap.m
+            )
+        res = search_batch(self._snap, qs, np.asarray(attr_ranges, np.float32),
+                           k=k, width=width, backend=self.backend,
+                           visited=self.visited, visited_bits=visited_bits,
+                           compact=self.compact, vec_dtype=self.vec_dtype,
+                           device=self.server.device)
+        if self.visited_adaptive:
+            self._hop_log.append(np.asarray(res.hops))
+            self._hop_log = self._hop_log[-16:]  # bounded rolling window
+        ids = np.asarray(res.ids)
+        mapped = np.where(ids >= 0,
+                          self._snap.ids_map[np.clip(ids, 0, None)], -1)
+        t_done = time.monotonic()
+        B = len(ids)
+        self._stats.submitted += B
+        self._stats.admitted += B
+        for _ in range(B):  # one synchronous wave = B identical latencies
+            self._stats.note_reply(t_done, t_done - t_arrival, False)
+        return mapped, np.asarray(res.dists)

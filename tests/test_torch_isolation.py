@@ -1,6 +1,6 @@
 """The port stands alone: importing its entry point loads neither ``jax``,
 ``ml_dtypes`` nor the JAX package ``repro``, and no source file of the
-port (or ``chip_smoke.py``) imports them."""
+port (or ``chip_smoke.py``, or the port's example) imports them."""
 import ast
 import os
 import subprocess
@@ -26,6 +26,7 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.rwkv6\n"
         "import repro_torch.models.mamba, repro_torch.models.moe\n"
         "import repro_torch.kernels.mamba_scan\n"
+        "import repro_torch.serve.lifecycle, repro_torch.persist.faultfs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -39,7 +40,8 @@ def test_entry_point_loads_no_jax():
 
 def _sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "examples" / "rag_serve_torch.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
