@@ -79,6 +79,34 @@ before the path and reads the counters just after it:
      counts, the chunk schedule, the ``gather_norm_dot`` launches and
      replayed hops (one of the two > 0 in every kernel run, none in a
      plain run) and the graph captures after warm-up;
+  5c. durable — the durable lifecycle (``repro_torch.persist``) on the
+     same index of phase 3 (after phase 5b's ingests; no second build),
+     under a fresh ``tempfile.mkdtemp()`` root removed at the end:
+     (1) a full checkpoint (seconds, MB, MB/s); (2) the cold start:
+     ``load_serving_snapshot`` (mapped slabs), ``to_device_index``, the
+     256 queries through ``search_batch``'s body with the kernel (ms to
+     map, to the device index, to the first reply); the replies must equal
+     those of ``take_snapshot(materialize(load_state(root)))`` and of the
+     live index bit for bit (ids, dists, hops, DC), and
+     ``gather_norm_dot`` must have launched; (3) ``open_durable(root)``
+     and a ``ServeEngine`` on it (device build, ``ingest_batch`` 128)
+     ingest 1,024 rows with attributes above every query range, in 8
+     ``submit_ingest`` acks of 128 while the 256 queries are served: ack
+     latency p50/p99, fsyncs, rows/s applied; (4) a second engine on the
+     same index and log acks 256 more rows under
+     ``EngineFaultPlan(crash_after_ingest_applies=1)`` and dies entering
+     the second apply; both engines and the index are dropped without a
+     checkpoint and ``recover(root)`` replays the 10 records through the
+     device build: its ``state_digest`` must equal a twin's
+     (``materialize`` of the checkpoint + the same ten 128-row micro-
+     batches through the device build, no log) and that of the phase-3
+     index after the same micro-batches (its build's delta-maintained
+     arena against the replay's fresh one), the engine's index before the
+     crash must equal the twin after nine, the replies through the kernel
+     must be bitwise the twin's and the phase-3 index's, and the replay
+     must have launched ``gather_norm_dot`` (recover seconds, materialize
+     and replay, replayed rows/s); (5) an incremental checkpoint of the
+     recovered index (a delta; seconds and MB beside the full one's);
   6. LM serve — ``repro_torch.serve.LMServer`` serves qwen2-7b (28
      layers, d 3,584, 28/4 heads x 128, d_ff 18,944, vocab 152,064) in
      f32, the same model again in bf16 (15.2 GB; ``compute_dtype=torch.
@@ -121,7 +149,13 @@ before the path and reads the counters just after it:
      ``backend="ref"`` server's on the same weights by the embed rule
      above (LM_REL_TOL of max |embed| or 4x the one-ulp sensitivity).  Prints docs embedded/s, ingest
      rows/s, the batch latency, recall@5 against brute force (not gated:
-     random-weight embeddings), the launches;
+     random-weight embeddings), the launches.  Its durable leg: a
+     ``RagPipeline(index_dir=...)`` embeds 512 of the documents with the
+     device build and a logged ingest and writes a checkpoint; a second
+     pipeline on the directory cold-starts off it and serves the 256
+     queries, bitwise the first's ``retrieve_batch``; 64 more documents go
+     in through its lazy recovery and it serves again (every reply in its
+     range; 5 embeds of 28 ``flash_attention`` launches);
   6b. Jamba serve — the same batches, checks and traces for
      jamba-1.5-large-398b at full width (d 8,192, d_ff 24,576, 64/8 heads
      x 128, 16 experts top-2 on odd layers, Mamba expand 2, d_state 16,
@@ -204,7 +238,10 @@ before the path and reads the counters just after it:
      graphs ran (``device_search.KERNEL_REPLAYS``); ``gather_norm_dot``'s
      adds ``device_by_case``, its device time in us at each of the nine
      cases, and ``rag_d3584``, its case at the RAG width; both kernels of
-     the engine and RAG paths add ``launches_by_path``.
+     the engine, durable and RAG paths add ``launches_by_path``;
+     ``gather_norm_dot``'s ``launches`` are the device-build phase's plus
+     the durable phase's, and its entry adds the durable phase's numbers
+     under ``durable``.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
 at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
@@ -882,6 +919,275 @@ def phase_engine(out: dict) -> dict:
             "traced": traced}
 
 
+def _dir_mb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files) / 1e6
+
+
+def _same_replies(tag: str, a, b) -> None:
+    """ids, dists, hops and DC bit for bit."""
+    import numpy as np
+
+    for name, x, y in zip(("ids", "dists", "dc", "hops"), a, b):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            fail(f"{tag}: {name} differ")
+
+
+def _micro_batches(idx, batches, backend: str = "device") -> None:
+    for vs, as_ in batches:
+        idx.insert_batch(vs, as_, batch_size=len(as_), backend=backend)
+
+
+def phase_durable(out: dict) -> dict:
+    """The durable lifecycle on the device-built index of phase 3 (see the
+    module docstring, phase 5c)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.datasets import make_attrs, make_vectors
+    from repro_torch.core.device_search import (
+        GRAPH_CAPTURES, SearchResult, device_search, pad_queries,
+        search_batch, to_device_index,
+    )
+    from repro_torch.core.snapshot import take_snapshot
+    from repro_torch.persist import (
+        CrashError, EngineFaultPlan, OsIO, load_serving_snapshot,
+        open_durable, recover, save, state_digest,
+    )
+    from repro_torch.persist.checkpoint import load_state, materialize
+    from repro_torch.persist.format import read_manifest
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.lifecycle import EngineConfig
+
+    class CountingIO(OsIO):
+        """The real filesystem, counting file and directory fsyncs."""
+
+        fsyncs = 0
+
+        def fsync(self, f) -> None:
+            self.fsyncs += 1
+            super().fsync(f)
+
+        def fsync_dir(self, path: str) -> None:
+            self.fsyncs += 1
+            super().fsync_dir(path)
+
+    idx, wl = out["index"], out["workload"]
+    n0 = idx.store.n
+    k, width = 10, 64
+    launches = {}
+
+    def note(step: str) -> None:
+        launches[step] = read_counts()
+
+    def serve(snap) -> SearchResult:
+        return search_batch(snap, wl.queries, wl.ranges, k=k, width=width,
+                            backend="cuda", device="cuda")
+
+    root = tempfile.mkdtemp(prefix="wow-durable-")
+    try:
+        # (1) a full checkpoint of the live index
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save(idx, root, incremental=False)
+        full_s = time.perf_counter() - t0
+        full_mb = _dir_mb(path)
+        print(f"durable (1) full checkpoint of n = {n0} x d "
+              f"{idx.store.dim}: {full_s:.3f} s, {full_mb:.1f} MB, "
+              f"{full_mb / full_s:.1f} MB/s")
+
+        # (2) cold start: mapped slabs -> device index -> first reply
+        reset_counts()
+        t0 = time.perf_counter()
+        snap, meta = load_serving_snapshot(root)
+        map_s = time.perf_counter() - t0
+        di = to_device_index(snap, device="cuda")
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        q, r = pad_queries(
+            torch.as_tensor(wl.queries, device="cuda"),
+            torch.as_tensor(wl.ranges, dtype=torch.float32, device="cuda"))
+        res = device_search(di, q, r, k=k, width=width, m=snap.m, o=snap.o,
+                            metric="l2", backend="cuda")
+        cold = SearchResult(*(np.asarray(a)[:QUERIES] for a in res))
+        first_s = time.perf_counter() - t0
+        note("cold_start")
+        if launches["cold_start"]["gather_norm_dot"] <= 0:
+            fail("durable cold start: gather_norm_dot was never launched")
+        _same_replies("durable cold start vs materialize(load_state)", cold,
+                      serve(take_snapshot(materialize(load_state(root),
+                                                      device="cuda"))))
+        _same_replies("durable cold start vs the live index", cold,
+                      serve(take_snapshot(idx)))
+        print(f"ok durable (2) cold start (checkpoint lsn {meta['lsn']}): "
+              f"mapped in {map_s * 1e3:.1f} ms, device index at "
+              f"{dev_s * 1e3:.1f} ms, first reply of {QUERIES} at "
+              f"{first_s * 1e3:.1f} ms; replies bitwise those of "
+              f"take_snapshot(materialize(load_state)) and of the live "
+              f"index through the kernel; launches "
+              f"{launches['cold_start']}")
+        del snap, di
+
+        # (3) durable engine ingest while the queries are served
+        top = float(np.max(idx.store.attrs[:n0])) + 1.0
+        vecs = make_vectors(1280, idx.store.dim, seed=300)
+        attrs = make_attrs(vecs, seed=300) + top
+        batches = [(vecs[s:s + 128],
+                    attrs[s:s + 128].astype(np.float32).astype(np.float64))
+                   for s in range(0, 1280, 128)]
+        io = CountingIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        live = open_durable(root, io=io, device="cuda")
+        open_s = time.perf_counter() - t0
+        cfg = EngineConfig(k=k, width=width, backend="cuda", max_wave=64,
+                           build_backend="device", ingest_batch=128)
+        eng = ServeEngine(index=live, config=cfg, device="cuda")
+        eng.warmup()
+        acks, ack_ms, replies = [], [], []
+        fs0 = io.fsyncs
+        t_ing = time.perf_counter()
+        t_done = None
+        for i in range(QUERIES):
+            eng.submit(wl.queries[i], wl.ranges[i])
+            if i % 32 == 0:  # 8 acks of 128 rows over the 256 queries
+                vs, as_ = batches[i // 32]
+                t1 = time.perf_counter()
+                acks.append(eng.submit_ingest(vs, as_))
+                ack_ms.append((time.perf_counter() - t1) * 1e3)
+            replies.extend(eng.step())
+        while not eng.idle:
+            replies.extend(eng.step())
+            if t_done is None and eng.pending_ingest == 0:
+                t_done = time.perf_counter()
+        torch.cuda.synchronize()
+        t_done = t_done or time.perf_counter()
+        note("engine_ingest")
+        fsyncs = io.fsyncs - fs0
+        if [a.lsn for a in acks] != list(range(1, 9)) or \
+                live._applied_lsn != 8 or live.store.n != n0 + 1024:
+            fail(f"durable (3): acks {[a.lsn for a in acks]}, applied lsn "
+                 f"{live._applied_lsn}, n {live.store.n}")
+        if len(replies) != QUERIES:
+            fail(f"durable (3): {len(replies)} replies of {QUERIES}")
+        if launches["engine_ingest"]["gather_norm_dot"] <= 0:
+            fail("durable (3): gather_norm_dot was never launched")
+        p50, p99 = np.percentile(ack_ms, [50, 99])
+        print(f"ok durable (3) engine on open_durable (recovered in "
+              f"{open_s:.2f} s): 1,024 rows in 8 submit_ingest acks of 128, "
+              f"ack latency p50 {p50:.3f} ms p99 {p99:.3f} ms, {fsyncs} "
+              f"fsyncs (one group commit an ack), applied at "
+              f"{1024 / (t_done - t_ing):.1f} rows/s while serving "
+              f"{QUERIES} queries; launches {launches['engine_ingest']}")
+
+        # (4) acked, then a crash entering the second apply
+        reset_counts()
+        plan = EngineFaultPlan(crash_after_ingest_applies=1)
+        eng2 = ServeEngine(index=live, config=cfg, device="cuda",
+                           fault_plan=plan)
+        ack = eng2.submit_ingest(np.concatenate([b[0] for b in batches[8:]]),
+                                 np.concatenate([b[1] for b in batches[8:]]))
+        if ack.lsn != 10 or eng2.pending_ingest != 2:
+            fail(f"durable (4): ack {ack!r}")
+        try:
+            eng2.drain()
+            fail("durable (4): the injected crash did not happen")
+        except CrashError:
+            pass
+        if live._applied_lsn != 9 or eng2.pending_ingest != 1:
+            fail(f"durable (4): applied lsn {live._applied_lsn}, pending "
+                 f"{eng2.pending_ingest}")
+        live_digest = state_digest(live)
+        del eng, eng2, live  # no checkpoint, no close: a crash
+        gc.collect()
+        note("crash_engine")
+        reset_counts()
+        t0 = time.perf_counter()
+        caps = GRAPH_CAPTURES["chunks"]
+        rec = recover(root)  # device None: the card
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        note("replay")
+        replay_graphs = (read_replays()["chunks"],
+                         GRAPH_CAPTURES["chunks"] - caps)
+        if rec._applied_lsn != 10 or rec.store.n != n0 + 1280:
+            fail(f"durable (4): recovered lsn {rec._applied_lsn}, n "
+                 f"{rec.store.n}")
+        if launches["replay"]["gather_norm_dot"] <= 0:
+            fail("durable (4): the replay never launched gather_norm_dot")
+        reset_counts()
+        t0 = time.perf_counter()
+        twin = materialize(load_state(root), device="cuda")
+        mat_s = time.perf_counter() - t0
+        _micro_batches(twin, batches[:9])
+        twin9 = state_digest(twin)
+        _micro_batches(twin, batches[9:])
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t0
+        # the phase-3 index carries its build's delta-maintained arena
+        t0 = time.perf_counter()
+        _micro_batches(idx, batches)
+        torch.cuda.synchronize()
+        live3_s = time.perf_counter() - t0
+        note("twins")
+        d_rec, d_twin = state_digest(rec), state_digest(twin)
+        if live_digest != twin9:
+            fail("durable (4): the engine's live index after 9 applies is "
+                 "not the twin's after 9")
+        if d_rec != d_twin:
+            fail(f"durable (4): recovered digest {d_rec} != twin {d_twin}")
+        if state_digest(idx) != d_rec:
+            fail("durable (4): the phase-3 index (its build's arena) after "
+                 "the same 10 micro-batches differs from the recovered one")
+        _same_replies("durable (4) recovered vs twin",
+                      serve(take_snapshot(rec)), serve(take_snapshot(twin)))
+        _same_replies("durable (4) recovered vs the phase-3 index",
+                      serve(take_snapshot(rec)), serve(take_snapshot(idx)))
+        replay_s = rec_s - mat_s
+        print(f"ok durable (4) crash after 2 acks, 1 apply: recover "
+              f"{rec_s:.2f} s (materialize {mat_s:.2f} s as the twin's, "
+              f"replay of 10 records ~{replay_s:.2f} s, "
+              f"{1280 / replay_s:.1f} rows/s; {replay_graphs[0]} chunks "
+              f"replayed as graphs, {replay_graphs[1]} captured); digest "
+              f"{d_rec[:16]} = the "
+              f"twin's (materialize + 10 device micro-batches, "
+              f"{twin_s:.2f} s) = the phase-3 index's after the same "
+              f"micro-batches ({live3_s:.2f} s, {1280 / live3_s:.1f} "
+              f"rows/s); the engine's index before the crash = the twin "
+              f"after 9; replies through the kernel bitwise; launches: "
+              f"replay {launches['replay']}, twins {launches['twins']}")
+
+        # (5) an incremental checkpoint of the recovered index
+        t0 = time.perf_counter()
+        path = save(rec, root)
+        inc_s = time.perf_counter() - t0
+        man = read_manifest(path)
+        if man["kind"] != "delta":
+            fail(f"durable (5): a {man['kind']} checkpoint, not a delta")
+        inc_mb = _dir_mb(path)
+        print(f"ok durable (5) incremental checkpoint: {inc_s:.3f} s, "
+              f"{inc_mb:.2f} MB (the full one: {full_s:.3f} s, "
+              f"{full_mb:.1f} MB)")
+        del rec, twin
+        gc.collect()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = {key: sum(c[key] for c in launches.values())
+             for key in ("gather_norm_dot", "batched_dot")}
+    return {"launches": total, "by_step": launches,
+            "full_ckpt": {"s": full_s, "mb": full_mb},
+            "incremental_ckpt": {"s": inc_s, "mb": inc_mb},
+            "cold_start_ms": {"map": map_s * 1e3, "device_index":
+                              dev_s * 1e3, "first_reply": first_s * 1e3},
+            "ack_ms": {"p50": p50, "p99": p99}, "fsyncs": fsyncs,
+            "engine_rows_per_s": 1024 / (t_done - t_ing),
+            "recover_s": rec_s, "materialize_s": mat_s,
+            "replay_rows_per_s": 1280 / replay_s}
+
+
 def phase_rag(cfg, params, kw: dict) -> dict:
     """The RAG pipeline at qwen2-7b's full width on the bf16 model's
     weights (see the module docstring, phase 6)."""
@@ -1039,6 +1345,7 @@ def phase_rag(cfg, params, kw: dict) -> dict:
           f"{dev_ms * 1e3:.3f} us (plain {plain_dev_ms * 1e3:.3f} us), "
           f"bound {bound_ms * 1e3:.3f} us ({bound_by}, {nbytes} B), max err "
           f"{err:.3e}")
+    durable = _rag_durable(cfg, server, docs, years, qt, qr)
     st = rag.stats()
     print(f"ok rag (d {cfg.d_model}, {RAG_DOCS} + {RAG_INGEST} documents): "
           f"embed {512 / embed_s:.1f} docs/s (512 x 64 tokens in "
@@ -1055,6 +1362,7 @@ def phase_rag(cfg, params, kw: dict) -> dict:
           f"{est['p50_ms']:.1f} ms); launches {counts}, engine "
           f"{eng_counts}; index {st['index_size']} rows")
     return {"launches": counts, "engine_launches": eng_counts,
+            "durable": durable,
             "recall": rec, "embed_docs_per_s": 512 / embed_s,
             "corpus_s": corpus_s, "corpus_embed_s": corpus_embed_s,
             "ingest_rows_per_s": RAG_INGEST / ingest_s,
@@ -1062,6 +1370,71 @@ def phase_rag(cfg, params, kw: dict) -> dict:
             batch2_s * 1e3, "gather": case,
             "embed_vs_plain": {k: {f: v for f, v in h.items() if f != "text"}
                                for k, h in held.items()}}
+
+
+def _rag_durable(cfg, server, docs, years, qt, qr) -> dict:
+    """The RAG pipeline's durable leg at the model's width (see the module
+    docstring, phase 6): a logged build of 512 documents and a checkpoint,
+    a second pipeline's cold start off it, bitwise the first's replies,
+    then 64 more documents through its lazy recovery."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.serve import RagPipeline
+
+    root = tempfile.mkdtemp(prefix="wow-rag-")
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        rag = RagPipeline(server, dim=cfg.d_model, build_backend="device",
+                          index_dir=root)
+        res = rag.add_documents(docs[:512], years[:512])
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if res.accepted != 512 or res.lsn != 4:
+            fail(f"rag durable build: {res!r}")
+        t0 = time.perf_counter()
+        rag.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        ids, dists = rag.retrieve_batch(qt, qr)
+        t0 = time.perf_counter()
+        cold = RagPipeline(server, dim=cfg.d_model, build_backend="device",
+                           index_dir=root)
+        cids, cdists = cold.retrieve_batch(qt, qr)
+        cold_s = time.perf_counter() - t0
+        if cold._index is not None:
+            fail("rag durable: the cold start recovered the index")
+        if not (np.array_equal(cids, ids) and np.array_equal(cdists, dists)):
+            fail("rag durable: the cold start's replies differ from the "
+                 "first pipeline's")
+        t0 = time.perf_counter()
+        more = cold.add_documents(docs[512:576], years[512:576])
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t0
+        nids, ndists = cold.retrieve_batch(qt, qr)
+        counts = read_counts()
+        if more.accepted != 64 or len(cold.index) != 576:
+            fail(f"rag durable ingest: {more!r}, {len(cold.index)} rows")
+        inr = (years[np.clip(nids, 0, None)] >= qr[:, :1]) & \
+            (years[np.clip(nids, 0, None)] <= qr[:, 1:])
+        if not (inr | (nids < 0)).all() or not np.isfinite(
+                ndists[nids >= 0]).all():
+            fail("rag durable: a reply after the ingest is out of range")
+        if counts["gather_norm_dot"] <= 0 or \
+                counts["flash_attention"] != 5 * cfg.num_layers:
+            fail(f"rag durable: launches {counts}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"ok rag durable (d {cfg.d_model}): 512 documents embedded and "
+          f"built with the log in {build_s:.2f} s, checkpoint "
+          f"{ckpt_s:.2f} s; a second pipeline's cold start answered "
+          f"{len(qt)} queries in {cold_s * 1e3:.1f} ms, bitwise the "
+          f"first's; 64 more documents through its lazy recovery in "
+          f"{ingest_s:.2f} s (lsn {more.lsn}); launches {counts}")
+    return {"launches": counts, "build_s": build_s, "checkpoint_s": ckpt_s,
+            "cold_first_reply_ms": cold_s * 1e3, "ingest_s": ingest_s}
 
 
 def _noise(params, names, gen) -> None:
@@ -1103,14 +1476,21 @@ def _sensitivity(params, cfg, toks, gen, dtype) -> tuple[float, float]:
     x = params["embed"][torch.as_tensor(toks, device="cuda").long()]
     sign = torch.randint(0, 2, x.shape, device="cuda", generator=gen) * 2 - 1
     eps = torch.finfo(x.dtype).eps
-    table = params["embed"].float()
-    logits, embs = [], []
+    xp = (x.float() * (1.0 + eps * sign)).to(x.dtype)
+    # the int64 signs and the f32 table (~3 GiB at Jamba's T = 2,048) are
+    # not held across the forwards, whose plain attention peaks near the
+    # card's memory
+    del sign
+    logits = []
     with torch.inference_mode():
-        for inp in (x, (x.float() * (1.0 + eps * sign)).to(x.dtype)):
+        for inp in (x, xp):
             lg, _ = forward(params, cfg, inp, mode="train", backend="ref",
                             compute_dtype=dtype, last_only=True)
             logits.append(lg[:, -1].float())
-            embs.append(torch.softmax(logits[-1], -1) @ table)
+            del lg
+    del x, xp
+    table = params["embed"].float()
+    embs = [torch.softmax(lg, -1) @ table for lg in logits]
     return (float((logits[0] - logits[1]).abs().max()),
             float((embs[0] - embs[1]).abs().max()))
 
@@ -1156,6 +1536,10 @@ def phase_lm(run: str) -> dict:
         n = spec["layers"]  # pattern, full width
         cfg = dataclasses.replace(cfg, num_layers=n,
                                   block_pattern=cfg.block_pattern[:n])
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{run}: before the weights, {torch.cuda.memory_allocated()} bytes "
+          f"allocated, {torch.cuda.memory_reserved()} reserved on the card")
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = init_params(cfg, gen, device="cuda", dtype=dtype)
@@ -1727,6 +2111,7 @@ def main() -> int:
     lap("int8_build", phase_int8_build, host["f32_recall"])
     traced = lap("trace", phase_trace, device["out"])
     engine = lap("engine", phase_engine, device["out"])
+    durable = lap("durable", phase_durable, device["out"])
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions'
     torch.backends.cudnn.allow_tf32 = False  # einsums stay full f32
     lm = {run: lap(run, phase_lm, run) for run in LM_MODELS}
@@ -1751,7 +2136,8 @@ def main() -> int:
         {"name": "gather_norm_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_norm_dot.cu",
          "replaces": "src/repro/kernels/gather_distance.py:123",
-         "launches": device["launches"]["gather_norm_dot"],
+         "launches": device["launches"]["gather_norm_dot"]
+         + durable["launches"]["gather_norm_dot"],
          "executions": device["executions"]["gather_norm_dot"],
          "traced": traced["serve_fused_compact"],
          "max_abs_err": gnd["max_abs_err"],
@@ -1764,7 +2150,15 @@ def main() -> int:
              "engine_replayed": engine["replayed"],
              "rag": lm[RAG_ARCH_RUN]["rag"]["launches"]["gather_norm_dot"],
              "rag_engine": lm[RAG_ARCH_RUN]["rag"]["engine_launches"][
+                 "gather_norm_dot"],
+             "device_build": device["launches"]["gather_norm_dot"],
+             "durable": durable["launches"]["gather_norm_dot"],
+             "durable_by_step": {k: c["gather_norm_dot"] for k, c in
+                                 durable["by_step"].items()},
+             "rag_durable": lm[RAG_ARCH_RUN]["rag"]["durable"]["launches"][
                  "gather_norm_dot"]},
+         "durable": {k: v for k, v in durable.items()
+                     if k not in ("launches", "by_step")},
          "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
         {"name": "batched_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/batched_dot.cu",
@@ -1783,8 +2177,10 @@ def main() -> int:
          "launches_by_model": {a: r["launches"]["flash_attention"]
                                for a, r in lm.items()
                                if "flash_attention" in r["launches"]},
-         "launches_by_path": {"rag": lm[RAG_ARCH_RUN]["rag"]["launches"][
-             "flash_attention"]},
+         "launches_by_path": {
+             "rag": lm[RAG_ARCH_RUN]["rag"]["launches"]["flash_attention"],
+             "rag_durable": lm[RAG_ARCH_RUN]["rag"]["durable"]["launches"][
+                 "flash_attention"]},
          "traced": lm["qwen2-7b"]["trace"]["shares"],
          "traced_bf16": {r: lm[r]["trace"]["shares"]
                          for r in ("qwen2-7b-bf16", JAMBA)},

@@ -86,7 +86,7 @@ import torch
 from .. import resolve_device
 from ..kernels.ops import BACKENDS, gather_norm_dot, merge_src_indices
 from .hop_reference import dedupe_pairwise, eval_materialized, merge_full_sort
-from .snapshot import Snapshot
+from .snapshot import Snapshot, writable
 from .store import VEC_DTYPES, quantize_rows
 
 _INF = float("inf")
@@ -115,12 +115,21 @@ def _gather_scales(di: DeviceIndex):
     return di.scales if di.vectors.dtype == torch.int8 else None
 
 
+def _host_tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor over a contiguous writable copy of ``a`` where needed.
+    A checkpoint cold start hands read-only memory-mapped slabs here
+    (``load_serving_snapshot``): ``torch.from_numpy`` on one would alias
+    the mapping (``.to("cpu")`` is a no-op), so such an array is copied
+    once on the host (``writable``) before it becomes a tensor."""
+    return torch.from_numpy(writable(np.ascontiguousarray(a)))
+
+
 def _slab_tensor(vectors: np.ndarray, device) -> torch.Tensor:
     """numpy slab -> device tensor; a bf16 slab arrives as uint16 bits."""
     if vectors.dtype == np.uint16:
-        t = torch.from_numpy(np.ascontiguousarray(vectors).view(np.int16))
+        t = _host_tensor(vectors.view(np.int16))
         return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(vectors)).to(device)
+    return _host_tensor(vectors).to(device)
 
 
 def to_device_index(snap: Snapshot, vec_dtype: str | None = None,
@@ -186,7 +195,7 @@ def to_device_index(snap: Snapshot, vec_dtype: str | None = None,
         scales = np.ones(1, np.float32)  # dummy (f32/bf16 slab)
 
     def _t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return _host_tensor(a).to(dev)
 
     return DeviceIndex(
         vectors=_slab_tensor(vectors, dev),

@@ -141,13 +141,26 @@ class WoWIndex:
         # (take_snapshot(prev=...)): "all" forces a full rebuild; reset by
         # every take_snapshot, fed by the batched commit.
         self._snap_tracker: dict = {"stamp": -1, "all": True, "dirty": {}}
-        # durable lifecycle: attached write-ahead log, replay guard and the
-        # LSN of the last logged-and-applied record, read by the serve
-        # engine's ingest.  Nothing attaches a log yet (ROADMAP A6, with
-        # the reference's checkpoint tracker and replication epoch).
+        # second dirty-row tracker for incremental checkpointing
+        # (repro_torch.persist.checkpoint): same feed, independent reset —
+        # the snapshot consumer resetting its tracker must not blind the
+        # checkpoint consumer.  Unlike the snapshot tracker, deletes do NOT
+        # invalidate it (checkpoints serialize tombstones separately; the
+        # graph arrays are untouched by a mark-based delete).
+        self._ckpt_tracker: dict = {"stamp": -1, "all": True, "dirty": {}}
+        # durable lifecycle (repro_torch.persist): attached write-ahead
+        # log, replay guard, and the LSN of the last logged-and-applied
+        # record
         self._wal = None
         self._wal_replaying = False
         self._applied_lsn = 0
+        # replication fencing epoch/term, stamped into WAL segment headers
+        # and checkpoint manifests (0 until replication is ported: ROADMAP
+        # A6b; carried so either package's logs and checkpoints round-trip)
+        self._epoch = 0
+        # rows the last recovery re-applied from the log, counted once by
+        # the first serve engine over this index (stats.ingest_replayed)
+        self._replayed_rows = 0
         # background compaction cadence policy: auto-trigger compact_rows()
         # when len(deleted)/n crosses the threshold, checked at
         # insert_batch and checkpoint boundaries.  The latch
@@ -180,13 +193,18 @@ class WoWIndex:
         """Algorithm 1: top-down insertion. Returns the new vertex id."""
         p = self.params
         m, o, omega_c = p.m, p.o, p.ef_construction
-        # canonicalize to an exactly-f32-representable order key, so f32
-        # consumers (device slabs, range filters) agree bitwise with the
-        # host (see VectorStore.append)
+        # canonicalize to an exactly-f32-representable order key BEFORE the
+        # WAL append, so a replayed record re-derives the identical value
+        # and f32 consumers (device slabs, checkpoint dead_vals) agree
+        # bitwise with the host (see VectorStore.append)
         attr = float(np.float32(attr))
         vec = np.asarray(vec, dtype=np.float32)
         self._validate_ingest(vec.reshape(1, -1),
                               np.asarray([attr], dtype=np.float64))
+        if self._wal is not None and not self._wal_replaying:
+            lsn = self._wal.log_seq_insert(vec.reshape(-1), attr)
+        else:
+            lsn = None
         is_new_value = not self.wbt.contains(attr)
         u_after = self.wbt.n + (1 if is_new_value else 0)
 
@@ -257,12 +275,15 @@ class WoWIndex:
         self._note_live_insert(attr)
         self.mutations += 1
         self._snap_tracker["all"] = True  # row-level dirt untracked here
+        self._ckpt_tracker["all"] = True
         for l in range(top + 1):
             sel = neighbors_per_layer[l]
             if sel:
                 self.graph.set_neighbors(
                     l, vid, np.asarray([j for _, j in sel], dtype=np.int32)
                 )
+        if lsn is not None:
+            self._applied_lsn = lsn
         return vid
 
     def insert_batch(
@@ -271,6 +292,7 @@ class WoWIndex:
         attrs: np.ndarray,
         batch_size: int = 128,
         backend: str = "numpy",
+        device_width: int | None = None,
     ) -> np.ndarray:
         """Batched Algorithm 1 (module docstring, "Batched construction").
 
@@ -295,7 +317,17 @@ class WoWIndex:
 
         The device arena lives on ``self.device`` (the constructor's
         ``device=``; None = the CUDA card).  The reference's ``"sharded"``
-        engine comes with the sharded build (ROADMAP A8).
+        engine comes with the sharded build (ROADMAP A8); a logged
+        ``"sharded"`` record replays on ``"device"``
+        (``persist.wal.apply_record``).
+
+        ``device_width`` narrows the device search's beam below
+        ``ef_construction`` (default: equal, matching the host search).
+
+        With a write-ahead log attached (``repro_torch.persist.
+        open_durable``) every micro-batch is logged and fsynced before it
+        is applied: a crash mid-apply replays the record, a crash before
+        the append loses only that unacknowledged micro-batch.
 
         All backends commit identically (phase 2 is the deterministic host
         reduction) and maintain their arenas incrementally: the neighbor
@@ -312,11 +344,17 @@ class WoWIndex:
                 f"unknown insert_batch backend {backend!r}; registered "
                 f"backends: {', '.join(INSERT_BACKENDS)}{hint}"
             )
+        if device_width is not None and backend != "device":
+            raise ValueError(
+                "device_width= applies only to backend='device' "
+                f"(got backend={backend!r})"
+            )
         vectors = np.asarray(vectors, dtype=np.float32)
         if vectors.ndim == 1:
             vectors = vectors.reshape(1, -1)
-        # f32-canonical attrs BEFORE validation (see ``insert``): a value too
-        # large for f32 becomes inf here and is rejected below
+        # f32-canonical attrs BEFORE validation and the WAL append (see
+        # ``insert``): replay re-derives identical order keys, and a value
+        # too large for f32 becomes inf here and is rejected below
         attrs = (
             np.asarray(attrs, dtype=np.float64)
             .reshape(-1)
@@ -327,18 +365,28 @@ class WoWIndex:
             raise ValueError(f"{len(vectors)} vectors vs {len(attrs)} attrs")
         if batch_size < 1:
             raise ValueError("batch_size must be >= 1")
-        # reject the whole batch BEFORE any WBT/graph mutation: a bad row
-        # must never leave a half-committed micro-batch behind
+        # reject the whole batch BEFORE any WBT/graph/WAL mutation: a bad
+        # row must never leave a half-committed micro-batch behind
         self._validate_ingest(vectors, attrs)
         # insert_batch is a compaction-cadence boundary (checked up front:
-        # the tombstone fraction only decreases within this call)
+        # the tombstone fraction only decreases within this call, so the
+        # per-call check replays deterministically record by record)
         self._maybe_auto_compact()
+        log_wal = self._wal is not None and not self._wal_replaying
         out = []
         for s in range(0, len(attrs), batch_size):
+            vs = vectors[s : s + batch_size]
+            as_ = attrs[s : s + batch_size]
+            if log_wal:
+                # log -> fsync -> apply
+                lsn = self._wal.log_insert(vs, as_, backend=backend,
+                                           device_width=device_width,
+                                           shards=None)
             out.append(
-                self._insert_micro_batch(vectors[s : s + batch_size],
-                                         attrs[s : s + batch_size], backend)
+                self._insert_micro_batch(vs, as_, backend, device_width)
             )
+            if log_wal:
+                self._applied_lsn = lsn
         return (np.concatenate(out) if out else np.empty(0, dtype=np.int64))
 
     def _validate_ingest(self, vectors: np.ndarray, attrs: np.ndarray) -> None:
@@ -369,9 +417,11 @@ class WoWIndex:
         """Background compaction cadence policy: run ``compact_rows`` when
         the tombstone fraction reaches ``compact_threshold`` and new
         tombstones accumulated since the last pass.  Called at
-        ``insert_batch`` boundaries."""
+        ``insert_batch`` and checkpoint boundaries; a WAL replay skips it —
+        every triggered pass was itself logged as a COMPACT record, so
+        replay reproduces compactions exactly where they happened."""
         thr = self.compact_threshold
-        if thr is None or self.store.n == 0:
+        if thr is None or self._wal_replaying or self.store.n == 0:
             return
         nd = len(self.deleted)
         if nd <= self._compact_dead_done or nd / self.store.n < thr:
@@ -390,6 +440,7 @@ class WoWIndex:
         vecs: np.ndarray,
         attrs_b: np.ndarray,
         backend: str,
+        device_width: int | None = None,
     ) -> np.ndarray:
         p = self.params
         m, o, omega_c = p.m, p.o, p.ef_construction
@@ -547,7 +598,7 @@ class WoWIndex:
                             top,
                             seeds_i,
                             seeds_d,
-                            width=omega_c,
+                            width=device_width or omega_c,
                             seed_width=C,
                             deleted=self.deleted or None,
                         )
@@ -747,8 +798,8 @@ class WoWIndex:
         edge-version stamp (the batched commit scatters into the adjacency
         arenas directly) and propagate the changed-row set to whichever
         persistent mirrors are live — the host neighbor slab, the device
-        delta arena, and the incremental-snapshot dirty tracker.  Everything
-        here is O(changed rows)."""
+        delta arena, and the incremental-snapshot and checkpoint dirty
+        trackers.  Everything here is O(changed rows)."""
         dirty_np = {
             l: np.unique(np.concatenate(parts).astype(np.int64))
             for l, parts in dirty.items()
@@ -759,10 +810,10 @@ class WoWIndex:
             self._slab.apply_deltas(self.graph, dirty_np)
         if arena is not None:
             arena.apply_deltas(self, dirty_np)
-        tr = self._snap_tracker
-        if not tr["all"]:
-            for l, rows in dirty_np.items():
-                tr["dirty"].setdefault(l, []).append(rows)
+        for tr in (self._snap_tracker, self._ckpt_tracker):
+            if not tr["all"]:
+                for l, rows in dirty_np.items():
+                    tr["dirty"].setdefault(l, []).append(rows)
 
     def _resolve_back_edge_overflow(
         self,
@@ -1046,6 +1097,8 @@ class WoWIndex:
         vid = int(vid)
         if not (0 <= vid < self.store.n) or vid in self.deleted:
             return
+        if self._wal is not None and not self._wal_replaying:
+            self._applied_lsn = self._wal.log_delete(vid)
         self.deleted.add(vid)
         self.mutations += 1
         # any change to the live set invalidates incremental snapshot
@@ -1065,6 +1118,8 @@ class WoWIndex:
         vid = int(vid)
         if vid not in self.deleted:
             return
+        if self._wal is not None and not self._wal_replaying:
+            self._applied_lsn = self._wal.log_undelete(vid)
         self.deleted.discard(vid)
         self.mutations += 1
         self._snap_tracker["all"] = True  # live set changed (see delete)
@@ -1089,9 +1144,12 @@ class WoWIndex:
         """
         if not self.deleted or self.store.n == 0:
             return 0
+        if self._wal is not None and not self._wal_replaying:
+            self._applied_lsn = self._wal.log_compact()
         # compaction-cadence latch: tombstones at this pass are accounted
         # for — auto-compaction re-fires only once NEW ones accumulate.
-        # Set unconditionally (manual or auto).
+        # Set unconditionally (manual or auto) so a WAL replay of the
+        # COMPACT record reproduces the latch exactly.
         self._compact_dead_done = len(self.deleted)
         p = self.params
         n = self.store.n
@@ -1190,6 +1248,25 @@ class WoWIndex:
                 slab_ok,
             )
         return rebuilt
+
+    # ----------------------------------------------------- durable lifecycle
+    @classmethod
+    def recover(cls, root: str, device=None) -> "WoWIndex":
+        """Crash recovery: newest valid checkpoint under ``root`` + replay
+        of the valid WAL suffix (torn tails truncated cleanly), building on
+        ``device`` (None = the CUDA card).  See ``repro_torch.persist.
+        recovery``; ``repro_torch.persist.open_durable`` also attaches the
+        WAL for continued durable ingest."""
+        from ..persist.recovery import recover as _recover
+
+        return _recover(root, device=device)
+
+    def checkpoint(self, root: str, incremental: bool = True) -> str:
+        """Write a (full or incremental) checkpoint under ``root`` — see
+        ``repro_torch.persist.checkpoint.save``.  Returns its path."""
+        from ..persist.checkpoint import save as _save
+
+        return _save(self, root, incremental=incremental)
 
     # ------------------------------------------------------------- reporting
     def memory_bytes(self) -> int:

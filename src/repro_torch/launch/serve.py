@@ -10,6 +10,7 @@ engine (``--engine``, ``repro_torch.serve.lifecycle``).
         --pipeline fused reference --ingest 400
     PYTHONPATH=src python -m repro_torch.launch.serve --engine --rate 500 \\
         --deadline-ms 50 --ingest 400
+    PYTHONPATH=src python -m repro_torch.launch.serve --index-dir /tmp/wow
 
 ``--vec-dtype``, ``--pipeline``, ``--visited``, ``--compact`` and
 ``--backend`` each take one or more values; every combination is served
@@ -29,8 +30,17 @@ sets its own chunk schedule, so no ``--compact``) through ``ServeEngine``:
 the queries are admitted open-loop at ``--rate`` or as a closed burst,
 with ``--deadline-ms``, ``--max-wave`` and ``--queue-cap``, and ``--ingest``
 rides the engine's ingest queue.  ``main`` then returns the engine's run
-under ``"engine"`` (``_serve_engine``).  The durable branches
-(``--index-dir``) wait for persistence (ROADMAP A6).
+under ``"engine"`` (``_serve_engine``).
+
+``--index-dir`` is the durable lifecycle (``repro_torch.persist``): a
+directory that holds checkpoints is served by a cold start off the newest
+one (memory-mapped slabs, no rebuild; ``out["cold_start"]`` holds the
+seconds to map and to the first reply), and a later ``--ingest`` first
+recovers the live index (checkpoint + WAL replay) and rides its log;
+otherwise the index is built with every micro-batch logged, then
+checkpointed there.  After an ingest the index is checkpointed again
+(incrementally).  ``--compact-rows`` runs the tombstone compaction pass
+after the build, ``--compact-threshold`` sets the auto-compaction cadence.
 """
 from __future__ import annotations
 
@@ -123,9 +133,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--queue-cap", type=int, default=512,
                     help="with --engine: admission-queue bound; submits "
                          "past it are rejected with a retry-after hint")
+    ap.add_argument("--compact-rows", action="store_true",
+                    help="run the tombstone compaction pass "
+                         "(WoWIndex.compact_rows) before serving")
     ap.add_argument("--index-dir", default="",
-                    help="durable lifecycle root (not ported yet: "
-                         "ROADMAP A6)")
+                    help="durable lifecycle root: serve-from-checkpoint cold "
+                         "start when the directory holds checkpoints (mapped "
+                         "slabs, no rebuild), otherwise build the index "
+                         "durably (WAL-logged ingest) and checkpoint it there")
+    ap.add_argument("--compact-threshold", type=float, default=None,
+                    help="background compaction cadence: run compact_rows "
+                         "automatically once the tombstone fraction reaches "
+                         "this value (checked at insert_batch and "
+                         "checkpoint boundaries)")
     ap.add_argument("--device", default=None,
                     help="torch device to build and serve on (default: "
                          "cuda)")
@@ -135,10 +155,6 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.index_dir:
-        raise NotImplementedError(
-            "--index-dir (serve-from-checkpoint, WAL-logged ingest) needs "
-            "persistence, not ported yet: ROADMAP A6")
     if args.engine:
         many = [f"--{k.replace('_', '-')}" for k in
                 ("vec_dtype", "visited", "backend")
@@ -185,45 +201,89 @@ def main(argv: list[str] | None = None) -> dict:
                        k=args.k)
     # one --vec-dtype builds at that storage mode, as the JAX launcher does
     build_dtype = args.vec_dtype[0] if len(args.vec_dtype) == 1 else "f32"
-    idx = WoWIndex(dim=args.dim, m=args.m,
-                   ef_construction=args.ef_construction, o=args.o, seed=0,
-                   vec_dtype=build_dtype, device=dev)
-    before = launches()
-    t0 = time.time()
-    if args.build_batch > 0:
-        idx.insert_batch(wl.vectors, wl.attrs, batch_size=args.build_batch,
-                         backend=args.build_backend)
-        how = f"batched/{args.build_backend} (micro-batch {args.build_batch})"
+    idx = snap = cold = None
+    if args.index_dir:
+        from ..persist import (
+            is_durable_dir, load_serving_snapshot, open_durable,
+        )
+
+        if is_durable_dir(args.index_dir):
+            # serve-from-checkpoint cold start: the serving snapshot comes
+            # straight off the newest checkpoint's mapped slabs — no host
+            # index, no graph replay
+            cold_t0 = time.time()
+            snap, meta = load_serving_snapshot(args.index_dir)
+            cold = {"t0": cold_t0, "map_s": time.time() - cold_t0,
+                    "lsn": meta["lsn"]}
+            print(f"cold start from {args.index_dir}: {snap.n} vectors "
+                  f"(checkpoint lsn {meta['lsn']}) mapped in "
+                  f"{cold['map_s'] * 1e3:.0f} ms")
+        else:
+            idx = open_durable(
+                args.index_dir,
+                create=dict(dim=args.dim, m=args.m,
+                            ef_construction=args.ef_construction, o=args.o,
+                            seed=0, vec_dtype=build_dtype),
+                compact_threshold=args.compact_threshold, device=dev)
     else:
-        for v, a in zip(wl.vectors, wl.attrs):
-            idx.insert(v, a)
-        how = "sequential"
-    sync()
-    build_s = time.time() - t0
-    build_launches = since(before)
-    arena_bytes = idx._arena.nbytes() if idx._arena is not None else 0
-    print(f"indexed {len(idx)} vectors in {build_s:.1f}s [{how}] "
-          f"({args.n / build_s:.0f} inserts/s, {idx.graph.num_layers} "
-          f"layers, {idx.memory_bytes()/2**20:.1f} MiB host, device arena "
-          f"{arena_bytes/2**20:.1f} MiB, launches {build_launches})")
-    snap = take_snapshot(idx)
+        idx = WoWIndex(dim=args.dim, m=args.m,
+                       ef_construction=args.ef_construction, o=args.o,
+                       seed=0, compact_threshold=args.compact_threshold,
+                       vec_dtype=build_dtype, device=dev)
+    out = {
+        "device": str(dev),
+        "device_name": (torch.cuda.get_device_name(dev)
+                        if dev.type == "cuda" else "cpu"),
+        "n": args.n, "dim": args.dim, "queries": args.queries,
+        "build_backend": args.build_backend, "runs": [],
+        "workload": wl, "cold_start": cold,
+    }
+    if idx is not None:
+        before = launches()
+        t0 = time.time()
+        if args.build_batch > 0:
+            idx.insert_batch(wl.vectors, wl.attrs,
+                             batch_size=args.build_batch,
+                             backend=args.build_backend)
+            how = (f"batched/{args.build_backend} (micro-batch "
+                   f"{args.build_batch})")
+        else:
+            for v, a in zip(wl.vectors, wl.attrs):
+                idx.insert(v, a)
+            how = "sequential"
+        if args.index_dir:
+            how += ", WAL-logged"
+        sync()
+        build_s = time.time() - t0
+        build_launches = since(before)
+        arena_bytes = idx._arena.nbytes() if idx._arena is not None else 0
+        print(f"indexed {len(idx)} vectors in {build_s:.1f}s [{how}] "
+              f"({args.n / build_s:.0f} inserts/s, {idx.graph.num_layers} "
+              f"layers, {idx.memory_bytes()/2**20:.1f} MiB host, device "
+              f"arena {arena_bytes/2**20:.1f} MiB, launches "
+              f"{build_launches})")
+        out.update(build_s=build_s, inserts_per_s=args.n / build_s,
+                   build_launches=build_launches,
+                   build_stats=idx.build_stats, arena_bytes=arena_bytes,
+                   layers=idx.graph.num_layers)
+        if args.compact_rows:
+            t0 = time.time()
+            nrows = idx.compact_rows()
+            print(f"compact_rows: {nrows} rows rebuilt in "
+                  f"{time.time() - t0:.2f}s")
+        if args.index_dir:
+            t0 = time.time()
+            path = idx.checkpoint(args.index_dir)
+            print(f"checkpointed to {path} in "
+                  f"{(time.time() - t0) * 1e3:.0f} ms")
+        snap = take_snapshot(idx)
+    out.update(snapshot=snap, index=idx)
     metric = "l2" if snap.metric == "l2" else "cosine"
 
     B = args.queries
     q, r = pad_queries(torch.as_tensor(wl.queries, device=dev),
                        torch.as_tensor(wl.ranges, dtype=torch.float32,
                                        device=dev))
-    out = {
-        "device": str(dev),
-        "device_name": (torch.cuda.get_device_name(dev)
-                        if dev.type == "cuda" else "cpu"),
-        "n": args.n, "dim": args.dim, "queries": B,
-        "build_backend": args.build_backend, "build_s": build_s,
-        "inserts_per_s": args.n / build_s, "build_launches": build_launches,
-        "build_stats": idx.build_stats, "arena_bytes": arena_bytes,
-        "layers": idx.graph.num_layers, "runs": [],
-        "snapshot": snap, "workload": wl, "index": idx,
-    }
 
     if args.engine:
         out["engine"] = _serve_engine(args, wl, idx, snap, dev)
@@ -262,6 +322,8 @@ def main(argv: list[str] | None = None) -> dict:
 
                 if warm:
                     serve()  # warm-up batch (first-use costs, kernel build)
+                    if cold is not None and "first_reply_s" not in cold:
+                        cold["first_reply_s"] = time.time() - cold["t0"]
                 before = launches()
                 sync()
                 t0 = time.perf_counter()
@@ -299,6 +361,9 @@ def main(argv: list[str] | None = None) -> dict:
         return runs
 
     out["runs"] = serve_all(snap, warm=True, tag="")
+    if cold is not None:  # the first warm-up batch was the first reply
+        print(f"cold-start-to-first-query: "
+              f"{cold['first_reply_s'] * 1e3:.0f} ms (load + serve wave)")
 
     if args.ingest > 0:
         # ingest-while-serve: micro-batch inserts on the build backend +
@@ -307,6 +372,18 @@ def main(argv: list[str] | None = None) -> dict:
         # every query range, so the ground truth is unchanged.
         extra_v = make_vectors(args.ingest, args.dim, seed=99)
         extra_a = make_attrs(extra_v, seed=99) + float(np.max(wl.attrs)) + 1.0
+        if idx is None:
+            # cold-started off the checkpoint: ingest needs the live index
+            # — run full crash recovery (checkpoint + WAL replay) now and
+            # ride the WAL from here on
+            t0 = time.time()
+            idx = open_durable(args.index_dir,
+                               compact_threshold=args.compact_threshold,
+                               device=dev)
+            print(f"recovered live index for ingest in "
+                  f"{time.time() - t0:.2f}s ({len(idx)} vectors, lsn "
+                  f"{idx._applied_lsn})")
+            out["index"] = idx
         before = launches()
         t0 = time.time()
         idx.insert_batch(extra_v, extra_a, batch_size=args.build_batch or 128,
@@ -325,6 +402,13 @@ def main(argv: list[str] | None = None) -> dict:
                    snapshot_s=t_snap, snapshot_after=snap)
         out["ingest_runs"] = serve_all(snap, warm=False, tag="post-ingest ",
                                        first=out["runs"])
+        if args.index_dir:
+            # the WAL already made the ingest durable; the incremental
+            # checkpoint (O(changed rows)) just shortens the next replay
+            t0 = time.time()
+            path = idx.checkpoint(args.index_dir)
+            print(f"incremental checkpoint to {path} in "
+                  f"{(time.time() - t0) * 1e3:.0f} ms")
     return out
 
 
@@ -335,7 +419,9 @@ def _serve_engine(args, wl, idx, snap, device=None, ingest=None) -> dict:
     (admission -> reply) and the shutdown summary, and return them.
 
     ``idx``/``snap`` are the index and its snapshot (an index built
-    elsewhere may be served, as ``chip_smoke.py`` does).  With
+    elsewhere may be served, as ``chip_smoke.py`` does); ``idx`` is None
+    after a cold start off ``args.index_dir``, and an ingest then first
+    recovers the live index with its log, and checkpoints it afterwards.  With
     ``args.ingest`` rows (``ingest`` = (vectors, attrs) to give them, else
     generated above every query range as the launcher's ingest does) are
     admitted through ``submit_ingest`` before traffic and applied between
@@ -379,6 +465,13 @@ def _serve_engine(args, wl, idx, snap, device=None, ingest=None) -> dict:
     )
     eng = ServeEngine(index=idx, snapshot=snap, config=cfg, device=device)
     dev = eng.device
+    if args.ingest > 0 and idx is None:
+        from ..persist import open_durable
+
+        idx = open_durable(args.index_dir,
+                           compact_threshold=args.compact_threshold,
+                           device=dev)
+        eng = ServeEngine(index=idx, config=cfg, device=dev)
 
     def sync():
         if dev.type == "cuda":
@@ -485,7 +578,13 @@ def _serve_engine(args, wl, idx, snap, device=None, ingest=None) -> dict:
     if n_ingest:
         print(f"ingested {n_ingest} rows through the engine in "
               f"{ingest_s:.2f} s ({n_ingest / ingest_s:.1f} rows/s); "
-              f"snapshot refreshed: {eng._snap is not snap_before}")
+              f"snapshot refreshed: {eng._snap is not snap_before}; "
+              f"applied_lsn={s['applied_lsn']}")
+        if args.index_dir:
+            t0 = time.time()
+            path = idx.checkpoint(args.index_dir)
+            print(f"incremental checkpoint to {path} in "
+                  f"{(time.time() - t0) * 1e3:.0f} ms")
     return {
         "config": cfg, "device": str(dev), "warmup_s": warmup_s,
         "warmup_counts": warm, "counts": traffic,

@@ -12,8 +12,10 @@ queries, WoW retrieves the nearest in-range documents.  ``retrieve_batch``
 is the synchronous surface (one call, one wave); ``engine()`` builds a
 request-lifecycle ``ServeEngine`` (``serve.lifecycle``) over the same
 index, knobs and ``ServeStats``.  Retrieval runs on the server's device.
-The durable branch (``index_dir``, ``checkpoint``) waits for the
-write-ahead log and checkpoints (ROADMAP A6).
+With ``index_dir`` the pipeline rides the durable lifecycle
+(``repro_torch.persist``): a cold start off the newest checkpoint, lazy
+recovery at the first mutation, a write-ahead-logged ingest and
+``checkpoint()``.
 """
 from __future__ import annotations
 
@@ -137,9 +139,6 @@ class RagPipeline:
     from the measured hop counts of the last 16 batches (worst-case sizing
     is the cold-start fallback).  Batches are pow2-padded inside
     ``search_batch``.
-
-    ``index_dir`` (the durable lifecycle) raises ``NotImplementedError``
-    until persistence is ported (ROADMAP A6).
     """
 
     def __init__(self, server: LMServer, dim: int, m: int = 16,
@@ -151,16 +150,22 @@ class RagPipeline:
                  index_dir: str | None = None,
                  compact_threshold: float | None = None,
                  vec_dtype: str = "f32"):
+        """``index_dir`` switches the pipeline to the durable lifecycle
+        (``repro_torch.persist``): when the directory already holds
+        checkpoints, the serving snapshot cold-starts straight from the
+        newest one's memory-mapped slabs — the first ``retrieve_batch``
+        answers without rebuilding the graph — and the host index is only
+        recovered (checkpoint + WAL replay, on the server's device) at the
+        first call that mutates or needs it (``add_documents``,
+        ``retrieve``, ``checkpoint``, ``engine``).  Ingest then rides the
+        WAL: each micro-batch is logged and fsynced before it is applied.
+        ``compact_threshold`` is the background compaction cadence
+        (tombstone fraction)."""
         from ..core.store import VEC_DTYPES
 
         if vec_dtype not in VEC_DTYPES:
             raise ValueError(
                 f"vec_dtype must be one of {VEC_DTYPES}, got {vec_dtype!r}"
-            )
-        if index_dir is not None:
-            raise NotImplementedError(
-                "RagPipeline(index_dir=...) needs the write-ahead log and "
-                "checkpoints, not ported yet: ROADMAP A6"
             )
         self.server = server
         self.docs: list = []
@@ -172,21 +177,53 @@ class RagPipeline:
         self.compact = compact
         self.build_backend = build_backend
         self.visited_adaptive = visited_adaptive
+        self.index_dir = index_dir
+        self.compact_threshold = compact_threshold
         self._hop_log: list = []  # rolling hop counts (serve feedback)
         self._stats = ServeStats()
         self._snap = None
         self._snap_key = None
-        from ..core import WoWIndex
+        self._index = None
+        if index_dir is not None:
+            from ..persist import is_durable_dir, load_serving_snapshot
 
-        self.index = WoWIndex(dim=dim, m=m, ef_construction=ef_construction,
-                              o=o, compact_threshold=compact_threshold,
-                              device=server.device)
+            self._create = dict(dim=dim, m=m, ef_construction=ef_construction,
+                                o=o, compact_threshold=compact_threshold)
+            if is_durable_dir(index_dir):
+                self._snap, meta = load_serving_snapshot(index_dir)
+                if meta["dim"] != dim:
+                    raise ValueError(
+                        f"index at {index_dir} has dim {meta['dim']}, "
+                        f"pipeline expects {dim}"
+                    )
+        else:
+            from ..core import WoWIndex
+
+            self._index = WoWIndex(dim=dim, m=m,
+                                   ef_construction=ef_construction, o=o,
+                                   compact_threshold=compact_threshold,
+                                   device=server.device)
+
+    @property
+    def index(self):
+        """The live host index; in durable mode the first access runs full
+        crash recovery (checkpoint + WAL replay) and attaches the WAL."""
+        if self._index is None:
+            from ..persist import open_durable
+
+            self._index = open_durable(
+                self.index_dir, create=self._create,
+                compact_threshold=self.compact_threshold,
+                device=self.server.device,
+            )
+        return self._index
 
     def checkpoint(self) -> str:
-        raise NotImplementedError(
-            "RagPipeline.checkpoint needs the checkpoint format, not ported "
-            "yet: ROADMAP A6"
-        )
+        """Durable mode: write a (full or incremental) checkpoint of the
+        live index to ``index_dir``; returns the checkpoint path."""
+        if self.index_dir is None:
+            raise RuntimeError("RagPipeline has no index_dir")
+        return self.index.checkpoint(self.index_dir)
 
     def add_document(self, doc_tokens: np.ndarray, attr: float,
                      payload=None) -> int:
@@ -235,14 +272,16 @@ class RagPipeline:
         ingest accounting."""
         out = self._stats.summary()
         out["docs"] = len(self.docs)
-        out["index_size"] = len(self.index)
+        out["index_size"] = len(self._index) if self._index is not None else 0
         return out
 
     def engine(self, config=None, now=None, fault_plan=None, **knobs):
         """A request-lifecycle ``ServeEngine`` over this pipeline's index
         on the server's device, inheriting its search/build knobs (override
         any ``EngineConfig`` field through ``knobs``) and sharing its
-        ``ServeStats``; the current serving snapshot is handed over."""
+        ``ServeStats``; the current serving snapshot is handed over.  In
+        durable mode this recovers the host index first (ingest needs
+        it)."""
         from .lifecycle import EngineConfig, ServeEngine
 
         if config is None:
@@ -280,11 +319,17 @@ class RagPipeline:
 
         t_arrival = time.monotonic()
         # the index's monotone mutation stamp changes on any insert/delete/
-        # undelete (sizes alone would miss an undelete+delete pair)
-        key = self.index.mutations
-        if self._snap is None or self._snap_key != key:
-            self._snap = take_snapshot(self.index, prev=self._snap)
-            self._snap_key = key
+        # undelete (sizes alone would miss an undelete+delete pair).  In
+        # durable cold-start mode the host index may not be recovered yet
+        # (self._index is None): serve straight off the checkpoint snapshot
+        # and refresh only once a live index exists and has mutated.
+        if self._index is not None:
+            key = self._index.mutations
+            if self._snap is None or self._snap_key != key:
+                self._snap = take_snapshot(self._index, prev=self._snap)
+                self._snap_key = key
+        elif self._snap is None:
+            raise RuntimeError("no serving snapshot: index_dir holds no data")
         qs = self.server.embed(query_tokens)
         visited_bits = None
         if self.visited == "hash" and self.visited_adaptive and self._hop_log:

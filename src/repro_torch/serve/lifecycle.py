@@ -1,6 +1,6 @@
 """The serve engine: a request lifecycle over the WoW index, on a torch
-device.  The port of ``repro.serve.lifecycle`` without the write-ahead
-log's group commit (ROADMAP A6); the stages and names are the reference's:
+device.  The port of ``repro.serve.lifecycle``; the stages and names are
+the reference's:
 
 **Admission** — ``submit`` places a request in a bounded queue with an
 absolute deadline (``timeout_s`` from the injected clock).  At
@@ -51,6 +51,17 @@ compacted, graph-replayed path.  Two things follow:
   cache's LRU (``graph_cache_stats``).
 
 Determinism for tests: the clock (``now``) is injectable, and an
+**WAL-backed ingest** — ``submit_ingest`` validates rows individually,
+logs every micro-batch through the index's attached write-ahead log
+(``repro_torch.persist.open_durable``) with ``fsync=False`` and makes them
+all durable with one ``sync()`` *before* they enter the ingest queue: the
+ack means "recoverable", not "applied".  The scheduler applies queued
+batches in order under the ``_wal_replaying`` guard (they are already
+logged) and advances ``_applied_lsn`` per batch; a crash at any point
+after the ack replays the un-applied suffix at the next ``open_durable``.
+Auto-compaction fires only when the queue is empty, so the live apply
+order equals the log order and replay stays bitwise.
+
 ``EngineFaultPlan`` (``repro_torch.persist.faultfs``) hooks every chunk
 and ingest apply.
 """
@@ -200,11 +211,11 @@ class Ticket:
 class IngestResult:
     """Explicit outcome of one ingest call.
 
-    ``accepted`` rows were committed (synchronous path) or queued for
-    apply (engine path, ``pending=True``); ``rejected`` lists ``(row,
-    reason)`` for rows that failed validation.  ``lsn`` is the last WAL
-    record covering the accepted rows (0: not durable; always 0 until the
-    log is ported).  Array-like over the committed vertex ids."""
+    ``accepted`` rows were committed (synchronous path) or logged,
+    fsynced and queued for apply (engine path, ``pending=True``);
+    ``rejected`` lists ``(row, reason)`` for rows that failed validation.
+    ``lsn`` is the last WAL record covering the accepted rows (0: not
+    durable).  Array-like over the committed vertex ids."""
 
     def __init__(self, vids: np.ndarray, accepted: int,
                  rejected: list[tuple[int, str]], lsn: int = 0,
@@ -326,9 +337,11 @@ class ServeEngine:
 
     ``index`` enables ingest and snapshot refresh; a bare ``snapshot``
     serves queries only.  ``device=None`` serves on the CUDA card (raises
-    without CUDA); tests pass ``device="cpu"``.  An index with a
-    write-ahead log attached is refused at ingest until the log is ported
-    (ROADMAP A6).
+    without CUDA); tests pass ``device="cpu"``.  When the index has a
+    write-ahead log attached, ingest admission is durable: acked batches
+    survive any crash.  The rows the index's recovery replayed from its
+    log are counted once, by the first engine over it
+    (``stats.ingest_replayed``).
     """
 
     def __init__(self, index=None, snapshot=None,
@@ -343,6 +356,9 @@ class ServeEngine:
         self.fault_plan = fault_plan
         self.device = resolve_device(device)
         self._now = now or time.monotonic
+        if index is not None:
+            self.stats.ingest_replayed += index._replayed_rows
+            index._replayed_rows = 0
         self._snap = snapshot
         # key by the snapshot's OWN stamp (not index.mutations): a handed-in
         # snapshot may be stale, and the first wave must notice and refresh
@@ -353,7 +369,9 @@ class ServeEngine:
             if snapshot is not None else None
         )
         self._queue: deque[Request] = deque()
-        self._ingest_q: deque[tuple[np.ndarray, np.ndarray]] = deque()
+        self._ingest_q: deque[tuple[int | None, np.ndarray, np.ndarray]] = (
+            deque()
+        )
         self._waves: list[_Wave] = []
         self._rr = 0  # round-robin cursor over in-flight waves
         self._next_rid = 0
@@ -466,19 +484,16 @@ class ServeEngine:
 
     # ----------------------------------------------------------------- ingest
     def submit_ingest(self, vectors: np.ndarray, attrs) -> IngestResult:
-        """Admit an ingest batch: per-row validation, then micro-batches
-        of ``ingest_batch`` rows queued for apply under the scheduler
-        (``pending=True``).  Without a write-ahead log the ack means
-        "queued", not "durable"."""
+        """Admit an ingest batch: per-row validation, WAL group commit
+        (log every micro-batch of ``ingest_batch`` rows, one fsync), then
+        queue for apply under the scheduler (``pending=True``).  With a
+        log attached the result is the durability ack (``lsn``: the last
+        record covering the accepted rows) — accepted rows survive any
+        later crash; without one it means "queued" (``lsn`` 0)."""
         if self.index is None:
             raise RuntimeError(
                 "ingest needs a live index (engine was built from a bare "
                 "snapshot; recover the index first)"
-            )
-        if self.index._wal is not None:
-            raise NotImplementedError(
-                "WAL-backed ingest (group commit) is not ported yet: "
-                "ROADMAP A6"
             )
         vectors = np.asarray(vectors, np.float32)
         if vectors.ndim == 1:
@@ -489,30 +504,57 @@ class ServeEngine:
         keep, rejected = validate_rows(vectors, attrs, self.index.dim)
         self.stats.ingest_rejected_rows += len(rejected)
         vectors, attrs = vectors[keep], attrs[keep]
+        wal = self.index._wal
+        lsn = self.index._applied_lsn
         bs = self.config.ingest_batch
-        staged = [(vectors[s : s + bs], attrs[s : s + bs])
-                  for s in range(0, len(attrs), bs)]
+        staged = []
+        for s in range(0, len(attrs), bs):
+            vs, as_ = vectors[s : s + bs], attrs[s : s + bs]
+            if wal is not None:
+                # group commit: append now, one fsync below acks them all
+                lsn = wal.log_insert(vs, as_,
+                                     backend=self.config.build_backend,
+                                     device_width=None, shards=None,
+                                     fsync=False)
+                staged.append((lsn, vs, as_))
+            else:
+                staged.append((None, vs, as_))
+        if wal is not None and staged:
+            wal.sync()  # durability barrier: everything above is now acked
         self._ingest_q.extend(staged)
         self.stats.ingest_batches += len(staged)
         self.stats.ingest_rows += len(attrs)
-        return IngestResult(vids=np.empty(0, np.int64), accepted=len(attrs),
-                            rejected=rejected, lsn=0, pending=True)
+        return IngestResult(
+            vids=np.empty(0, np.int64), accepted=len(attrs),
+            rejected=rejected, lsn=lsn if wal is not None else 0,
+            pending=True,
+        )
 
     def _apply_ingest_one(self) -> None:
-        """Apply the oldest queued ingest micro-batch.  It stays queued
-        until the apply commits, so a fault-plan crash here loses it from
-        nothing but the queue."""
+        """Apply the oldest queued (already logged) ingest micro-batch.
+        It stays queued until the apply commits, so a fault-plan crash
+        here loses nothing: the batch is in the log and replays."""
         if self.fault_plan is not None:
             self.fault_plan.on_ingest_apply()
-        vs, as_ = self._ingest_q[0]
+        lsn, vs, as_ = self._ingest_q[0]
         idx = self.index
-        idx.insert_batch(vs, as_, batch_size=max(len(as_), 1),
-                         backend=self.config.build_backend)
+        if lsn is not None:
+            # already logged at admission: the apply must not re-log
+            idx._wal_replaying = True
+            try:
+                idx.insert_batch(vs, as_, batch_size=max(len(as_), 1),
+                                 backend=self.config.build_backend)
+            finally:
+                idx._wal_replaying = False
+            idx._applied_lsn = lsn
+        else:
+            idx.insert_batch(vs, as_, batch_size=max(len(as_), 1),
+                             backend=self.config.build_backend)
         self._ingest_q.popleft()
         if not self._ingest_q:
-            # the compaction cadence is checked once the queue is empty,
-            # as the reference does (there, so that a logged COMPACT lands
-            # after every logged insert)
+            # the cadence check is deferred until the queue is empty so a
+            # triggered COMPACT record lands after every already-logged
+            # insert — live apply order must equal log order for replay
             idx._maybe_auto_compact()
 
     # -------------------------------------------------------------- scheduler

@@ -27,6 +27,9 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.models.mamba, repro_torch.models.moe\n"
         "import repro_torch.kernels.mamba_scan\n"
         "import repro_torch.serve.lifecycle, repro_torch.persist.faultfs\n"
+        "import repro_torch.persist, repro_torch.persist.format\n"
+        "import repro_torch.persist.checkpoint, repro_torch.persist.wal\n"
+        "import repro_torch.persist.recovery\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

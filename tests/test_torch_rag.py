@@ -10,8 +10,10 @@ an ingest (the lazy incremental snapshot refresh), with the adaptive hash
 filter too.  With the real reduced qwen2 (``from_jax_params``), the
 replies of ``engine()`` equal ``retrieve_batch``'s bit for bit and new
 documents become visible after ``add_documents``.  The durable branch
-(``index_dir``) raises and names ROADMAP A6.  The port's example runs at
-its reduced size.
+(``index_dir``): a write-ahead-logged build and ``checkpoint()``, a cold
+start off the checkpoint, lazy recovery at the first ingest, against the
+JAX pipeline on the same stub server.  The port's example runs at its
+reduced size.
 """
 import importlib.util
 from pathlib import Path
@@ -173,15 +175,54 @@ def test_engine_equals_retrieve_batch_on_reduced_qwen2(qwen):
                                atol=1e-6)
 
 
-def test_durable_branch_names_a6():
+def test_durable_branch_names_a6(tmp_path):
+    """``RagPipeline(index_dir=...)`` (the durable lifecycle, ROADMAP A6)
+    against the JAX pipeline: the logged ingest acks the same LSNs and
+    ``checkpoint()`` writes a checkpoint of the same digest; a second
+    pipeline on each directory cold-starts off the checkpoint (no live
+    index), answers ``retrieve_batch`` as the first one did, then
+    recovers lazily at its first ingest and serves the new documents."""
+    from repro.persist import state_digest as ref_digest
+    from repro_torch.persist import recover, state_digest
+
     server = StubServer()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        RagPipeline(server, dim=DIM, index_dir="somewhere")
-    rag = RagPipeline(server, dim=DIM)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        rag.checkpoint()
+    with pytest.raises(RuntimeError, match="no index_dir"):
+        RagPipeline(server, dim=DIM).checkpoint()
     with pytest.raises(ValueError, match="vec_dtype"):
         RagPipeline(server, dim=DIM, vec_dtype="fp8")
+    kw = dict(dim=DIM, m=8, ef_construction=32)
+    roots = [str(tmp_path / "port"), str(tmp_path / "jax")]
+    toks, years = _docs(0, 200, seed=1)
+    qt, qr = _queries(3)
+    first = []
+    for cls, root in zip((RagPipeline, JaxRagPipeline), roots):
+        rag = cls(server, index_dir=root, **kw)
+        res = rag.add_documents(toks, years, batch_size=64)
+        assert res.accepted == 200 and res.lsn == 4  # 4 logged micro-batches
+        rag.checkpoint()
+        first.append((rag, rag.retrieve_batch(qt, qr, k=5, width=32)))
+    (tp, tgot), (jp, jgot) = first
+    assert state_digest(recover(roots[0], device="cpu")) == \
+        ref_digest(jp.index)
+    _tie_rule(tgot, jgot)
+    toks2, years2 = _docs(200, 50, seed=4)
+    after = []
+    for (rag, got), cls, root in zip(first, (RagPipeline, JaxRagPipeline),
+                                     roots):
+        cold = cls(server, index_dir=root, **kw)
+        assert cold._index is None  # served off the checkpoint's slabs
+        again = cold.retrieve_batch(qt, qr, k=5, width=32)
+        for a, b in zip(again, got):
+            np.testing.assert_array_equal(a, b)
+        assert cold._index is None and cold.stats()["index_size"] == 0
+        res = cold.add_documents(toks2, years2)  # lazy recovery + WAL
+        assert res.accepted == 50 and res.lsn == 5
+        assert len(cold.index) == 250
+        after.append(cold.retrieve_batch(qt, qr, k=5, width=32))
+    _tie_rule(*after)
+    assert (after[0][0] >= 200).any()  # the new documents are served
+    assert state_digest(recover(roots[0], device="cpu")) == \
+        ref_digest(JaxRagPipeline(server, index_dir=roots[1], **kw).index)
 
 
 def test_example_runs_on_cpu():

@@ -9,9 +9,12 @@ snapshot, backpressure, shedding, deadlines, fault plans, the adaptive
 knobs, the hop budget, per-row ingest validation, ingest/query
 interleaving and the stats.  The congestion-collapse case counts served
 requests per wave instead of host seconds.  The five durable cases of the
-reference (mmap cold start, an acked ingest surviving a crash, restart
-replay, a dropped fsync, SIGKILL with a pending ingest queue) wait for the
-write-ahead log and checkpoints (ROADMAP A6).
+reference: a cold start over read-only mapped slabs then an ingest, an
+acked ingest surviving a crash before its apply, a restart replaying the
+pending ingest, a dropped fsync breaking the ack, and SIGKILL with a
+pending ingest queue; one durable ingest against the JAX engine's (the
+same LSNs, an equal digest after recovery); on the card, a replay through
+the device build equal to the live index bit for bit.
 
 Parity: the same submission sequence through both engines over the same
 seeded index (built by the port, whose host build equals the
@@ -32,6 +35,7 @@ import torch
 import repro.core as rc
 from repro.core import device_search as rds
 from repro.core.snapshot import take_snapshot as ref_take_snapshot
+import repro.persist as rp
 from repro.persist import EngineFaultPlan as RefFaultPlan
 from repro.serve import lifecycle as rl
 from repro_torch.core import WoWIndex, make_workload
@@ -41,7 +45,10 @@ from repro_torch.core.device_search import (
     search_batch,
 )
 from repro_torch.core.snapshot import take_snapshot
-from repro_torch.persist import CrashError, EngineFaultPlan
+from repro_torch.persist import (
+    CrashError, EngineFaultPlan, FaultIO, load_serving_snapshot,
+    open_durable, recover, state_digest,
+)
 from repro_torch.serve.lifecycle import (
     EngineConfig, Rejected, ServeEngine, Ticket, validate_rows,
 )
@@ -169,17 +176,30 @@ def test_engine_serves_from_bare_snapshot(wl, idx):
         eng.submit_ingest(wl.vectors[:2], wl.attrs[:2])
 
 
-def test_device_policy_and_durable_branches(wl, idx):
+def test_device_policy_and_durable_branches(tmp_path, wl, idx):
     """``device=None`` is the card (raises without CUDA); an index with a
-    write-ahead log is refused at ingest until the log is ported."""
+    write-ahead log acknowledges an ingest by its group commit: every
+    micro-batch logged before one fsync, the ack's LSN the last of them,
+    the rows durable (recovered) before any apply."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             ServeEngine(index=idx)
-    ix = _index(wl, n=100)
-    ix._wal = object()  # stands for an attached log
-    eng = _engine(ix)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        eng.submit_ingest(wl.vectors[:2], wl.attrs[:2])
+    root = str(tmp_path)
+    io = FaultIO()
+    ix = open_durable(root, io=io, create=dict(dim=12, **KW), device=CPU)
+    ix.insert_batch(wl.vectors[:100], wl.attrs[:100], batch_size=128)
+    assert ix._applied_lsn == 1
+    eng = _engine(ix, ingest_batch=30)
+    ops = io.ops
+    res = eng.submit_ingest(wl.vectors[100:190], wl.attrs[100:190])
+    assert res.accepted == 90 and res.pending and res.lsn == 4
+    assert io.ops - ops == 4  # three appends, one fsync: the group commit
+    assert eng.pending_ingest == 3 and len(ix) == 100
+    assert len(recover(root, device=CPU)) == 190  # acked = recoverable
+    eng.drain()
+    assert ix._applied_lsn == 4 and len(ix) == 190
+    assert eng.engine_stats()["applied_lsn"] == 4
+    ix._wal.close()
 
 
 # -------------------------------------------------- admission & backpressure
@@ -557,6 +577,193 @@ def test_stats_accounting_consistency(wl, idx):
         config=rl.EngineConfig(**SEARCH)).engine_stats())
 
 
+# ------------------------------------------------------------ durable ingest
+def _durable(root):
+    return open_durable(root, create=dict(dim=12, **KW), device=CPU)
+
+
+def test_cold_start_then_ingest_over_mmap_snapshot(tmp_path, wl):
+    """Serve-from-checkpoint hands the engine read-only mapped slabs; the
+    first ingest after the cold start refreshes the snapshot with
+    ``prev=`` that mapped snapshot.  No consumer may write into the
+    mapping or alias it into a tensor (a non-writable-array warning
+    fails the test)."""
+    import warnings
+
+    root = str(tmp_path)
+    ix = _durable(root)
+    ix.insert_batch(wl.vectors[:300], wl.attrs[:300], batch_size=128)
+    ix.checkpoint(root, incremental=False)
+    ix._wal.close()
+    del ix
+    snap, _ = load_serving_snapshot(root)
+    assert not snap.vectors.flags.writeable  # really a read-only mapping
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        eng = ServeEngine(snapshot=snap, config=EngineConfig(**SEARCH),
+                          device=CPU)
+        eng.submit(wl.queries[0], wl.ranges[0])
+        (r0,) = eng.drain()
+        assert not r0.degraded
+        ix2 = open_durable(root, device=CPU)
+        eng2 = ServeEngine(index=ix2, snapshot=snap, device=CPU,
+                           config=EngineConfig(**SEARCH, ingest_batch=50,
+                                               build_backend="numpy"))
+        hi = float(wl.attrs.max()) + 1.0
+        nv, na = wl.vectors[300:350], np.linspace(hi, hi + 1.0, 50)
+        assert eng2.submit_ingest(nv, na).accepted == 50
+        eng2.drain()
+        t = eng2.submit(nv[0], (hi, hi + 1.0))
+        (r,) = eng2.drain()
+    assert r.rid == t.rid and (r.ids >= 300).all()
+    assert r.dists[0] <= 1e-3  # the ingested rows are really served
+    ix2._wal.close()
+
+
+def _want(wl, spans, bs=50):
+    want = WoWIndex(dim=12, device=CPU, **KW)
+    for lo, hi in spans:
+        for s in range(lo, hi, bs):
+            want.insert_batch(wl.vectors[s:min(s + bs, hi)],
+                              wl.attrs[s:min(s + bs, hi)], batch_size=bs)
+    return want
+
+
+def test_ingest_ack_survives_crash_before_apply(tmp_path, wl):
+    """Batches acked by ``submit_ingest`` but never applied (a crash in
+    the middle of the queue) are recovered from the log; the recovered
+    engine counts them as replayed."""
+    root = str(tmp_path)
+    ix = _durable(root)
+    ix.insert_batch(wl.vectors[:100], wl.attrs[:100], batch_size=50)
+    plan = EngineFaultPlan(crash_after_ingest_applies=1)
+    eng = ServeEngine(index=ix, fault_plan=plan, device=CPU,
+                      config=EngineConfig(**SEARCH, ingest_batch=50,
+                                          build_backend="numpy"))
+    res = eng.submit_ingest(wl.vectors[100:250], wl.attrs[100:250])
+    assert res.accepted == 150 and eng.pending_ingest == 3
+    with pytest.raises(CrashError):
+        eng.drain()  # applies batch 1, dies entering batch 2
+    assert eng.pending_ingest == 2
+    rec = recover(root, device=CPU)
+    assert state_digest(rec) == state_digest(_want(wl, [(0, 250)]))
+    assert rec._replayed_rows == 250
+    assert ServeEngine(index=rec, device=CPU).stats.ingest_replayed == 250
+
+
+def test_restart_replays_pending_ingest(tmp_path, wl):
+    """A restarted server sees every acked-but-unapplied micro-batch."""
+    root = str(tmp_path)
+    ix = _durable(root)
+    eng = ServeEngine(index=ix, device=CPU, config=EngineConfig(
+        **SEARCH, ingest_batch=40, build_backend="numpy"))
+    eng.submit_ingest(wl.vectors[:120], wl.attrs[:120])
+    assert eng.pending_ingest == 3 and len(ix) == 0
+    del eng, ix  # "restart" without ever driving the scheduler
+    ix2 = open_durable(root, device=CPU)
+    assert len(ix2) == 120
+    eng2 = _engine(ix2)
+    t = eng2.submit(wl.vectors[0], (float(wl.attrs.min()),
+                                    float(wl.attrs.max())))
+    (r,) = eng2.drain()
+    assert r.rid == t.rid and r.dists[0] <= 1e-3
+    assert eng2.stats.ingest_replayed == 120
+
+
+def test_dropped_fsync_breaks_the_ack(tmp_path, wl):
+    """With fsyncs dropped a post-ack crash loses the "acked" batches: the
+    ack's durability comes from the group commit's fsync."""
+    root = str(tmp_path)
+    ix = _durable(root)
+    ix.insert_batch(wl.vectors[:60], wl.attrs[:60], batch_size=30)
+    ix.checkpoint(root)
+    del ix
+    io = FaultIO(drop_fsync=True, model="lost")
+    ix = open_durable(root, io=io, device=CPU)
+    eng = ServeEngine(index=ix, device=CPU, config=EngineConfig(
+        **SEARCH, ingest_batch=30, build_backend="numpy"))
+    assert eng.submit_ingest(wl.vectors[60:120],
+                             wl.attrs[60:120]).accepted == 60
+    with pytest.raises(CrashError):
+        io._crash()
+    assert len(recover(root, device=CPU)) == 60
+
+
+def test_sigkill_with_pending_ingest_queue(tmp_path):
+    """A real SIGKILL of a process serving the port with acked batches in
+    the ingest queue (two applied, four only logged): recovery builds the
+    index a clean application of every acked batch builds."""
+    import signal
+    import subprocess
+
+    root = str(tmp_path)
+    child = f"""
+import os, signal
+from repro_torch.core import make_workload
+from repro_torch.persist import open_durable
+from repro_torch.serve.lifecycle import ServeEngine, EngineConfig
+wl = make_workload(n=300, d=12, nq=1, seed=7, with_gt=False)
+idx = open_durable({root!r}, create=dict(dim=12, m=8, ef_construction=32,
+                                         o=4, seed=0), device="cpu")
+eng = ServeEngine(index=idx, device="cpu", config=EngineConfig(
+    k=5, width=32, ingest_batch=50, build_backend="numpy"))
+for i in range(6):
+    r = eng.submit_ingest(wl.vectors[50*i:50*(i+1)], wl.attrs[50*i:50*(i+1)])
+    assert r.accepted == 50 and r.pending and r.lsn == i + 1
+    print("ACK", i, flush=True)
+eng.step(); eng.step()
+print("PENDING", eng.pending_ingest, flush=True)
+os.kill(os.getpid(), signal.SIGKILL)
+"""
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    res = subprocess.run([sys.executable, "-c", child], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert res.returncode == -signal.SIGKILL, res.stderr
+    assert res.stdout.count("ACK") == 6 and "PENDING 4" in res.stdout
+    wl7 = make_workload(n=300, d=12, nq=1, seed=7, with_gt=False)
+    assert state_digest(recover(root, device=CPU)) == \
+        state_digest(_want(wl7, [(0, 300)]))
+
+
+def test_durable_ingest_matches_jax_engine(tmp_path, wl):
+    """One durable ingest through both engines over equal host-built
+    indexes: the same acks (LSNs), byte-equal logs, and an equal digest
+    after each package recovers its own directory and the other's."""
+    jroot, troot = str(tmp_path / "jax"), str(tmp_path / "port")
+    create = dict(dim=12, **KW)
+    jix = rp.open_durable(jroot, create=create)
+    tix = open_durable(troot, create=create, device=CPU)
+    for ix in (jix, tix):
+        ix.insert_batch(wl.vectors[:200], wl.attrs[:200], batch_size=100)
+    cfg = dict(SEARCH, ingest_batch=40, build_backend="numpy")
+    jeng = rl.ServeEngine(index=jix, config=rl.EngineConfig(**cfg))
+    teng = ServeEngine(index=tix, config=EngineConfig(**cfg), device=CPU)
+    bad = wl.vectors[200:330].copy()
+    bad[7, 0] = np.nan  # one rejected row, in both
+    acks = [(e.submit_ingest(bad, wl.attrs[200:330]),
+             e.submit_ingest(wl.vectors[330:400], wl.attrs[330:400]))
+            for e in (jeng, teng)]
+    for a, b in zip(*acks):
+        assert (a.accepted, a.lsn, a.rejected) == (b.accepted, b.lsn,
+                                                   b.rejected)
+    assert [r.lsn for r in acks[1]] == [6, 8]
+    jeng.drain()
+    teng.drain()
+    assert jix._applied_lsn == tix._applied_lsn == 8
+    for ix in (jix, tix):
+        ix._wal.close()
+    with open(os.path.join(jroot, "wal", "wal-00000000.seg"), "rb") as f:
+        jbytes = f.read()
+    with open(os.path.join(troot, "wal", "wal-00000000.seg"), "rb") as f:
+        assert f.read() == jbytes
+    want = rp.state_digest(jix)
+    assert state_digest(tix) == want
+    for root in (jroot, troot):
+        assert state_digest(recover(root, device=CPU)) == want
+        assert rp.state_digest(rp.recover(root)) == want
+
+
 # --------------------------------------------------------- parity with JAX
 def _jax_index(wl, n=None):
     ix = rc.WoWIndex(dim=12, **KW)
@@ -701,8 +908,13 @@ def test_launcher_engine_matches_jax_launcher(capsys, monkeypatch):
     assert rep["faults"] == [] and len(rep["tie_flips"]) <= 1, rep
 
 
-def test_launcher_refusals():
-    """One configuration per engine run; the durable branch names A6."""
+def test_launcher_refusals(tmp_path, capsys, monkeypatch):
+    """One configuration per engine run.  ``--index-dir``: the first run
+    builds with a logged ingest and checkpoints, the second cold-starts
+    off the checkpoint and serves the same replies bit for bit; the
+    checkpoint has the digest of the JAX launcher's, whose cold start
+    prints the same recall."""
+    from repro.launch import serve as jserve
     from repro_torch.launch import serve
 
     with pytest.raises(SystemExit):
@@ -711,8 +923,31 @@ def test_launcher_refusals():
         serve.main(LAUNCH + ["--device", "cpu", "--compact", "8,8"])
     with pytest.raises(SystemExit):  # no mesh: argparse refuses the flag
         serve.main(LAUNCH + ["--device", "cpu", "--mesh", "2x1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        serve.main(LAUNCH + ["--device", "cpu", "--index-dir", "x"])
+    args = ["--n", "1200", "--dim", "16", "--queries", "40", "--width", "32",
+            "--m", "8", "--ef-construction", "32", "--compact-rows"]
+    troot, jroot = str(tmp_path / "port"), str(tmp_path / "jax")
+    built = serve.main(args + ["--device", "cpu", "--index-dir", troot])
+    assert built["cold_start"] is None and built["index"]._applied_lsn > 0
+    cold = serve.main(args + ["--device", "cpu", "--index-dir", troot])
+    assert cold["index"] is None and cold["cold_start"]["first_reply_s"] > 0
+    for a, b in zip(built["runs"][0]["result"], cold["runs"][0]["result"]):
+        np.testing.assert_array_equal(a, b)
+    printed = capsys.readouterr().out
+    assert "cold start from" in printed and "cold-start-to-first-query" \
+        in printed
+    jout = []
+    for _ in range(2):
+        monkeypatch.setattr(sys, "argv", ["serve"] + args + [
+            "--index-dir", jroot])
+        jserve.main()
+        jout.append(capsys.readouterr().out)
+    assert "cold start from" not in jout[0] and "cold start from" in jout[1]
+    assert state_digest(recover(troot, device=CPU)) == \
+        rp.state_digest(rp.recover(jroot))
+    line = [ln for ln in jout[1].splitlines()
+            if ln.startswith("served 40 queries")][0]
+    jrecall = float(line.split("= ", 1)[1].split(",")[0])
+    assert cold["runs"][0]["recall"] == pytest.approx(jrecall, abs=1e-4)
 
 
 def test_launcher_adaptive_filter(capsys):
@@ -804,3 +1039,37 @@ def test_cuda_engine_max_hops_budget_under_replay(cuda_device, wl, idx):
         np.testing.assert_array_equal(r.ids, capped.ids[i])
         np.testing.assert_array_equal(r.dists, capped.dists[i])
         assert (r.hops, r.dc) == (capped.hops[i], capped.dc[i])
+
+
+@pytest.mark.cuda
+def test_cuda_replay_equals_live_index(cuda_device, tmp_path, wl):
+    """On the card: an index that ingests through the engine with the
+    device build (its delta-maintained arena, a compaction in between)
+    and the index recovered from its checkpoint and log (a fresh arena,
+    the records replayed through the device build) are equal bit for
+    bit, and so are their replies through the kernel."""
+    root = str(tmp_path)
+    ix = open_durable(root, create=dict(dim=12, **KW), device="cuda")
+    ix.insert_batch(wl.vectors[:200], wl.attrs[:200], batch_size=100,
+                    backend="device")
+    ix.checkpoint(root)
+    eng = ServeEngine(index=ix, device="cuda", config=EngineConfig(
+        **dict(SEARCH, backend="cuda"), ingest_batch=50,
+        build_backend="device"))
+    eng.submit_ingest(wl.vectors[200:300], wl.attrs[200:300])
+    for i in range(8):
+        eng.submit(wl.queries[i], wl.ranges[i])
+    eng.drain()
+    ix.delete(3)
+    ix.compact_rows()
+    eng.submit_ingest(wl.vectors[300:400], wl.attrs[300:400])
+    eng.drain()
+    ix._wal.close()
+    rec = recover(root)  # device None: the card
+    assert rec._replayed_rows == 200 and len(rec) == len(ix) == 399
+    assert state_digest(rec) == state_digest(ix)
+    got = [search_batch(take_snapshot(x), wl.queries, wl.ranges, k=5,
+                        width=32, backend="cuda", device="cuda")
+           for x in (ix, rec)]
+    for a, b in zip(*got):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
