@@ -107,6 +107,44 @@ before the path and reads the counters just after it:
      must have launched ``gather_norm_dot`` (recover seconds, materialize
      and replay, replayed rows/s); (5) an incremental checkpoint of the
      recovered index (a delta; seconds and MB beside the full one's);
+  5d. cluster — replication and the serving cluster
+     (``repro_torch.persist.replicate``, ``repro_torch.serve.cluster``) on
+     the phase-3 index after phase 5c (no second build), under a fresh
+     ``tempfile.mkdtemp()`` root removed at the end; every member's
+     engine serves through the kernel (``backend="cuda"``, the device
+     build, static knobs).  Leg (a), three members in this process: (1) a
+     full checkpoint of the index is member n0's root, ``Cluster`` opens
+     it as the primary (quorum 2, the majority) and the two replicas
+     stream it (seconds, MB, chunks, MB/s, materialize seconds each), all
+     three ``state_digest`` equal to the index's; (2) 1,024 rows in 8
+     quorum-durable ``submit_ingest`` acks of 128 (attributes above every
+     query range), stepping between them: ack p50/p99, rows/s to
+     quorum-durable and applied, each replica's lag and the graph
+     captures; each replica durable through the last ack, its log ending
+     there, the digests equal; (3) ``warmup()``, then the 256 queries
+     through ``Cluster.submit``/``drain``: QPS, latency p50/p95/p99,
+     replies per member, degraded; every reply bitwise the kernel's
+     ``search_batch`` on the primary's snapshot, no capture after
+     warm-up, recall@10 >= 0.90; (4) 64 queries in flight, ``kill("n0")``
+     and steps on the real clock until the heartbeat timeout promotes a
+     replica: every query answered once, one unplanned failover to epoch
+     1 (on disk too), no acked LSN lost, the promoted index equal to
+     ``recover(n0's root, upto_lsn=the promotion LSN)``; (5) 128 rows
+     acked under epoch 1 at the next LSN, n0 rejoins as a replica, then
+     ``rolling_restart()`` with 64 queries outstanding: each answered
+     once, three restarts and one handover, every member back and the
+     digests equal.  Leg (b): a primary in a child process that imports
+     only the port opens a copy of (1)'s checkpoint on the card, streams
+     it over localhost TCP to a ``ReplicaReplicator`` here (both
+     ``SocketEndpoint``s), ingests batches of 128 with quorum 2 and
+     SIGKILLs itself after its 4th ack: return code -SIGKILL, 4 acks,
+     the replica durable through the 4th, the primary dead after the
+     heartbeat timeout, ``promote()`` to epoch 1, the promoted index
+     equal to the child's disk recovered at its LSN, and a
+     ``ServeEngine`` on it answering the 256 bitwise ``search_batch``
+     through the kernel (the child's start-up seconds, bootstrap MB/s,
+     ack p50, kill to promotion).  The kernel's launches are counted per
+     step and must be > 0 where the path runs it;
   6. LM serve — ``repro_torch.serve.LMServer`` serves qwen2-7b (28
      layers, d 3,584, 28/4 heads x 128, d_ff 18,944, vocab 152,064) in
      f32, the same model again in bf16 (15.2 GB; ``compute_dtype=torch.
@@ -240,8 +278,8 @@ before the path and reads the counters just after it:
      cases, and ``rag_d3584``, its case at the RAG width; both kernels of
      the engine, durable and RAG paths add ``launches_by_path``;
      ``gather_norm_dot``'s ``launches`` are the device-build phase's plus
-     the durable phase's, and its entry adds the durable phase's numbers
-     under ``durable``.
+     the durable and cluster phases', and its entry adds those phases'
+     numbers under ``durable`` and ``cluster``.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
 at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
@@ -278,6 +316,11 @@ RAG_ARCH_RUN = "qwen2-7b-bf16"  # the LM run the RAG phase rides on
 RAG_DOCS = 4096  # corpus documents (64 seeded tokens each)
 RAG_INGEST = 512
 RAG_QUERIES = 256
+CLUSTER_INGEST = 1024  # cluster leg (a): rows acked through the primary
+CLUSTER_BATCH = 128  # rows an ack (both legs)
+CLUSTER_OUTSTANDING = 64  # queries in flight at the kill and the restart
+SIGKILL_BATCHES = 6  # cluster leg (b): the child's batches
+SIGKILL_ACKED = 4  # ... it SIGKILLs itself after this many acks
 LM_PROMPTS = (512, 1000, 2048)  # prompt lengths of the LM serve batches
 LM_BATCH = 8
 LM_DECODE = 32
@@ -1186,6 +1229,570 @@ def phase_durable(out: dict) -> dict:
             "engine_rows_per_s": 1024 / (t_done - t_ing),
             "recover_s": rec_s, "materialize_s": mat_s,
             "replay_rows_per_s": 1280 / replay_s}
+
+
+# leg (b)'s primary: a process of its own that imports only the port,
+# opens a copy of the cluster's first checkpoint on the card, streams it
+# to the replica in this process, ingests and SIGKILLs itself
+SIGKILL_CHILD = """
+import os, signal, time
+t0 = time.perf_counter()
+from repro_torch.core.datasets import make_attrs, make_vectors
+from repro_torch.persist import open_durable
+from repro_torch.persist.replicate import (
+    MSG_ACK, PrimaryReplicator, SocketEndpoint, decode_msg)
+
+class Primary(PrimaryReplicator):
+    acks = 0
+
+    def _on_msg(self, src, data, now):
+        if decode_msg(data)[0] == MSG_ACK:
+            self.acks += 1
+        super()._on_msg(src, data, now)
+
+idx = open_durable({root!r}, device="cuda")
+ep = SocketEndpoint("P")
+ep.connect("R", ({host!r}, {port}))
+prim = Primary(idx, {root!r}, ep, node_id="P", quorum=2, idle_s=0.0005)
+wal = prim.attach()
+print("READY", time.perf_counter() - t0, flush=True)
+while prim.acks == 0:  # the replica acks once its bootstrap is served
+    prim.pump()
+sync, sync_ms = wal.sync, []
+
+def timed_sync():
+    t = time.perf_counter()
+    sync()
+    sync_ms.append((time.perf_counter() - t) * 1e3)
+
+wal.sync = timed_sync
+vecs = make_vectors({rows}, idx.store.dim, seed=500)
+attrs = make_attrs(vecs, seed=500) + {top!r}
+b = {batch}
+for i in range({batches}):
+    t = time.perf_counter()
+    idx.insert_batch(vecs[b * i:b * (i + 1)], attrs[b * i:b * (i + 1)],
+                     batch_size=b, backend="device")
+    print("ACK", i, idx._applied_lsn, sync_ms[-1],
+          (time.perf_counter() - t) * 1e3, flush=True)
+    if i == {acked} - 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+"""
+
+
+def _pct(xs, qs=(50, 95, 99)) -> list:
+    import numpy as np
+
+    return [float(v) for v in np.percentile(xs, qs)]
+
+
+def phase_cluster(out: dict) -> dict:
+    """Replication and the serving cluster on the phase-3 index after the
+    durable phase (see the module docstring, phase 5d)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from repro_torch.persist import checkpoint as ckpt_mod
+
+    timed = []  # (seconds) of every materialize in the phase, in order
+    materialize = ckpt_mod.materialize
+
+    def timed_materialize(state, device=None):
+        t0 = time.perf_counter()
+        ix = materialize(state, device=device)
+        timed.append(time.perf_counter() - t0)
+        return ix
+
+    base = tempfile.mkdtemp(prefix="wow-cluster-")
+    ckpt_mod.materialize = timed_materialize
+    try:
+        a = _cluster_leg_a(out, base, timed)
+        gc.collect()
+        b = _cluster_leg_b(out, base, timed, a)
+        gc.collect()
+    finally:
+        ckpt_mod.materialize = materialize
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    a.pop("top")
+    launches = {**a.pop("launches"), **b.pop("launches")}
+    total = sum(c["gather_norm_dot"] for c in launches.values())
+    return {"launches": {"gather_norm_dot": total, "batched_dot": sum(
+        c["batched_dot"] for c in launches.values())},
+        "by_step": launches, "a": a, "b": b}
+
+
+def _step_counts() -> dict:
+    """This step's wrapper launches, and the kernel launches its replayed
+    hop graphs ran (``replayed_*``)."""
+    from repro_torch.core.device_search import KERNEL_REPLAYS
+
+    c = read_counts()
+    c.update({f"replayed_{k}": v for k, v in KERNEL_REPLAYS.items()})
+    return c
+
+
+def _cluster_leg_a(out: dict, base: str, timed: list) -> dict:
+    """Three members in one process: bootstrap, quorum-durable ingest,
+    warm-up and a burst, an unplanned failover, ingest under the new
+    epoch, the deposed primary's rejoin and a rolling restart."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core import recall
+    from repro_torch.core.datasets import make_attrs, make_vectors
+    from repro_torch.core.device_search import GRAPH_CAPTURES, search_batch
+    from repro_torch.core.snapshot import take_snapshot
+    from repro_torch.persist import (
+        InProcTransport, recover, save, state_digest, wal_dir,
+    )
+    from repro_torch.persist import wal as walmod
+    from repro_torch.persist.replicate import MSG_CKPT_CHUNK, decode_msg
+    from repro_torch.serve import Cluster
+    from repro_torch.serve.lifecycle import EngineConfig, Rejected
+
+    class Wire(InProcTransport):
+        """In-process queues that count the checkpoint chunks and their
+        bytes sent to each member."""
+
+        def __init__(self):
+            super().__init__()
+            self.chunks, self.chunk_bytes = {}, {}
+
+        def send(self, src, dst, data):
+            kind, _, payload = decode_msg(data)
+            if kind == MSG_CKPT_CHUNK:
+                self.chunks[dst] = self.chunks.get(dst, 0) + 1
+                self.chunk_bytes[dst] = (self.chunk_bytes.get(dst, 0)
+                                         + len(payload))
+            return super().send(src, dst, data)
+
+    idx, wl = out["index"], out["workload"]
+    n0, d = idx.store.n, idx.store.dim
+    nq = len(wl.queries)
+    launches = {}
+    roots = [os.path.join(base, f"n{i}") for i in range(3)]
+    t0 = time.perf_counter()
+    save(idx, roots[0], incremental=False)
+    save_s = time.perf_counter() - t0
+    # leg (b)'s primary starts from a copy of this checkpoint (epoch 0)
+    shutil.copytree(roots[0], os.path.join(base, "sigkill-primary"))
+
+    # (1) three members; the replicas stream the primary's checkpoint
+    cfg = EngineConfig(k=10, width=64, max_wave=64, backend="cuda",
+                       build_backend="device", adaptive=False)
+    wire = Wire()
+    reset_counts()
+    t0 = time.perf_counter()
+    c = Cluster(roots, config=cfg, transport=wire, device="cuda")
+    open_s = time.perf_counter() - t0
+    if c.quorum != 2:
+        fail(f"cluster (1): quorum {c.quorum}, not the majority 2")
+    prim = c.members["n0"].replicator
+    mat0 = len(timed)
+    t0 = time.perf_counter()
+    prim.pump()  # serves both replicas' HELLOs: every chunk is queued
+    stream_s = time.perf_counter() - t0
+    boot = {}
+    for nid in ("n1", "n2"):
+        rep = c.members[nid].replicator
+        t0 = time.perf_counter()
+        for _ in range(100):
+            if rep.index is not None:
+                break
+            rep.pump()
+        torch.cuda.synchronize()
+        if rep.index is None:
+            fail(f"cluster (1): {nid} never finished its bootstrap")
+        s = stream_s + time.perf_counter() - t0
+        mb = wire.chunk_bytes.get(nid, 0) / 1e6
+        mat = timed[mat0 + len(boot)]
+        boot[nid] = {"s": s, "mb": mb, "mb_per_s": mb / (s - mat),
+                     "chunks": wire.chunks.get(nid, 0), "materialize_s": mat}
+    c.step()  # the primary takes the acks; every replica gets its engine
+    launches["bootstrap"] = _step_counts()
+    want = state_digest(idx)
+    digests = {nid: state_digest(m.replicator.index)
+               for nid, m in c.members.items()}
+    if set(digests.values()) != {want}:
+        fail(f"cluster (1): digests after bootstrap {digests} != the "
+             f"phase-3 index's {want}")
+    print(f"ok cluster (1) three members on the card: full checkpoint of "
+          f"n = {n0} in {save_s:.3f} s, primary opened (recover) in "
+          f"{open_s:.2f} s, its stream framed in {stream_s:.3f} s; "
+          + "; ".join(f"{nid} bootstrap {b['s']:.2f} s, {b['mb']:.1f} MB "
+                      f"in {b['chunks']} chunks at {b['mb_per_s']:.1f} "
+                      f"MB/s, materialize {b['materialize_s']:.2f} s"
+                      for nid, b in boot.items())
+          + f"; digests all {want[:16]}")
+
+    # (2) 1,024 rows in 8 quorum-durable acks of 128, stepping between
+    top = float(np.max(idx.store.attrs[:n0])) + 1.0
+    rows = CLUSTER_INGEST + CLUSTER_BATCH
+    vecs = make_vectors(rows, d, seed=400)
+    attrs = (make_attrs(vecs, seed=400) + top).astype(np.float32).astype(
+        np.float64)
+    batches = [(vecs[s:s + CLUSTER_BATCH], attrs[s:s + CLUSTER_BATCH])
+               for s in range(0, rows, CLUSTER_BATCH)]
+    reset_counts()
+    caps = GRAPH_CAPTURES["chunks"]
+    ack_ms, acks = [], []
+    t_ing = time.perf_counter()
+    for vs, as_ in batches[:-1]:
+        t0 = time.perf_counter()
+        acks.append(c.submit_ingest(vs, as_).lsn)
+        ack_ms.append((time.perf_counter() - t0) * 1e3)
+        c.step()
+    c.drain()
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t_ing
+    launches["ingest"] = _step_counts()
+    ingest_caps = GRAPH_CAPTURES["chunks"] - caps
+    acked = acks[-1]
+    if acks != list(range(1, len(batches))):
+        fail(f"cluster (2): acked LSNs {acks}")
+    lag = {}
+    for nid in ("n1", "n2"):
+        rep = c.members[nid].replicator
+        recs = walmod.read_log(wal_dir(c.members[nid].root))
+        lag[nid] = rep.lag()
+        if rep.durable_lsn < acked or not recs or recs[-1][0] != acked:
+            fail(f"cluster (2): {nid} durable through {rep.durable_lsn}, "
+                 f"its log ends at {recs[-1][0] if recs else None}, the "
+                 f"last ack was {acked}")
+    digests = {nid: state_digest(m.replicator.index)
+               for nid, m in c.members.items()}
+    if len(set(digests.values())) != 1:
+        fail(f"cluster (2): digests differ after the ingest: {digests}")
+    if launches["ingest"]["gather_norm_dot"] <= 0:
+        fail("cluster (2): the replicated applies never launched "
+             "gather_norm_dot")
+    a50, a99 = _pct(ack_ms, (50, 99))
+    print(f"ok cluster (2) {CLUSTER_INGEST} rows in {len(acks)} quorum-"
+          f"durable acks of {CLUSTER_BATCH}: ack p50 {a50:.1f} ms p99 "
+          f"{a99:.1f} ms, {CLUSTER_INGEST / (sum(ack_ms) / 1e3):.1f} rows/s "
+          f"to quorum-durable ({CLUSTER_INGEST / ingest_s:.1f} rows/s "
+          f"applied on every member, {ingest_s:.2f} s), lag after drain "
+          f"{lag}, {ingest_caps} graph captures during the ingest; logs "
+          f"end at {acked}; digests all {digests['n0'][:16]}; launches "
+          f"{launches['ingest']}")
+
+    # (3) warm-up, then the 256 queries routed across the members
+    t0 = time.perf_counter()
+    c.warmup()
+    warm_s = time.perf_counter() - t0
+    caps = GRAPH_CAPTURES["chunks"]
+    reset_counts()
+    crid_qi = {}
+    t0 = time.perf_counter()
+    for i in range(nq):
+        t = c.submit(wl.queries[i], wl.ranges[i])
+        if isinstance(t, Rejected):
+            fail(f"cluster (3): query {i} rejected")
+        crid_qi[t.crid] = i
+    replies = c.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["serve"] = _step_counts()
+    serve_caps = GRAPH_CAPTURES["chunks"] - caps
+    snap = take_snapshot(c.members["n0"].replicator.index)
+    ref = search_batch(snap, wl.queries, wl.ranges, k=10, width=64,
+                       backend="cuda", device="cuda")
+    if sorted(r.crid for r in replies) != sorted(crid_qi):
+        fail(f"cluster (3): {len(replies)} replies for {nq} queries")
+    by_node, recs, lat, degraded = {}, [], [], 0
+    for r in replies:
+        i = crid_qi[r.crid]
+        want_ids = np.where(ref.ids[i] >= 0,
+                            snap.ids_map[np.clip(ref.ids[i], 0, None)], -1)
+        if not (np.array_equal(r.reply.ids, want_ids)
+                and np.array_equal(r.reply.dists, ref.dists[i])
+                and (r.reply.hops, r.reply.dc) == (ref.hops[i],
+                                                   ref.dc[i])):
+            fail(f"cluster (3): query {i}'s reply from {r.node} differs "
+                 f"from search_batch through the kernel")
+        by_node[r.node] = by_node.get(r.node, 0) + 1
+        recs.append(recall(r.reply.ids[r.reply.ids >= 0], wl.gt[i]))
+        lat.append(r.reply.latency_s * 1e3)
+        degraded += int(r.reply.degraded)
+    rec = float(np.mean(recs))
+    if serve_caps:
+        fail(f"cluster (3): {serve_caps} graph captures after warm-up")
+    if rec < 0.90:
+        fail(f"cluster (3): recall@10 {rec:.4f} < 0.90")
+    if launches["serve"]["gather_norm_dot"] \
+            + launches["serve"]["replayed_gather_norm_dot"] <= 0:
+        fail("cluster (3): gather_norm_dot neither launched nor replayed")
+    l50, l95, l99 = _pct(lat)
+    qps = nq / wall
+    print(f"ok cluster (3) warm-up {warm_s:.2f} s; {nq} queries in "
+          f"{wall * 1e3:.1f} ms, {qps:.1f} QPS, latency p50 {l50:.1f} p95 "
+          f"{l95:.1f} p99 {l99:.1f} ms, replies by member {by_node}, "
+          f"degraded {degraded}, captures after warm-up {serve_caps}, "
+          f"recall@10 {rec:.4f}; every reply bitwise search_batch through "
+          f"the kernel; launches {launches['serve']}")
+
+    # (4) an unplanned failover with 64 queries in flight
+    reset_counts()
+    crids = set()
+    for i in range(CLUSTER_OUTSTANDING):
+        crids.add(c.submit(wl.queries[i], wl.ranges[i]).crid)
+    # one live turn first: the replicas hear a heartbeat, so the timeout
+    # counts from the kill, as in a cluster that was serving all along
+    got = [r.crid for r in c.step()]
+    in_flight = len(crids) - len(got)
+    t_kill = time.monotonic()
+    c.kill("n0")
+    while time.monotonic() - t_kill < 60.0:
+        got.extend(r.crid for r in c.step())
+        if c.failovers and set(got) >= crids:
+            break
+    torch.cuda.synchronize()
+    failover_s = time.monotonic() - t_kill
+    launches["failover"] = _step_counts()
+    if sorted(got) != sorted(crids):
+        fail(f"cluster (4): {len(got)} replies ({len(set(got))} distinct) "
+             f"for {len(crids)} queries in flight")
+    if [f["planned"] for f in c.failovers] != [False]:
+        fail(f"cluster (4): failovers {c.failovers}")
+    new = c.members[c.primary_id]
+    promo_s = c.failovers[0]["t"] - t_kill
+    promo_lsn = new.replicator.epoch_base
+    epoch = new.replicator.epoch
+    if epoch != 1 or walmod.log_epoch(wal_dir(new.root)) != 1:
+        fail(f"cluster (4): epoch {epoch}, on disk "
+             f"{walmod.log_epoch(wal_dir(new.root))}")
+    if new.replicator._last_lsn < acked:
+        fail(f"cluster (4): the new primary ends at "
+             f"{new.replicator._last_lsn} < the last ack {acked}")
+    reset_counts()
+    t0 = time.perf_counter()
+    deposed = recover(roots[0], upto_lsn=promo_lsn, device="cuda")
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    launches["recover_deposed"] = _step_counts()
+    d_new = state_digest(new.replicator.index)
+    if state_digest(deposed) != d_new:
+        fail("cluster (4): the promoted index differs from the deposed "
+             "primary's disk at the promotion LSN")
+    del deposed
+    print(f"ok cluster (4) kill n0 with {in_flight} of {len(crids)} "
+          f"queries in flight: "
+          f"promoted {c.primary_id} to epoch {epoch} {promo_s:.3f} s after "
+          f"the kill (heartbeat timeout {c.heartbeat_timeout_s} s) at LSN "
+          f"{promo_lsn}; all {len(crids)} answered once in "
+          f"{failover_s:.3f} s; digest {d_new[:16]} = recover(n0's disk, "
+          f"upto_lsn={promo_lsn}) ({rec_s:.2f} s); launches "
+          f"{launches['failover']}")
+
+    # (5) ingest under the new epoch, the deposed primary rejoins, then
+    # every member restarts with 64 queries outstanding
+    reset_counts()
+    t0 = time.perf_counter()
+    post = c.submit_ingest(*batches[-1]).lsn
+    post_ms = (time.perf_counter() - t0) * 1e3
+    if post != acked + 1:
+        fail(f"cluster (5): the first ack of epoch 1 is LSN {post}, not "
+             f"{acked + 1}")
+    c.drain()
+    t0 = time.perf_counter()
+    c.restart("n0")
+    for _ in range(100_000):
+        rep = c.members["n0"].replicator
+        if rep.caught_up() and rep.durable_lsn == post:
+            break
+        c.step()
+    torch.cuda.synchronize()
+    rejoin_s = time.perf_counter() - t0
+    crids = set()
+    for i in range(CLUSTER_OUTSTANDING):
+        crids.add(c.submit(wl.queries[i], wl.ranges[i]).crid)
+    t0 = time.perf_counter()
+    res = c.rolling_restart()
+    roll_s = time.perf_counter() - t0
+    got = [r.crid for r in res["replies"]] + [r.crid for r in c.drain()]
+    torch.cuda.synchronize()
+    launches["rolling"] = _step_counts()
+    kinds = [w for w, _ in res["events"]]
+    if sorted(got) != sorted(crids):
+        fail(f"cluster (5): {len(got)} replies ({len(set(got))} distinct) "
+             f"for {len(crids)} queries outstanding")
+    if kinds.count("restarted") != 3 or kinds.count("handover") != 1 \
+            or [f["planned"] for f in c.failovers] != [False, True]:
+        fail(f"cluster (5): events {res['events']}, failovers "
+             f"{c.failovers}")
+    if not all(m.admitted and m.role != "down" for m in c.members.values()):
+        fail("cluster (5): a member is not back")
+    digests = {nid: state_digest(m.replicator.index)
+               for nid, m in c.members.items()}
+    if len(set(digests.values())) != 1:
+        fail(f"cluster (5): digests differ after the restart: {digests}")
+    print(f"ok cluster (5) ack of epoch 1 at LSN {post} in {post_ms:.1f} "
+          f"ms; n0 rejoined (recover + catch-up) in {rejoin_s:.2f} s; "
+          f"rolling restart {roll_s:.2f} s: {res['events']}; "
+          f"{len(crids)} queries answered once; primary {c.primary_id} "
+          f"epoch {c.members[c.primary_id].replicator.epoch}; digests all "
+          f"{digests['n0'][:16]}; launches {launches['rolling']}")
+    for nid, m in c.members.items():
+        if m.role != "down":
+            c.kill(nid)
+    return {"launches": launches, "save_s": save_s, "open_s": open_s,
+            "stream_s": stream_s, "bootstrap": boot,
+            "ack_ms": {"p50": a50, "p99": a99},
+            "quorum_rows_per_s": CLUSTER_INGEST / (sum(ack_ms) / 1e3),
+            "applied_rows_per_s": CLUSTER_INGEST / ingest_s,
+            "ingest_captures": ingest_caps, "warmup_s": warm_s, "qps": qps,
+            "latency_ms": {"p50": l50, "p95": l95, "p99": l99},
+            "by_node": by_node, "recall": rec, "promotion_s": promo_s,
+            "failover_s": failover_s, "promotion_lsn": promo_lsn,
+            "recover_deposed_s": rec_s, "rejoin_s": rejoin_s,
+            "rolling_restart_s": roll_s, "events": res["events"],
+            "top": float(np.max(attrs)) + 1.0}
+
+
+def _cluster_leg_b(out: dict, base: str, timed: list, a: dict) -> dict:
+    """A primary in a process of its own, over localhost TCP, SIGKILLed
+    after its 4th ack; the replica here promotes itself and serves."""
+    import signal
+
+    import numpy as np
+
+    from repro_torch.core.device_search import search_batch
+    from repro_torch.core.snapshot import take_snapshot
+    from repro_torch.persist import (
+        ReplicaReplicator, SocketEndpoint, recover, state_digest, wal_dir,
+    )
+    from repro_torch.persist import wal as walmod
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.lifecycle import EngineConfig
+
+    wl = out["workload"]
+    nq = len(wl.queries)
+    launches = {}
+    proot = os.path.join(base, "sigkill-primary")
+    ep = SocketEndpoint("R")
+    host, port = ep.addr
+    rep = ReplicaReplicator(os.path.join(base, "sigkill-replica"), ep, "R",
+                            device="cuda")
+    rep.start()
+    child = SIGKILL_CHILD.format(
+        root=proot, host=host, port=port, top=a["top"],
+        rows=SIGKILL_BATCHES * CLUSTER_BATCH, batch=CLUSTER_BATCH,
+        batches=SIGKILL_BATCHES, acked=SIGKILL_ACKED)
+    free, total = torch.cuda.mem_get_info()
+    print(f"cluster (b): device memory before the child: "
+          f"{free / 2**30:.2f} GiB free of {total / 2**30:.2f} GiB, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated here")
+    reset_counts()
+    mat0 = len(timed)
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    logs = [os.path.join(base, f"child.{s}") for s in ("out", "err")]
+    man = t_meta = t_ready = None
+    # the child's output goes to files: a full pipe would block it
+    with open(logs[0], "w") as fo, open(logs[1], "w") as fe:
+        t_spawn = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", child], stdout=fo,
+                                stderr=fe, env=env)
+        try:
+            while proc.poll() is None and \
+                    time.perf_counter() - t_spawn < 400:
+                rep.pump()
+                if t_meta is None and rep._boot is not None:
+                    t_meta, man = time.perf_counter(), rep._boot["man"]
+                if t_ready is None and rep.index is not None:
+                    t_ready = time.perf_counter()
+                time.sleep(0.001)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+    t_dead = time.perf_counter()
+    with open(logs[0]) as f:
+        stdout = f.read()
+    with open(logs[1]) as f:
+        stderr = f.read()
+    if proc.returncode != -signal.SIGKILL:
+        fail(f"cluster (b): the child ended with {proc.returncode}, not "
+             f"SIGKILL:\n{stdout}\n{stderr[-4000:]}")
+    lines = [ln.split() for ln in stdout.splitlines()]
+    ack_lines = [ln for ln in lines if ln and ln[0] == "ACK"]
+    if len(ack_lines) != SIGKILL_ACKED:
+        fail(f"cluster (b): {len(ack_lines)} acks, not {SIGKILL_ACKED}:\n"
+             f"{stdout}")
+    ready_s = next(float(ln[1]) for ln in lines if ln and ln[0] == "READY")
+    acked_lsn = int(ack_lines[-1][2])
+    for _ in range(200):  # what is still in the socket buffers
+        rep.pump()
+        time.sleep(0.001)
+    launches["sigkill_replica"] = _step_counts()
+    if rep.index is None or rep.durable_lsn < acked_lsn:
+        fail(f"cluster (b): the replica is durable through "
+             f"{rep.durable_lsn}, the child acked {acked_lsn}")
+    if launches["sigkill_replica"]["gather_norm_dot"] <= 0:
+        fail("cluster (b): the replica's applies never launched "
+             "gather_norm_dot")
+    time.sleep(rep.heartbeat_timeout_s + 0.1)
+    if rep.primary_alive():
+        fail("cluster (b): the dead primary still counts as alive")
+    epoch = rep.promote()
+    t_promoted = time.perf_counter()
+    if epoch != 1 or walmod.log_epoch(wal_dir(rep.root)) != 1:
+        fail(f"cluster (b): promoted to epoch {epoch}")
+    reset_counts()
+    t0 = time.perf_counter()
+    disk = recover(proot, upto_lsn=rep.index._applied_lsn, device="cuda")
+    rec_s = time.perf_counter() - t0
+    if state_digest(disk) != state_digest(rep.index):
+        fail("cluster (b): the promoted replica differs from the dead "
+             "primary's disk at the promotion LSN")
+    del disk
+    eng = ServeEngine(index=rep.index, device="cuda", config=EngineConfig(
+        k=10, width=64, max_wave=64, backend="cuda", adaptive=False))
+    tickets = [eng.submit(wl.queries[i], wl.ranges[i]) for i in range(nq)]
+    replies = {r.rid: r for r in eng.drain()}
+    launches["sigkill_serve"] = _step_counts()
+    snap = take_snapshot(rep.index)
+    ref = search_batch(snap, wl.queries, wl.ranges, k=10, width=64,
+                       backend="cuda", device="cuda")
+    for i, t in enumerate(tickets):
+        r = replies[t.rid]
+        want = np.where(ref.ids[i] >= 0,
+                        snap.ids_map[np.clip(ref.ids[i], 0, None)], -1)
+        if not (np.array_equal(r.ids, want)
+                and np.array_equal(r.dists, ref.dists[i])
+                and (r.hops, r.dc) == (ref.hops[i], ref.dc[i])):
+            fail(f"cluster (b): the promoted replica's reply {i} differs "
+                 f"from search_batch through the kernel")
+    if launches["sigkill_serve"]["gather_norm_dot"] \
+            + launches["sigkill_serve"]["replayed_gather_norm_dot"] <= 0:
+        fail("cluster (b): serving never launched gather_norm_dot")
+    boot_mb = sum(e["nbytes"] for e in man["sections"].values()) / 1e6
+    mat = timed[mat0] if len(timed) > mat0 else 0.0
+    boot_s = t_ready - t_meta
+    ack50 = _pct([float(ln[3]) for ln in ack_lines], (50,))[0]
+    rep.wal.close()
+    ep.close()
+    print(f"ok cluster (b) SIGKILLed primary over TCP: child ready "
+          f"(imports, open_durable on the card) {ready_s:.2f} s; bootstrap "
+          f"{boot_mb:.1f} MB in {boot_s:.2f} s (materialize {mat:.2f} s, "
+          f"stream {boot_mb / (boot_s - mat):.1f} MB/s); "
+          f"{SIGKILL_ACKED} acks, quorum wait p50 {ack50:.1f} ms (whole "
+          f"insert_batch p50 "
+          f"{_pct([float(ln[4]) for ln in ack_lines], (50,))[0]:.1f} ms); "
+          f"replica durable through {rep.durable_lsn}; kill -> promotion "
+          f"{t_promoted - t_dead:.2f} s (heartbeat timeout "
+          f"{rep.heartbeat_timeout_s} s) to epoch {epoch}; digest = "
+          f"recover(the child's disk, upto_lsn={rep.index._applied_lsn}) "
+          f"({rec_s:.2f} s); {nq} replies bitwise search_batch through "
+          f"the kernel; launches {launches}")
+    return {"launches": launches, "child_ready_s": ready_s,
+            "bootstrap_s": boot_s, "bootstrap_mb": boot_mb,
+            "bootstrap_mb_per_s": boot_mb / (boot_s - mat),
+            "ack_ms_p50": ack50, "kill_to_promotion_s": t_promoted - t_dead,
+            "recover_s": rec_s,
+            "free_gib_before_child": free / 2**30}
 
 
 def phase_rag(cfg, params, kw: dict) -> dict:
@@ -2112,6 +2719,8 @@ def main() -> int:
     traced = lap("trace", phase_trace, device["out"])
     engine = lap("engine", phase_engine, device["out"])
     durable = lap("durable", phase_durable, device["out"])
+    cluster = lap("cluster", phase_cluster, device["out"])
+    print(f"cluster phase {laps['cluster']} s")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions'
     torch.backends.cudnn.allow_tf32 = False  # einsums stay full f32
     lm = {run: lap(run, phase_lm, run) for run in LM_MODELS}
@@ -2137,7 +2746,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_norm_dot.cu",
          "replaces": "src/repro/kernels/gather_distance.py:123",
          "launches": device["launches"]["gather_norm_dot"]
-         + durable["launches"]["gather_norm_dot"],
+         + durable["launches"]["gather_norm_dot"]
+         + cluster["launches"]["gather_norm_dot"],
          "executions": device["executions"]["gather_norm_dot"],
          "traced": traced["serve_fused_compact"],
          "max_abs_err": gnd["max_abs_err"],
@@ -2156,9 +2766,16 @@ def main() -> int:
              "durable_by_step": {k: c["gather_norm_dot"] for k, c in
                                  durable["by_step"].items()},
              "rag_durable": lm[RAG_ARCH_RUN]["rag"]["durable"]["launches"][
-                 "gather_norm_dot"]},
+                 "gather_norm_dot"],
+             "cluster": cluster["launches"]["gather_norm_dot"],
+             "cluster_by_step": {
+                 k: {"launches": c["gather_norm_dot"],
+                     "replayed": c["replayed_gather_norm_dot"]}
+                 for k, c in cluster["by_step"].items()}},
          "durable": {k: v for k, v in durable.items()
                      if k not in ("launches", "by_step")},
+         "cluster": {**cluster["a"], **{f"sigkill_{k}": v
+                                        for k, v in cluster["b"].items()}},
          "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
         {"name": "batched_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/batched_dot.cu",

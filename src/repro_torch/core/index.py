@@ -155,8 +155,8 @@ class WoWIndex:
         self._wal_replaying = False
         self._applied_lsn = 0
         # replication fencing epoch/term, stamped into WAL segment headers
-        # and checkpoint manifests (0 until replication is ported: ROADMAP
-        # A6b; carried so either package's logs and checkpoints round-trip)
+        # and checkpoint manifests; raised by a replica's promotion
+        # (repro_torch.persist.replicate.ReplicaReplicator.promote)
         self._epoch = 0
         # rows the last recovery re-applied from the log, counted once by
         # the first serve engine over this index (stats.ingest_replayed)

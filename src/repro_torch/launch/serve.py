@@ -11,6 +11,8 @@ engine (``--engine``, ``repro_torch.serve.lifecycle``).
     PYTHONPATH=src python -m repro_torch.launch.serve --engine --rate 500 \\
         --deadline-ms 50 --ingest 400
     PYTHONPATH=src python -m repro_torch.launch.serve --index-dir /tmp/wow
+    PYTHONPATH=src python -m repro_torch.launch.serve --cluster 3 \\
+        --build-backend device --n 4000 --queries 256
 
 ``--vec-dtype``, ``--pipeline``, ``--visited``, ``--compact`` and
 ``--backend`` each take one or more values; every combination is served
@@ -41,6 +43,16 @@ otherwise the index is built with every micro-batch logged, then
 checkpointed there.  After an ingest the index is checkpointed again
 (incrementally).  ``--compact-rows`` runs the tombstone compaction pass
 after the build, ``--compact-threshold`` sets the auto-compaction cadence.
+
+``--cluster N`` is replicated serving (``repro_torch.serve.cluster``), a
+mode of its own beside the one-shot runs and ``--engine``: N members
+(a primary and N-1 replicas, one durable root each under ``--index-dir``
+or a temporary directory) on ``--device``; the workload is ingested
+through the primary with quorum-durable acks (``--cluster-quorum``
+members, the primary included; 0 = a majority), the query stream is
+routed across the members, and every member is restarted one at a time a
+third of the way through it (``_serve_cluster``).  The run fails when a
+query vanishes without a reply.
 """
 from __future__ import annotations
 
@@ -146,6 +158,17 @@ def _parser() -> argparse.ArgumentParser:
                          "automatically once the tombstone fraction reaches "
                          "this value (checked at insert_batch and "
                          "checkpoint boundaries)")
+    ap.add_argument("--cluster", type=int, default=0,
+                    help="replicated serving: run N members (primary + N-1 "
+                         "replicas, WAL shipping + quorum-durable ingest "
+                         "acks), route the query stream across them, and "
+                         "demonstrate a zero-downtime rolling restart "
+                         "mid-stream (drain -> checkpoint -> restart -> "
+                         "catch-up -> readmit, one member at a time); "
+                         "roots live under --index-dir (or a temp dir)")
+    ap.add_argument("--cluster-quorum", type=int, default=0,
+                    help="with --cluster: members (primary included) that "
+                         "must fsync before an ingest ack (0 = majority)")
     ap.add_argument("--device", default=None,
                     help="torch device to build and serve on (default: "
                          "cuda)")
@@ -155,17 +178,21 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> dict:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.engine:
+    if args.cluster > 1 and args.engine:
+        ap.error("--cluster and --engine are one mode or the other: every "
+                 "cluster member already serves through its own engine")
+    if args.engine or args.cluster > 1:
+        mode = "--engine" if args.engine else "--cluster"
         many = [f"--{k.replace('_', '-')}" for k in
                 ("vec_dtype", "visited", "backend")
                 if len(getattr(args, k)) > 1]
         if many:
-            ap.error(f"--engine serves one configuration: one value of "
+            ap.error(f"{mode} serves one configuration: one value of "
                      f"{', '.join(many)}")
         if args.compact != ["none"]:
-            ap.error("--engine sets its own chunk schedule (no --compact)")
+            ap.error(f"{mode} sets its own chunk schedule (no --compact)")
         if args.pipeline != ["fused"]:
-            ap.error("--engine runs the fused pipeline")
+            ap.error(f"{mode} runs the fused pipeline")
     if "reference" in args.pipeline and set(args.vec_dtype) != {"f32"}:
         ap.error("--vec-dtype int8/bf16 requires --pipeline fused (the "
                  "reference pipeline has no fused-dequant gather)")
@@ -199,6 +226,8 @@ def main(argv: list[str] | None = None) -> dict:
 
     wl = make_workload(n=args.n, d=args.dim, nq=args.queries, seed=0,
                        k=args.k)
+    if args.cluster > 1:
+        return _serve_cluster(args, wl, dev)
     # one --vec-dtype builds at that storage mode, as the JAX launcher does
     build_dtype = args.vec_dtype[0] if len(args.vec_dtype) == 1 else "f32"
     idx = snap = cold = None
@@ -410,6 +439,115 @@ def main(argv: list[str] | None = None) -> dict:
             print(f"incremental checkpoint to {path} in "
                   f"{(time.time() - t0) * 1e3:.0f} ms")
     return out
+
+
+def _serve_cluster(args, wl, device) -> dict:
+    """Replicated serving: ingest the workload through the primary
+    (quorum-durable acks), serve the query stream across every member,
+    and run a zero-downtime rolling restart a third of the way through it.
+    The stream must complete with zero vanished queries (degraded is
+    fine); ``SystemExit`` otherwise.  Returns what it printed: the
+    replicas' lag after the ingest, recall, QPS, replies by member, the
+    rolling restart's events and seconds, the primary and its epoch."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from ..core import recall
+    from ..serve.cluster import Cluster
+    from ..serve.lifecycle import EngineConfig, Rejected
+
+    base = args.index_dir or tempfile.mkdtemp(prefix="wow-cluster-")
+    roots = [os.path.join(base, f"member{i}") for i in range(args.cluster)]
+    cfg = EngineConfig(
+        k=args.k, width=args.width, backend=args.backend[0],
+        visited=args.visited[0], visited_bits=args.visited_bits,
+        adaptive=args.adaptive_filter, max_wave=args.max_wave,
+        queue_cap=args.queue_cap,
+        default_timeout_s=(args.deadline_ms / 1e3
+                           if args.deadline_ms > 0 else None),
+        build_backend=args.build_backend,
+        vec_dtype=args.vec_dtype[0],
+    )
+    quorum = args.cluster_quorum or None
+    cluster = Cluster(
+        roots,
+        create=dict(dim=args.dim, m=args.m,
+                    ef_construction=args.ef_construction, o=args.o, seed=0),
+        config=cfg, quorum=quorum,
+        compact_threshold=args.compact_threshold, device=device)
+    t0 = time.time()
+    bs = max(args.build_batch or 128, 1)
+    for s in range(0, args.n, bs):
+        cluster.submit_ingest(wl.vectors[s:s + bs], wl.attrs[s:s + bs])
+        cluster.step()
+    cluster.drain()
+    lag = {nid: m.replicator.status().get("lag", 0)
+           for nid, m in cluster.members.items() if m.replicator is not None}
+    print(f"cluster of {args.cluster} (quorum {cluster.quorum}) on "
+          f"{cluster.device}: ingested {args.n} vectors in "
+          f"{time.time() - t0:.1f}s, every ack quorum-durable, lag={lag}")
+    cluster.warmup()
+
+    replies = []
+    rejected = 0
+    crid_to_qi: dict[int, int] = {}
+    restart_at = args.queries // 3
+    rolled = None
+    t0 = time.time()
+    for i in range(args.queries):
+        out = cluster.submit(wl.queries[i], wl.ranges[i])
+        if isinstance(out, Rejected):
+            rejected += 1
+        else:
+            crid_to_qi[out.crid] = i
+        replies.extend(cluster.step())
+        if i == restart_at:
+            # every member restarts mid-stream; routing and the engines'
+            # backpressure absorb it
+            t_roll = time.time()
+            res = cluster.rolling_restart()
+            replies.extend(res["replies"])
+            rolled = (res["events"], time.time() - t_roll)
+    replies.extend(cluster.drain())
+    wall = time.time() - t0
+
+    recs = []
+    by_node: dict[str, int] = {}
+    degraded = 0
+    for cr in replies:
+        qi = crid_to_qi.get(cr.crid)
+        if qi is None:
+            continue
+        got = np.asarray([j for j in cr.reply.ids if j >= 0])
+        recs.append(recall(got, wl.gt[qi]))
+        by_node[cr.node] = by_node.get(cr.node, 0) + 1
+        degraded += int(cr.reply.degraded)
+    if rolled is not None:
+        ev, t_roll = rolled
+        print(f"rolling restart mid-stream in {t_roll:.1f}s: "
+              + ", ".join(f"{what}:{nid}" for what, nid in ev))
+    rec = float(np.mean(recs)) if recs else 0.0
+    qps = len(recs) / max(wall, 1e-9)
+    print(f"served {len(recs)}/{args.queries} queries across "
+          f"{by_node} (rejected {rejected}, degraded {degraded}): "
+          f"recall@{args.k} = {rec:.4f}, {qps:.0f} QPS")
+    lost = args.queries - len(recs) - rejected
+    if lost:
+        raise SystemExit(f"{lost} queries vanished without a reply — the "
+                         f"zero-downtime contract is broken")
+    epoch = cluster.members[cluster.primary_id].replicator.epoch
+    print(f"zero-downtime contract held: every admitted query replied "
+          f"(primary now {cluster.primary_id}, epoch {epoch})")
+    return {
+        "device": str(cluster.device), "lag": lag, "recall": rec,
+        "qps": qps, "by_node": by_node, "rejected": rejected,
+        "degraded": degraded,
+        "rolling_restart": ({"events": rolled[0], "s": rolled[1]}
+                            if rolled is not None else None),
+        "primary": cluster.primary_id, "epoch": epoch,
+    }
 
 
 def _serve_engine(args, wl, idx, snap, device=None, ingest=None) -> dict:

@@ -1,9 +1,11 @@
 """Durable index lifecycle of the port (``repro.persist``'s counterpart):
 versioned checkpoints, the append-only write-ahead log, crash recovery,
-the serve-from-checkpoint cold start and a fault-injection harness.  The
-on-disk formats are those of ``PERSISTENCE.md``; a checkpoint or log
-written by either package loads in the other.  Replication
-(``repro.persist.replicate``) is not ported yet (ROADMAP A6b).
+the serve-from-checkpoint cold start, a fault-injection harness and
+replication (WAL shipping, quorum-durable acks, streamed bootstrap, epoch
+fencing).  The on-disk formats and the replication frames are those of
+``PERSISTENCE.md`` and ``repro.persist``; a checkpoint or log written by
+either package loads in the other, and a primary of either package feeds a
+replica of the other.
 """
 from .checkpoint import (
     assert_index_equal,
@@ -28,13 +30,26 @@ from .recovery import (
     recover,
     wal_dir,
 )
+from .replicate import (
+    FaultSchedule,
+    FaultTransport,
+    InProcEndpoint,
+    InProcTransport,
+    PrimaryReplicator,
+    QuorumTimeoutError,
+    ReplicaReplicator,
+    ReplicatedWal,
+    SocketEndpoint,
+)
 from .wal import StaleEpochError, WalCorruptError, WalWriter, log_epoch
 
 __all__ = [
-    "CorruptError", "CrashError", "EngineFaultPlan", "FaultIO", "OsIO",
-    "STREAM_CHUNK_BYTES", "StaleEpochError", "WalCorruptError", "WalWriter",
-    "assert_index_equal", "chunk_crcs", "flip_bit", "is_durable_dir",
-    "list_checkpoints", "load", "load_serving_snapshot", "log_epoch",
-    "open_durable", "recover", "save", "state_digest", "truncate_at",
-    "wal_dir",
+    "CorruptError", "CrashError", "EngineFaultPlan", "FaultIO",
+    "FaultSchedule", "FaultTransport", "InProcEndpoint", "InProcTransport",
+    "OsIO", "PrimaryReplicator", "QuorumTimeoutError", "ReplicaReplicator",
+    "ReplicatedWal", "STREAM_CHUNK_BYTES", "SocketEndpoint",
+    "StaleEpochError", "WalCorruptError", "WalWriter", "assert_index_equal",
+    "chunk_crcs", "flip_bit", "is_durable_dir", "list_checkpoints", "load",
+    "load_serving_snapshot", "log_epoch", "open_durable", "recover", "save",
+    "state_digest", "truncate_at", "wal_dir",
 ]

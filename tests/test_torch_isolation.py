@@ -30,6 +30,7 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.persist, repro_torch.persist.format\n"
         "import repro_torch.persist.checkpoint, repro_torch.persist.wal\n"
         "import repro_torch.persist.recovery\n"
+        "import repro_torch.persist.replicate, repro_torch.serve.cluster\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
