@@ -145,6 +145,41 @@ before the path and reads the counters just after it:
      through the kernel (the child's start-up seconds, bootstrap MB/s,
      ack p50, kill to promotion).  The kernel's launches are counted per
      step and must be > 0 where the path runs it;
+  5e. sharded — the sharded build and mesh serving
+     (``insert_batch(backend="sharded")``, ``repro_torch.core.
+     distributed``, ``repro_torch.parallel``), run after phase 7, the
+     last before the report: in the one run where a traced phase
+     followed its spawned ranks, the profiler lost kernel events of the
+     Jamba prefill (one of its four ``mamba_scan`` launches); whether the
+     ranks caused that is not known, so no traced phase follows them.
+     First the hop loop's query norms
+     (``device_search._row_sq``) at D in {128, 3,584}: every row's bits
+     at B = 1..300 equal its bits at B = 300, where torch's plain row
+     sum is also counted (on the card it splits a short row over more
+     threads below 16 rows).  The first N_SHARDED =
+     8,192 rows of phase 3's stream (d 128, m 16, ef_construction 64,
+     micro-batch 128, f32; a time cut: phase 3's 65,536 rows take ~250 s a
+     build) are built three ways on the card: ``backend="device"``,
+     ``"sharded"`` at ``shards=1`` in this process, and ``"sharded"`` on
+     SHARDED_RANKS = 2 ranks sharing the one card (processes spawned by
+     ``torch.multiprocessing``, joined by gloo over a ``FileStore``, each
+     importing only the port).  Checks: every build's neighbor arrays and
+     ``state_digest`` bitwise equal across the builds and on both ranks,
+     and the ranks' arenas hold the same bytes.  Prints each build's
+     rows/s, launches, replayed launches and graph captures, and per rank
+     its phase-1 seconds (the sharded searches, gathers included), its
+     gather ms and the rest of its build (the phase-2 commit and the
+     carry).  Then ``make_serving_fn`` (kernel, lock-step) on a 1 x 1
+     mesh over phase 3's index (its current snapshot, full size) with the
+     256 queries: with the adaptive hashed filter and with the bitmap,
+     each reply bitwise ``search_batch`` at the same filter, the hash
+     run's histogram that of ``search_batch``'s hops; and on a 2 x 1 mesh
+     over the two ranks (each serving the index it built): every rank's
+     gathered result and histogram equal to the 1 x 1 run on the device
+     build's index in this process.  Prints QPS and the p50 of 5 timed
+     waves of each.  ``gather_norm_dot`` must have launched in every path
+     and on every rank, ``batched_dot`` never; a rank that fails or hangs
+     fails the phase;
   6. LM serve — ``repro_torch.serve.LMServer`` serves qwen2-7b (28
      layers, d 3,584, 28/4 heads x 128, d_ff 18,944, vocab 152,064) in
      f32, the same model again in bf16 (15.2 GB; ``compute_dtype=torch.
@@ -278,8 +313,8 @@ before the path and reads the counters just after it:
      cases, and ``rag_d3584``, its case at the RAG width; both kernels of
      the engine, durable and RAG paths add ``launches_by_path``;
      ``gather_norm_dot``'s ``launches`` are the device-build phase's plus
-     the durable and cluster phases', and its entry adds those phases'
-     numbers under ``durable`` and ``cluster``.
+     the durable, cluster and sharded phases', and its entry adds those
+     phases' numbers under ``durable``, ``cluster`` and ``sharded``.
 
 N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
 at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
@@ -321,6 +356,9 @@ CLUSTER_BATCH = 128  # rows an ack (both legs)
 CLUSTER_OUTSTANDING = 64  # queries in flight at the kill and the restart
 SIGKILL_BATCHES = 6  # cluster leg (b): the child's batches
 SIGKILL_ACKED = 4  # ... it SIGKILLs itself after this many acks
+N_SHARDED = 8192  # phase 5e: rows of phase 3's stream built three ways
+SHARDED_RANKS = 2  # phase 5e: ranks on the one card
+SHARDED_KW = dict(m=16, ef_construction=64, o=4, seed=0)  # phase 3's
 LM_PROMPTS = (512, 1000, 2048)  # prompt lengths of the LM serve batches
 LM_BATCH = 8
 LM_DECODE = 32
@@ -1795,6 +1833,276 @@ def _cluster_leg_b(out: dict, base: str, timed: list, a: dict) -> dict:
             "free_gib_before_child": free / 2**30}
 
 
+def _graph_digest(idx) -> str:
+    """sha256 over an index's neighbor arrays and degree counts."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for arrs in (idx.graph.layers, idx.graph.counts):
+        for a in arrs:
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _arena_digest(arena) -> str:
+    """sha256 over the bytes of a build arena's device buffers."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (arena.vectors, arena.q_scales, arena.sq_norms, arena.attrs,
+              arena.neighbors):
+        if t is not None:
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                     .tobytes())
+    return h.hexdigest()
+
+
+def _timed_build(vectors, attrs, backend: str, **extra) -> tuple:
+    """One build of ``vectors`` on ``cuda:0`` in micro-batches of 128 (the
+    parameters of phase 3), with the counts set to 0 just before it and
+    read just after it -> (index, what it measured)."""
+    from repro_torch.core import WoWIndex
+    from repro_torch.core.device_search import GRAPH_CAPTURES, KERNEL_REPLAYS
+    from repro_torch.persist import state_digest
+
+    idx = WoWIndex(dim=vectors.shape[1], device="cuda:0", **SHARDED_KW)
+    reset_counts()
+    caps = GRAPH_CAPTURES["chunks"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx.insert_batch(vectors, attrs, batch_size=128, backend=backend,
+                     **extra)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    counts = read_counts()
+    st = idx._arena.stats
+    run = {"backend": backend, **extra, "s": s,
+           "rows_per_s": len(attrs) / s, "launches": counts,
+           "replayed": KERNEL_REPLAYS["gather_norm_dot"],
+           "captures": GRAPH_CAPTURES["chunks"] - caps,
+           "graph": _graph_digest(idx), "digest": state_digest(idx),
+           "arena": _arena_digest(idx._arena)}
+    if "search_s" in st:  # the sharded arena times its searches
+        run.update(phase1_s=st["search_s"], phase2_s=s - st["search_s"],
+                   gather_ms=st["gather_s"] * 1e3)
+    return idx, run
+
+
+def _mesh_waves(mesh, snap, queries, ranges, visited: str = "hash",
+                waves: int = 5) -> dict:
+    """``make_serving_fn`` on ``mesh`` through the kernel (lock-step; the
+    hashed filter sized adaptively): one checked wave with the counts set
+    to 0 just before it and read just after it, then ``waves`` timed
+    waves (p50 latency, QPS)."""
+    from repro_torch.core.distributed import make_serving_fn
+
+    fn = make_serving_fn(mesh, snap, k=10, width=64, backend="cuda",
+                         visited=visited,
+                         visited_adaptive=visited == "hash")
+    bits0 = fn.state["bits"]
+    reset_counts()
+    res = fn(queries, ranges)
+    counts = read_counts()
+    hist = fn.state["hist"].copy()
+    times = []
+    for _ in range(waves):
+        t0 = time.perf_counter()
+        fn(queries, ranges)  # host arrays back: the wave has finished
+        times.append(time.perf_counter() - t0)
+    p50 = statistics.median(times)
+    return {"result": tuple(res), "bits0": bits0, "hist": hist,
+            "launches": counts, "p50_ms": p50 * 1e3,
+            "qps": len(queries) / p50}
+
+
+def _sharded_rank(rank: int, world: int, store: str, vectors, attrs,
+                  queries, ranges, results) -> None:
+    """One rank of phase 5e's multi-rank run: a process of its own on
+    ``cuda:0`` (the one card), joined to the others by gloo over a
+    ``FileStore``; the sharded build of the phase's rows, then the
+    ``world`` x 1 mesh serving over the index it built.  Puts what it
+    measured on ``results``; a failure ends the process non-zero."""
+    import torch.distributed as dist
+
+    from repro_torch.core.snapshot import take_snapshot
+    from repro_torch.parallel import serving_mesh
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        idx, build = _timed_build(vectors, attrs, "sharded", shards=world)
+        mesh = serving_mesh(world, 1, device="cuda:0")
+        serve = _mesh_waves(mesh, take_snapshot(idx), queries, ranges)
+        results.put((rank, {"build": build, "serve": serve,
+                            "data": mesh.coord("data")}))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_sharded_ranks(vectors, attrs, queries, ranges) -> list:
+    """Run ``_sharded_rank`` on SHARDED_RANKS processes spawned with
+    ``torch.multiprocessing`` -> their results in rank order.  A rank that
+    fails, or hangs for 600 s, fails the phase."""
+    import queue
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    world = SHARDED_RANKS
+    base = tempfile.mkdtemp(prefix="wow-sharded-")
+    results = tmp.get_context("spawn").Queue()
+    ctx = tmp.start_processes(
+        _sharded_rank, nprocs=world, join=False, start_method="spawn",
+        args=(world, os.path.join(base, "store"), vectors, attrs, queries,
+              ranges, results))
+    got = {}
+    deadline = time.perf_counter() + 600
+    try:
+        while len(got) < world:
+            try:
+                rank, res = results.get(timeout=1.0)
+                got[rank] = res
+                continue
+            except queue.Empty:
+                pass
+            # join raises when a rank failed, and is True once all exited
+            if ctx.join(timeout=0.1) or time.perf_counter() > deadline:
+                fail(f"sharded: {world - len(got)} rank(s) ended or hung "
+                     f"without a result")
+        while not ctx.join(timeout=60):
+            pass
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        shutil.rmtree(base, ignore_errors=True)
+    return [got[r] for r in range(world)]
+
+
+def _row_sq_check() -> dict:
+    """How many batch sizes B in 1..300 give some row other bits than at
+    B = 300: torch's plain row sum and ``device_search._row_sq`` (which
+    must give none), at D 128 and 3,584."""
+    from repro_torch.core.device_search import _row_sq
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for D in (128, 3584):
+        x = torch.randn(300, D, device="cuda", generator=gen)
+        plain, rows = (x * x).sum(1), _row_sq(x)
+        out[D] = {
+            "plain": sum(not torch.equal((x[:b] * x[:b]).sum(1), plain[:b])
+                         for b in range(1, 301)),
+            "row_sq": sum(not torch.equal(_row_sq(x[:b]), rows[:b])
+                          for b in range(1, 301))}
+        print(f"sharded: query norms at D {D}: batch sizes of 1..300 whose "
+              f"rows differ from B = 300's: plain row sum {out[D]['plain']}, "
+              f"_row_sq {out[D]['row_sq']}")
+        if out[D]["row_sq"]:
+            fail(f"sharded: _row_sq depends on the batch size at D {D}")
+    return out
+
+
+def phase_sharded(out: dict) -> dict:
+    """The sharded build and mesh serving (phase 5e of the module
+    docstring): three builds of the first N_SHARDED rows of phase 3's
+    stream, 1 x 1 mesh serving over phase 3's index and SHARDED_RANKS x 1
+    over the ranks' own index."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.core.device_search import search_batch
+    from repro_torch.core.snapshot import take_snapshot
+    from repro_torch.parallel import serving_mesh
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks' contexts share the card
+    row_sq = _row_sq_check()
+    wl = out["workload"]
+    vec, att = wl.vectors[:N_SHARDED], wl.attrs[:N_SHARDED]
+    q, r = wl.queries, wl.ranges
+    dev_idx, dev = _timed_build(vec, att, "device")
+    _, one = _timed_build(vec, att, "sharded", shards=1)
+    small = _mesh_waves(serving_mesh(1, 1, device="cuda:0"),
+                        take_snapshot(dev_idx), q, r)
+    del dev_idx
+    ranks = _spawn_sharded_ranks(vec, att, q, r)
+    builds = {"device": dev, "sharded@1": one,
+              **{f"sharded@{SHARDED_RANKS} rank {i}": rk["build"]
+                 for i, rk in enumerate(ranks)}}
+    for tag, b in builds.items():
+        extra = (f", phase 1 {b['phase1_s']:.2f} s (its gathers "
+                 f"{b['gather_ms']:.1f} ms), the rest (phase 2 and the "
+                 f"carry) {b['phase2_s']:.2f} s" if "phase1_s" in b else "")
+        print(f"sharded: {tag} build of {N_SHARDED} rows: {b['s']:.2f} s, "
+              f"{b['rows_per_s']:.1f} rows/s, gather_norm_dot launches "
+              f"{b['launches']['gather_norm_dot']} + {b['replayed']} "
+              f"replayed, {b['captures']} graphs captured{extra}")
+        if b["launches"]["gather_norm_dot"] <= 0 or \
+                b["launches"]["batched_dot"]:
+            fail(f"sharded: {tag} build launches {b['launches']}")
+        if (b["graph"], b["digest"]) != (dev["graph"], dev["digest"]):
+            fail(f"sharded: the {tag} build's neighbor arrays or "
+                 f"state_digest differ from the device build's")
+    if len({rk["build"]["arena"] for rk in ranks}) != 1:
+        fail("sharded: the ranks' arenas hold different bytes")
+    print(f"ok sharded builds: device, sharded@1 and sharded@"
+          f"{SHARDED_RANKS} (every rank) bitwise equal (neighbor arrays, "
+          f"state_digest, the ranks' arena bytes)")
+
+    runs = {"1x1 (8,192-row index)": small,
+            **{f"{SHARDED_RANKS}x1 rank {i}": rk["serve"]
+               for i, rk in enumerate(ranks)}}
+    for i, rk in enumerate(ranks):
+        _same_replies(f"sharded: {SHARDED_RANKS} x 1 rank {i} vs 1 x 1",
+                     rk["serve"]["result"], small["result"])
+        if not np.array_equal(rk["serve"]["hist"], small["hist"]):
+            fail(f"sharded: rank {i}'s hop histogram differs from 1 x 1's")
+    snap = take_snapshot(out["index"])
+    for visited in ("hash", "bitmap"):
+        run = runs[f"1x1 {visited} (phase 3's index)"] = _mesh_waves(
+            serving_mesh(1, 1, device="cuda:0"), snap, q, r, visited)
+        exp = search_batch(snap, q, r, k=10, width=64, backend="cuda",
+                           visited=visited, visited_bits=run["bits0"],
+                           device="cuda:0")
+        _same_replies(f"sharded: 1 x 1 {visited} vs search_batch",
+                     run["result"], exp)
+        H = len(run["hist"]) - 1
+        if visited == "hash" and not np.array_equal(
+                run["hist"],
+                np.bincount(np.clip(exp.hops, 0, H), minlength=H + 1)):
+            fail("sharded: the 1 x 1 histogram differs from search_batch's "
+                 "hops")
+    for tag, run in runs.items():
+        print(f"sharded: serve {tag}: {run['qps']:.1f} QPS, p50 "
+              f"{run['p50_ms']:.1f} ms a wave of {len(q)}, launches "
+              f"{run['launches']}")
+        if run["launches"]["gather_norm_dot"] <= 0 or \
+                run["launches"]["batched_dot"]:
+            fail(f"sharded: serve {tag} launches {run['launches']}")
+    print(f"ok sharded serving: 1 x 1 over phase 3's index ({snap.n} rows) "
+          f"bitwise search_batch (hash with its histogram, bitmap); "
+          f"{SHARDED_RANKS} x 1 on every rank bitwise 1 x 1")
+    paths = {**{f"build {k}": b["launches"] for k, b in builds.items()},
+             **{f"serve {k}": s["launches"] for k, s in runs.items()}}
+    return {
+        "launches": {k: sum(c[k] for c in paths.values())
+                     for k in ("gather_norm_dot", "batched_dot")},
+        "by_path": {k: c["gather_norm_dot"] for k, c in paths.items()},
+        "rows_per_s": {k: b["rows_per_s"] for k, b in builds.items()},
+        "ranks": [{k: rk["build"][k] for k in ("phase1_s", "phase2_s",
+                                               "gather_ms", "captures")}
+                  for rk in ranks],
+        "serve": {k: {"qps": s["qps"], "p50_ms": s["p50_ms"]}
+                  for k, s in runs.items()},
+        "row_sq": row_sq,
+    }
+
+
 def phase_rag(cfg, params, kw: dict) -> dict:
     """The RAG pipeline at qwen2-7b's full width on the bf16 model's
     weights (see the module docstring, phase 6)."""
@@ -2730,6 +3038,9 @@ def main() -> int:
     fa = lap("kernels_flash", kernels_flash, gen)
     wk = lap("kernels_wkv6", kernels_wkv6, gen)
     mb = lap("kernels_mamba", kernels_mamba, gen)
+    # last: no traced phase may follow its spawned ranks (see phase 5e)
+    sharded = lap("sharded", phase_sharded, device["out"])
+    print(f"sharded phase {laps['sharded']} s")
     print(f"phase seconds: {laps}")
     g_main = next(c for c in gnd["cases"] if c["vec_dtype"] == "f32"
                   and c["B"] == 256 and c["K"] == 17)
@@ -2747,7 +3058,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/gather_distance.py:123",
          "launches": device["launches"]["gather_norm_dot"]
          + durable["launches"]["gather_norm_dot"]
-         + cluster["launches"]["gather_norm_dot"],
+         + cluster["launches"]["gather_norm_dot"]
+         + sharded["launches"]["gather_norm_dot"],
          "executions": device["executions"]["gather_norm_dot"],
          "traced": traced["serve_fused_compact"],
          "max_abs_err": gnd["max_abs_err"],
@@ -2771,11 +3083,15 @@ def main() -> int:
              "cluster_by_step": {
                  k: {"launches": c["gather_norm_dot"],
                      "replayed": c["replayed_gather_norm_dot"]}
-                 for k, c in cluster["by_step"].items()}},
+                 for k, c in cluster["by_step"].items()},
+             "sharded": sharded["launches"]["gather_norm_dot"],
+             "sharded_by_path": sharded["by_path"]},
          "durable": {k: v for k, v in durable.items()
                      if k not in ("launches", "by_step")},
          "cluster": {**cluster["a"], **{f"sigkill_{k}": v
                                         for k, v in cluster["b"].items()}},
+         "sharded": {k: sharded[k]
+                     for k in ("rows_per_s", "ranks", "serve", "row_sq")},
          "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
         {"name": "batched_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/batched_dot.cu",

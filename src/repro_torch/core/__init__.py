@@ -1,8 +1,11 @@
 """WoW — Window-to-Window incremental RFANNS index (the paper's core).
 
 The host index (``index``, ``graph``, ``wbt``, ``search``, ``store``,
-``snapshot``) is numpy; ``device_search`` serves snapshots on a torch
-device through the CUDA kernels in ``repro_torch.kernels``."""
+``snapshot``) and the paper's baselines (``baselines``) are numpy;
+``device_search`` serves snapshots on a torch device through the CUDA
+kernels in ``repro_torch.kernels``, and ``distributed`` splits the device
+build and serving over ``torch.distributed`` ranks."""
+from .baselines import PostFiltering, PreFiltering, SingleGraphInFilter
 from .datasets import Workload, make_workload, recall
 from .index import WoWIndex, WoWParams
 from .oracle import FlatNSW, brute_force, build_oracle_graph
@@ -19,6 +22,9 @@ __all__ = [
     "FlatNSW",
     "brute_force",
     "build_oracle_graph",
+    "PreFiltering",
+    "PostFiltering",
+    "SingleGraphInFilter",
     "Workload",
     "make_workload",
     "recall",

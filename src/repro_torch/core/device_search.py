@@ -615,6 +615,20 @@ def _landing_and_entry(di: DeviceIndex, ranges: torch.Tensor, o: int,
     return l_d, ep, has
 
 
+def _row_sq(x: torch.Tensor) -> torch.Tensor:
+    """``|x_b|^2`` per row, with the same bits at every batch size.  On the
+    card torch's row reduction gives a short row to more threads when the
+    batch has fewer than 16 rows, which changes its summation order, so
+    the reduction always runs over at least 16 rows (zero rows appended);
+    a member's norm is then the same in a slice of the batch (the sharded
+    build, mesh serving) as in the whole."""
+    B = x.shape[0]
+    sq = x * x
+    if B < 16:
+        sq = torch.cat([sq, sq.new_zeros((16 - B, x.shape[1]))])
+    return sq.sum(dim=1)[:B]
+
+
 def _init_state(di: DeviceIndex, queries: torch.Tensor, ranges: torch.Tensor,
                 cfg: HopCfg) -> HopState:
     """Empty result set, empty visited filter, entry point staged for the
@@ -627,7 +641,7 @@ def _init_state(di: DeviceIndex, queries: torch.Tensor, ranges: torch.Tensor,
     if cfg.metric != "l2":
         # cosine: match the host path, which normalises the query at search
         # time (stored vectors are pre-normalised at insert)
-        qn = torch.sqrt((queries * queries).sum(dim=1, keepdim=True))
+        qn = torch.sqrt(_row_sq(queries))[:, None]
         queries = queries / torch.where(qn > 0, qn, torch.ones_like(qn))
     ranges = ranges.float()
     l_d, ep, has = _landing_and_entry(di, ranges, cfg.o, L)
@@ -635,7 +649,7 @@ def _init_state(di: DeviceIndex, queries: torch.Tensor, ranges: torch.Tensor,
     zeros = torch.zeros(B, dtype=torch.int64, device=dev)
     return HopState(
         queries=queries,
-        q2=(queries * queries).sum(dim=1),
+        q2=_row_sq(queries),
         x=ranges[:, 0],
         y=ranges[:, 1],
         l_d=l_d,
@@ -1051,7 +1065,7 @@ def _init_build_state(di: DeviceIndex, queries, ranges, eps, l_lo, l_hi,
     W = max(cfg.width, cfg.k)
     dev = queries.device
     queries = queries.float()
-    q2 = (queries * queries).sum(dim=1)
+    q2 = _row_sq(queries)
     ranges = ranges.float()
     # carry sorted ascending by distance (stable; invalid lanes +inf), the
     # nearest W preloading the beam — exactly the host path's preload
@@ -1144,11 +1158,14 @@ def _prep_build_inputs(
     visited_hashes: int,
     merge: str,
     max_hops: int | None,
+    multiple: int = 1,
 ) -> _BuildPrep:
-    """Host-side prep of one construction search: seed truncation, pow2
-    batch padding, static config, and the layer-span slice of the neighbor
-    tensor.  Per-member
-    trajectories are independent of the padded batch size."""
+    """Host-side prep of one construction search, shared by ``build_search``
+    and the sharded build (``core.distributed.sharded_build_search``): seed
+    truncation, pow2 batch padding (rounded up to ``multiple`` so the batch
+    divides a build mesh), static config, and the layer-span slice of the
+    neighbor tensor.  Per-member trajectories are independent of the
+    padded batch size."""
     targets = np.asarray(targets, np.float32)
     B = targets.shape[0]
     W = int(width)
@@ -1168,6 +1185,8 @@ def _prep_build_inputs(
         seed_d = np.take_along_axis(seed_d, so, 1)
     C = max(min(C, W), 1)
     Bp = _pow2ceil(max(B, _MIN_BUCKET))
+    if multiple > 1 and Bp % multiple:
+        Bp = -(-Bp // multiple) * multiple  # round up to the mesh size
     si = np.full((Bp, C), -1, np.int64)
     sdp = np.full((Bp, C), np.inf, np.float32)
     if seed_ids is not None and seed_ids.size:

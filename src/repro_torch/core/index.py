@@ -55,14 +55,12 @@ from .search import (
     search_candidates,
     search_candidates_batch,
 )
-from .snapshot import DeviceBuildArena, NeighborSlab
+from .snapshot import DeviceBuildArena, NeighborSlab, ShardedBuildArena
 from .store import VEC_DTYPES, BuildStats, SearchStats, VectorStore
 
 #: registered ``insert_batch`` phase-1 engines; an unknown ``backend=``
 #: raises ``ValueError`` naming these (never a silent numpy fall-through).
-#: The reference's "sharded" engine comes with the sharded build (ROADMAP
-#: A8).
-INSERT_BACKENDS = ("numpy", "ops", "device")
+INSERT_BACKENDS = ("numpy", "ops", "device", "sharded")
 
 _log = logging.getLogger("repro_torch.core.index")
 
@@ -293,6 +291,7 @@ class WoWIndex:
         batch_size: int = 128,
         backend: str = "numpy",
         device_width: int | None = None,
+        shards: int | None = None,
     ) -> np.ndarray:
         """Batched Algorithm 1 (module docstring, "Batched construction").
 
@@ -313,16 +312,32 @@ class WoWIndex:
             ``device_search`` hop pipeline against the device-resident
             frozen snapshot + delta arena (``DeviceBuildArena``): carry-
             seeded beams, hashed O(budget) visited filter, fused gather
-            kernel — the device-resident build.
+            kernel — the device-resident build;
+          * ``"sharded"`` — the device build's searches split over the
+            ``shards`` ranks of a build mesh
+            (``repro_torch.parallel.build_mesh``: one process per rank
+            under ``torch.distributed``; ``ShardedBuildArena``: a copy of
+            the arena on every rank, per-rank member slices, one host
+            all-gather per search).  Phase-1 results are bitwise those of
+            ``"device"`` at every shard count, so the committed graph is
+            shard-count-invariant.  Every rank of the mesh calls
+            ``insert_batch`` and runs the phase-2 commit itself (the
+            deterministic host reduction; the window-entry sampling RNG
+            is seeded by ``seed``): the ranks stay equal only if every
+            rank passes the same rows in the same micro-batches.  A logged ``"sharded"``
+            record replays on ``"device"`` (``persist.wal.apply_record``).
 
         The device arena lives on ``self.device`` (the constructor's
-        ``device=``; None = the CUDA card).  The reference's ``"sharded"``
-        engine comes with the sharded build (ROADMAP A8); a logged
-        ``"sharded"`` record replays on ``"device"``
-        (``persist.wal.apply_record``).
+        ``device=``; None = the CUDA card; for ``"sharded"``, None =
+        ``cuda:{LOCAL_RANK % device_count}``).
 
-        ``device_width`` narrows the device search's beam below
+        ``device_width`` narrows the device/sharded search's beam below
         ``ef_construction`` (default: equal, matching the host search).
+
+        ``shards`` (``backend="sharded"`` only) is the build-mesh size;
+        default: the world size of the initialised ``torch.distributed``
+        default group, else 1.  More than 1 needs a default group of
+        exactly that world size (``ValueError`` otherwise).
 
         With a write-ahead log attached (``repro_torch.persist.
         open_durable``) every micro-batch is logged and fsynced before it
@@ -338,15 +353,25 @@ class WoWIndex:
         Returns the new vertex ids.
         """
         if backend not in INSERT_BACKENDS:
-            hint = (" (the sharded build is not ported yet: ROADMAP A8)"
-                    if backend == "sharded" else "")
             raise ValueError(
                 f"unknown insert_batch backend {backend!r}; registered "
-                f"backends: {', '.join(INSERT_BACKENDS)}{hint}"
+                f"backends: {', '.join(INSERT_BACKENDS)}"
             )
-        if device_width is not None and backend != "device":
+        if backend == "sharded":
+            if shards is None:
+                import torch.distributed as dist
+
+                shards = (dist.get_world_size() if dist.is_available()
+                          and dist.is_initialized() else 1)
+            shards = int(shards)
+        elif shards is not None:
             raise ValueError(
-                "device_width= applies only to backend='device' "
+                "shards= applies only to backend='sharded' "
+                f"(got backend={backend!r})"
+            )
+        if device_width is not None and backend not in ("device", "sharded"):
+            raise ValueError(
+                "device_width= applies only to backend='device'/'sharded' "
                 f"(got backend={backend!r})"
             )
         vectors = np.asarray(vectors, dtype=np.float32)
@@ -368,6 +393,8 @@ class WoWIndex:
         # reject the whole batch BEFORE any WBT/graph/WAL mutation: a bad
         # row must never leave a half-committed micro-batch behind
         self._validate_ingest(vectors, attrs)
+        if len(attrs):
+            self._resolve_arena(backend, shards)
         # insert_batch is a compaction-cadence boundary (checked up front:
         # the tombstone fraction only decreases within this call, so the
         # per-call check replays deterministically record by record)
@@ -381,7 +408,7 @@ class WoWIndex:
                 # log -> fsync -> apply
                 lsn = self._wal.log_insert(vs, as_, backend=backend,
                                            device_width=device_width,
-                                           shards=None)
+                                           shards=shards)
             out.append(
                 self._insert_micro_batch(vs, as_, backend, device_width)
             )
@@ -435,6 +462,34 @@ class WoWIndex:
             self.store.n,
         )
 
+    def _resolve_arena(self, backend: str, shards: int | None) -> None:
+        """Arena resolution, before anything is logged or mutated (a mesh
+        that cannot be made raises here) and before liveness is judged:
+        the ops/device backends own a one-device ``DeviceBuildArena`` of
+        the index's storage mode, the sharded backend a
+        ``ShardedBuildArena`` on its build mesh; switching backends, shard
+        counts or storage modes swaps the arena, and its next ``ensure``
+        does one amortised full upload."""
+        if backend == "sharded":
+            if (
+                not isinstance(self._arena, ShardedBuildArena)
+                or self._arena.num_shards != shards
+                or self._arena.vec_dtype != self.vec_dtype
+            ):
+                from ..parallel import build_mesh
+
+                self._arena = ShardedBuildArena(
+                    build_mesh(shards, device=self.device),
+                    vec_dtype=self.vec_dtype,
+                )
+        elif backend in ("ops", "device") and (
+            self._arena is None
+            or isinstance(self._arena, ShardedBuildArena)
+            or self._arena.vec_dtype != self.vec_dtype
+        ):
+            self._arena = DeviceBuildArena(vec_dtype=self.vec_dtype,
+                                           device=self.device)
+
     def _insert_micro_batch(
         self,
         vecs: np.ndarray,
@@ -447,19 +502,11 @@ class WoWIndex:
         B = len(attrs_b)
         if B == 0:
             return np.empty(0, dtype=np.int64)
-        # arena resolution, BEFORE liveness is judged: the ops/device
-        # backends own a ``DeviceBuildArena`` of the index's storage mode;
-        # a storage-mode change swaps it, and its next ``ensure`` does one
-        # amortised full upload.
-        if backend in ("ops", "device") and (
-            self._arena is None or self._arena.vec_dtype != self.vec_dtype
-        ):
-            self._arena = DeviceBuildArena(vec_dtype=self.vec_dtype,
-                                           device=self.device)
-        # mirror liveness, judged BEFORE this batch mutates anything: a
-        # mirror that was in sync at batch start stays maintainable by this
-        # batch's deltas alone (even if the other backend drives phase 1),
-        # so backend switches never force full rebuilds.
+        # mirror liveness (of the arena ``_resolve_arena`` gave), judged
+        # BEFORE this batch mutates anything: a mirror that was in sync at
+        # batch start stays maintainable by this batch's deltas alone (even
+        # if the other backend drives phase 1), so backend switches never
+        # force full rebuilds.
         g = self.graph
         slab_pre_ok = self._slab.arr is not None and self._slab.version == g.version
         arena_pre_ok = (
@@ -526,13 +573,13 @@ class WoWIndex:
             # the graph is frozen during phase 1; the persistent arenas are
             # brought up to date with deltas only (allocation/rebuild is
             # amortised over capacity growth, never per batch)
-            if backend in ("ops", "device"):
+            if backend in ("ops", "device", "sharded"):
                 arena = self._arena
                 arena.ensure(self)
                 if backend == "ops":
                     ops_table = arena.vectors  # device-resident [rows, d]
                     ops_scales = arena.q_scales  # f32[rows] (int8) / None
-            if backend != "device":
+            if backend not in ("device", "sharded"):
                 slab_full = self._slab.ensure(self.graph)
             uw = 0  # used carry width: every [B, C] pass runs on [:, :uw]
             for l in range(top, -1, -1):
@@ -586,10 +633,12 @@ class WoWIndex:
                 if need:
                     seeds_i = u_ids[need, :uw] if uw else None
                     seeds_d = u_d[need, :uw] if uw else None
-                    if backend == "device":
+                    if backend in ("device", "sharded"):
                         # device-resident phase 1: the hop pipeline over
                         # the frozen snapshot + delta arena, beams seeded
-                        # with the Thm-3.1 carry
+                        # with the Thm-3.1 carry (the sharded arena splits
+                        # the members over its build mesh: the same
+                        # results bitwise)
                         res_i, res_d, dcs, _ = arena.search(
                             targets[need],
                             np.stack([wlo[need, l], whi[need, l]], axis=1),

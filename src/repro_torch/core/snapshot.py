@@ -52,8 +52,10 @@ Build-path delta arena:
     the batch's appended rows and the commit's changed neighbor rows
     (``repro_torch.kernels.ops.arena_scatter*``).
 
-The reference's ``ShardedBuildArena`` (the arena replicated over a build
-mesh) comes with the sharded build, ROADMAP A8.
+  * ``ShardedBuildArena`` — the ``DeviceBuildArena`` of
+    ``insert_batch(backend="sharded")``: every rank of a build mesh holds
+    its own copy, and its searches split the micro-batch over the ranks
+    (``repro_torch.core.distributed.sharded_build_search``).
 """
 from __future__ import annotations
 
@@ -626,3 +628,95 @@ class DeviceBuildArena:
             visited=visited,
             visited_bits=visited_bits,
         )
+
+
+class ShardedBuildArena(DeviceBuildArena):
+    """``DeviceBuildArena`` held by every rank of a build mesh (a
+    ``repro_torch.parallel.BuildMesh``), whose searches split the
+    micro-batch members over the ranks (``insert_batch(backend=
+    "sharded")``).
+
+    Lifecycle: a full upload (amortised: capacity/top growth or untracked
+    mutations only) places every buffer on the rank's device through
+    ``repro_torch.kernels.ops.replicate``; the per-batch delta scatters
+    update it in place.  Every rank applies the same commits, so the
+    ranks' copies hold the same bytes, as the JAX version's replicated
+    buffers do.  Phase-1 searches dispatch through
+    ``repro_torch.core.distributed.sharded_build_search``: each rank runs
+    the device hop pipeline on its member slice, and the per-member
+    candidate sets are all-gathered back to the host, bitwise those of
+    the one-device build at any shard count, so the deterministic phase-2
+    commit needs no shard awareness.  ``stats`` adds ``search_s`` (the
+    seconds in the sharded searches, gathers included) and ``gather_s``.
+    """
+
+    __slots__ = ("mesh",)
+
+    def __init__(self, mesh, vec_dtype: str = "f32"):
+        super().__init__(vec_dtype=vec_dtype, device=mesh.device)
+        self.mesh = mesh
+        self.stats.update(search_s=0.0, gather_s=0.0)
+
+    @property
+    def num_shards(self) -> int:
+        return self.mesh.shards
+
+    def ensure(self, index) -> None:
+        uploads = self.stats["full_uploads"]
+        super().ensure(index)
+        if self.stats["full_uploads"] != uploads:
+            from ..kernels.ops import replicate
+
+            (self.vectors, self.sq_norms, self.attrs, self.neighbors,
+             self._dummy_u, self._dummy_r, self.q_scales) = replicate(
+                (self.vectors, self.sq_norms, self.attrs, self.neighbors,
+                 self._dummy_u, self._dummy_r, self.q_scales),
+                self.mesh,
+            )
+
+    def search(
+        self,
+        targets: np.ndarray,
+        ranges: np.ndarray,
+        eps: np.ndarray,
+        l_lo: int,
+        l_hi: int,
+        seed_ids: np.ndarray | None,
+        seed_d: np.ndarray | None,
+        width: int,
+        seed_width: int,
+        deleted: set[int] | None = None,
+        backend: str = "auto",
+        visited: str = "hash",
+        visited_bits: int | None = None,
+    ):
+        import time
+
+        from .distributed import sharded_build_search
+
+        self.stats["searches"] += 1
+        t0 = time.perf_counter()
+        out = sharded_build_search(
+            self.mesh,
+            self.device_index(),
+            targets,
+            ranges,
+            eps,
+            l_lo,
+            l_hi,
+            seed_ids,
+            seed_d,
+            width=width,
+            m=self.m,
+            o=self.o,
+            metric="l2" if self.metric == "l2" else "cosine",
+            seed_width=seed_width,
+            deleted=deleted,
+            backend=backend,
+            visited=visited,
+            visited_bits=visited_bits,
+            axis=self.mesh.axis,
+            timings=self.stats,
+        )
+        self.stats["search_s"] += time.perf_counter() - t0
+        return out

@@ -169,6 +169,25 @@ def merge_src_indices(pos_a, pos_b, W: int, K: int, method: str = "auto"):
     raise ValueError(f"unknown writeback method {method!r}")
 
 
+def replicate(tree, mesh):
+    """Place every tensor leaf of ``tree`` (tuples, lists, dicts, None) on
+    ``mesh.device``, this rank's device.
+
+    The counterpart of the JAX package's ``replicate``, which puts one
+    copy of every leaf on each device of the mesh through a replicated
+    ``NamedSharding``.  Under SPMD there is no placement across devices:
+    each rank holds its own copy of the arena on its own device and
+    applies the same deterministic commits to it, so the copies stay
+    equal; placing the leaves on the rank's device is all that is left."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(mesh.device)
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(replicate(x, mesh) for x in tree)
+    if isinstance(tree, dict):
+        return {k: replicate(v, mesh) for k, v in tree.items()}
+    return tree
+
+
 def _host_rows(rows: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """Host rows -> a tensor of ``like``'s dtype on its device; a bf16
     slab's rows arrive as their uint16 bit pattern."""

@@ -43,7 +43,11 @@ def gather_norm_dot_ref(
     multiply the gathered rows by their per-row f32 ``scales`` — the
     function the kernel computes in registers (it scales an int8 row's
     two sums instead of its values), expressed over a materialized
-    gather."""
+    gather.  Each sum is an elementwise product reduced over its own row,
+    so a row's bits do not depend on the batch it is computed in (an
+    einsum goes to a batched matmul, whose summation order changes with
+    the batch size), as the kernel's rows do not: the compaction driver
+    and the sharded build search a member in batches of other sizes."""
     n = table.shape[0]
     idc = ids.long().clamp(0, n - 1)
     vecs = table[idc].float()
@@ -51,8 +55,8 @@ def gather_norm_dot_ref(
         vecs = vecs * scales.float()[idc][..., None]
     queries = queries.float()
     return (
-        torch.einsum("bkd,bd->bk", vecs, queries),
-        torch.einsum("bkd,bkd->bk", vecs, vecs),
+        (vecs * queries[:, None, :]).sum(dim=-1),
+        (vecs * vecs).sum(dim=-1),
     )
 
 

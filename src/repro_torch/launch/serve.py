@@ -13,6 +13,8 @@ engine (``--engine``, ``repro_torch.serve.lifecycle``).
     PYTHONPATH=src python -m repro_torch.launch.serve --index-dir /tmp/wow
     PYTHONPATH=src python -m repro_torch.launch.serve --cluster 3 \\
         --build-backend device --n 4000 --queries 256
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --build-backend sharded --mesh 2x1 --device cpu
 
 ``--vec-dtype``, ``--pipeline``, ``--visited``, ``--compact`` and
 ``--backend`` each take one or more values; every combination is served
@@ -43,6 +45,16 @@ otherwise the index is built with every micro-batch logged, then
 checkpointed there.  After an ingest the index is checkpointed again
 (incrementally).  ``--compact-rows`` runs the tombstone compaction pass
 after the build, ``--compact-threshold`` sets the auto-compaction cadence.
+
+``--build-backend sharded`` splits the device build's searches over the
+ranks of a build mesh (``--build-shards N``; default: every rank), and
+``--mesh DxM`` serves one configuration (one value of each knob, the
+lock-step loop) through ``core.distributed.make_serving_fn`` on a
+``(data, model)`` mesh of D x M ranks, printing the JAX launcher's recall,
+mean-DC and hop lines; ``main`` returns that run under ``"mesh"``.  Under
+``torchrun`` every rank runs ``main`` (gloo joins the ranks; only rank 0
+prints); outside it, ``--build-shards 1`` and ``--mesh 1x1`` run in this
+one process.
 
 ``--cluster N`` is replicated serving (``repro_torch.serve.cluster``), a
 mode of its own beside the one-shot runs and ``--engine``: N members
@@ -110,11 +122,20 @@ def _parser() -> argparse.ArgumentParser:
                     help="micro-batch size for batched construction "
                          "(insert_batch); 0 = the sequential insert loop")
     ap.add_argument("--build-backend", default="numpy",
-                    choices=("numpy", "ops", "device"),
+                    choices=("numpy", "ops", "device", "sharded"),
                     help="insert_batch phase-1 engine: host BLAS (numpy), "
-                         "host search + fused gather kernel (ops), or the "
+                         "host search + fused gather kernel (ops), the "
                          "device-resident build — the hop pipeline over the "
-                         "frozen snapshot + delta arena (device)")
+                         "frozen snapshot + delta arena (device) — or that "
+                         "build split over the ranks of a build mesh "
+                         "(sharded; see --build-shards)")
+    ap.add_argument("--build-shards", type=int, default=0,
+                    help="with --build-backend sharded: build-mesh size "
+                         "(0 = every rank of the torchrun world)")
+    ap.add_argument("--mesh", default="",
+                    help='query-sharded serving on a (data, model) mesh of '
+                         'ranks, e.g. "2x1" (torchrun --nproc-per-node 2); '
+                         "one configuration, the lock-step loop")
     ap.add_argument("--ingest", type=int, default=0,
                     help="ingest-while-serve: after the first serve wave, "
                          "stream N extra vectors through insert_batch, "
@@ -175,14 +196,46 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _join_ranks() -> int:
+    """Under ``torchrun`` (WORLD_SIZE > 1) join the ranks' default group
+    (gloo: every collective of the port is a host gather) -> this rank."""
+    import os
+
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return 0
+    if not dist.is_initialized():
+        dist.init_process_group("gloo")
+    return dist.get_rank()
+
+
 def main(argv: list[str] | None = None) -> dict:
+    """Parse ``argv`` and run; under ``torchrun`` every rank runs this and
+    only rank 0 prints."""
+    import contextlib
+    import io
+
     ap = _parser()
     args = ap.parse_args(argv)
+    if _join_ranks():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _main(ap, args)
+    return _main(ap, args)
+
+
+def _main(ap: argparse.ArgumentParser, args) -> dict:
     if args.cluster > 1 and args.engine:
         ap.error("--cluster and --engine are one mode or the other: every "
                  "cluster member already serves through its own engine")
-    if args.engine or args.cluster > 1:
-        mode = "--engine" if args.engine else "--cluster"
+    if args.mesh and (args.engine or args.cluster > 1):
+        ap.error("--mesh and --engine/--cluster are one mode or the other "
+                 "(the engine schedules waves itself)")
+    if args.build_shards > 0 and args.build_backend != "sharded":
+        ap.error("--build-shards requires --build-backend sharded")
+    if args.engine or args.cluster > 1 or args.mesh:
+        mode = ("--engine" if args.engine else
+                "--cluster" if args.cluster > 1 else "--mesh")
         many = [f"--{k.replace('_', '-')}" for k in
                 ("vec_dtype", "visited", "backend")
                 if len(getattr(args, k)) > 1]
@@ -190,8 +243,15 @@ def main(argv: list[str] | None = None) -> dict:
             ap.error(f"{mode} serves one configuration: one value of "
                      f"{', '.join(many)}")
         if args.compact != ["none"]:
-            ap.error(f"{mode} sets its own chunk schedule (no --compact)")
-        if args.pipeline != ["fused"]:
+            ap.error("--mesh runs the lock-step loop (no --compact)"
+                     if args.mesh else
+                     f"{mode} sets its own chunk schedule (no --compact)")
+        if args.mesh and args.ingest:
+            ap.error("--mesh serves one wave (no --ingest)")
+        if args.mesh and len(args.pipeline) > 1:
+            ap.error("--mesh serves one configuration: one value of "
+                     "--pipeline")
+        if not args.mesh and args.pipeline != ["fused"]:
             ap.error(f"{mode} runs the fused pipeline")
     if "reference" in args.pipeline and set(args.vec_dtype) != {"f32"}:
         ap.error("--vec-dtype int8/bf16 requires --pipeline fused (the "
@@ -211,8 +271,15 @@ def main(argv: list[str] | None = None) -> dict:
     from ..core.snapshot import take_snapshot
     from ..kernels import launch_counters
 
-    dev = resolve_device(args.device)
+    if torch.distributed.is_initialized():  # a rank's own card
+        from ..parallel.sharding import rank_device
+
+        dev = rank_device(args.device)
+    else:
+        dev = resolve_device(args.device)
     counters = launch_counters()
+    build_kw = ({"shards": args.build_shards} if args.build_shards > 0
+                else {})
 
     def sync():
         if dev.type == "cuda":
@@ -273,7 +340,7 @@ def main(argv: list[str] | None = None) -> dict:
         if args.build_batch > 0:
             idx.insert_batch(wl.vectors, wl.attrs,
                              batch_size=args.build_batch,
-                             backend=args.build_backend)
+                             backend=args.build_backend, **build_kw)
             how = (f"batched/{args.build_backend} (micro-batch "
                    f"{args.build_batch})")
         else:
@@ -316,6 +383,9 @@ def main(argv: list[str] | None = None) -> dict:
 
     if args.engine:
         out["engine"] = _serve_engine(args, wl, idx, snap, dev)
+        return out
+    if args.mesh:
+        out["mesh"] = _serve_mesh(args, wl, snap, dev)
         return out
 
     def serve_all(snap, warm: bool, tag: str, first=None) -> list[dict]:
@@ -416,7 +486,7 @@ def main(argv: list[str] | None = None) -> dict:
         before = launches()
         t0 = time.time()
         idx.insert_batch(extra_v, extra_a, batch_size=args.build_batch or 128,
-                         backend=args.build_backend)
+                         backend=args.build_backend, **build_kw)
         sync()
         t_ing = time.time() - t0
         ingest_launches = since(before)
@@ -439,6 +509,54 @@ def main(argv: list[str] | None = None) -> dict:
             print(f"incremental checkpoint to {path} in "
                   f"{(time.time() - t0) * 1e3:.0f} ms")
     return out
+
+
+def _serve_mesh(args, wl, snap, device) -> dict:
+    """Query-sharded serving (``core.distributed.make_serving_fn``) on a
+    ``(data, model)`` mesh of ranks: one wave of the workload's queries,
+    printed as the JAX launcher prints it.  Returns the mesh, the result,
+    recall, seconds, QPS, the serving function's state and the kernel
+    launches of the wave (this rank's)."""
+    import numpy as np
+
+    from ..core import recall
+    from ..core.distributed import make_serving_fn
+    from ..kernels import launch_counters
+    from ..parallel import serving_mesh
+
+    def launches() -> dict:
+        return {k: v for c in launch_counters() for k, v in c.items()}
+
+    d, m = (int(x) for x in args.mesh.split("x"))
+    mesh = serving_mesh(d, m, device=device)
+    serve = make_serving_fn(
+        mesh, snap, k=args.k, width=args.width, backend=args.backend[0],
+        pipeline=args.pipeline[0], visited=args.visited[0],
+        visited_bits=args.visited_bits,
+        visited_adaptive=args.adaptive_filter, vec_dtype=args.vec_dtype[0])
+    before = launches()
+    t0 = time.perf_counter()
+    res = serve(wl.queries, wl.ranges)
+    seconds = time.perf_counter() - t0
+    n_launch = {k: v - before[k] for k, v in launches().items()}
+    if args.adaptive_filter and args.visited[0] == "hash":
+        print(f"adaptive visited filter (sharded, gathered hop histogram): "
+              f"{serve.state['bits']} bits/query after "
+              f"{int(serve.state['hist'].sum())} queries")
+    recs = [recall(np.asarray([int(snap.ids_map[j]) for j in res.ids[i]
+                               if j >= 0]), wl.gt[i])
+            for i in range(args.queries)]
+    hops = res.hops
+    print(f"served {args.queries} queries: recall@{args.k} = "
+          f"{np.mean(recs):.4f}, mean DC = {float(np.mean(res.dc)):.0f}, "
+          f"mean hops = {float(np.mean(hops)):.0f}")
+    q = np.percentile(hops, [50, 90, 99, 100]).astype(int)
+    print(f"hops-to-termination: p50={q[0]} p90={q[1]} p99={q[2]} "
+          f"max={q[3]} (ragged batches pay max without --compact)")
+    return {"shape": (d, m), "rank": mesh.rank, "result": res,
+            "recall": float(np.mean(recs)), "seconds": seconds,
+            "qps": args.queries / seconds, "state": serve.state,
+            "launches": n_launch}
 
 
 def _serve_cluster(args, wl, device) -> dict:
@@ -739,3 +857,7 @@ def _serve_engine(args, wl, idx, snap, device=None, ingest=None) -> dict:
 
 if __name__ == "__main__":
     main()
+    import torch.distributed
+
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

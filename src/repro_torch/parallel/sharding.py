@@ -1,0 +1,158 @@
+"""Rank meshes: the sharded WoW build's 1-D build mesh and the serving
+function's ``(data, model)`` mesh, over ``torch.distributed`` ranks.
+
+The JAX package is single-controller: one process drives a
+``jax.sharding.Mesh`` of devices through ``shard_map``.  PyTorch's form of
+that is one process per device (SPMD): every rank runs the same program on
+its own device and the ranks meet only in collectives.  A ``RankMesh``
+names the mesh's axes and sizes, this rank, this rank's device and the
+process group its host-side gathers use.
+
+The gathers move host arrays (the phase-1 candidate sets, the serving
+results), so they run on CPU tensors over a gloo group: the default group
+when it is gloo, else a gloo group over the same ranks
+(``torch.distributed.new_group(backend="gloo")``).  Two reasons: the build's
+phase-2 commit consumes host arrays anyway, and NCCL refuses two ranks on
+one card.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
+        --build-backend sharded --mesh 2x1 --device cpu
+"""
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+_GLOO_GROUPS: dict = {}  # default group -> its gloo twin (NCCL default)
+
+
+@dataclass(frozen=True)
+class RankMesh:
+    """A mesh of ``torch.distributed`` ranks laid out row-major over
+    ``axes`` (rank = sum of coordinate x stride, the last axis fastest, as
+    a ``jax.sharding.Mesh`` lays out its devices).  ``group`` is None for
+    a one-rank mesh, which needs no ``torch.distributed`` at all."""
+
+    axes: tuple[str, ...]
+    sizes: tuple[int, ...]
+    rank: int
+    device: torch.device
+    group: object = None
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axes, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def coord(self, axis: str, rank: int | None = None) -> int:
+        """``rank``'s index along ``axis`` (default: this rank's)."""
+        rank = self.rank if rank is None else rank
+        i = self.axes.index(axis)
+        return (rank // math.prod(self.sizes[i + 1:])) % self.sizes[i]
+
+    def all_gather(self, a: np.ndarray) -> list[np.ndarray]:
+        """Every rank's ``a`` (same shape and dtype on every rank), in rank
+        order, over the mesh's gloo group."""
+        if self.group is None:
+            return [a]
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        torch.distributed.all_gather(parts, t, group=self.group)
+        return [p.numpy() for p in parts]
+
+
+@dataclass(frozen=True)
+class BuildMesh(RankMesh):
+    """The 1-D mesh of a sharded build (``insert_batch(backend=
+    "sharded")``): ``shards`` ranks along ``axis``."""
+
+    @property
+    def axis(self) -> str:
+        return self.axes[0]
+
+    @property
+    def shards(self) -> int:
+        return self.sizes[0]
+
+
+def rank_device(device=None) -> torch.device:
+    """``device=None``: ``cuda:{LOCAL_RANK % device_count}``, so ranks
+    share one card when there is one."""
+    from .. import resolve_device
+
+    if device is not None:
+        return resolve_device(device)
+    resolve_device(None)  # raises without CUDA
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return torch.device(f"cuda:{local % torch.cuda.device_count()}")
+
+
+def _gloo_group():
+    """The group host gathers use: the default group when it is gloo, else
+    (made once, by every rank: ``new_group`` is collective) a gloo group
+    over the same ranks."""
+    dist = torch.distributed
+    if dist.get_backend() == "gloo":
+        return dist.group.WORLD
+    key = id(dist.group.WORLD)
+    if key not in _GLOO_GROUPS:
+        _GLOO_GROUPS[key] = dist.new_group(backend="gloo")
+    return _GLOO_GROUPS[key]
+
+
+def _mesh(cls, axes: tuple[str, ...], sizes: tuple[int, ...], device):
+    total = math.prod(sizes)
+    if total < 1 or min(sizes) < 1:
+        raise ValueError(f"a mesh needs >= 1 rank on every axis, got "
+                         f"{dict(zip(axes, sizes))}")
+    dist = torch.distributed
+    if total == 1:  # one rank: no process group, no gathers
+        return cls(axes, sizes, 0, rank_device(device), None)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"a mesh of {total} ranks {dict(zip(axes, sizes))} needs an "
+            f"initialised torch.distributed default group of world size "
+            f"{total}: start one process per rank (torchrun "
+            f"--nproc-per-node {total} ...), or pass 1"
+        )
+    world = dist.get_world_size()
+    if world != total:
+        raise ValueError(
+            f"a mesh of {total} ranks {dict(zip(axes, sizes))} needs world "
+            f"size {total}, but the default group has {world} ranks "
+            f"(torchrun --nproc-per-node {total} ...)"
+        )
+    return cls(axes, sizes, dist.get_rank(), rank_device(device),
+               _gloo_group())
+
+
+def build_mesh(shards: int | None = None, axis: str = "build",
+               device=None) -> BuildMesh:
+    """1-D build mesh of ``shards`` ranks (default: the world size of the
+    initialised default group, else 1).  ``shards`` 1 is a one-rank mesh
+    with no process group; more need a default group of exactly that
+    world size (one process per rank) and raise ``ValueError`` otherwise.
+    ``device=None`` puts the rank on ``cuda:{LOCAL_RANK % device_count}``.
+    Every rank must call this (it may create the gloo group)."""
+    if shards is None:
+        dist = torch.distributed
+        shards = (dist.get_world_size()
+                  if dist.is_available() and dist.is_initialized() else 1)
+    shards = int(shards)
+    if shards < 1:
+        raise ValueError("build mesh needs >= 1 shard")
+    return _mesh(BuildMesh, (axis,), (shards,), device)
+
+
+def serving_mesh(data: int, model: int = 1, device=None) -> RankMesh:
+    """The ``(data, model)`` mesh of ``core.distributed.make_serving_fn``:
+    ``data * model`` ranks (the rules of ``build_mesh``)."""
+    return _mesh(RankMesh, ("data", "model"), (int(data), int(model)),
+                 device)

@@ -530,8 +530,7 @@ def apply_record(index, rtype: int, payload: bytes) -> None:
         backend = head["backend"]
         if backend == "sharded":
             # the sharded build is bitwise the device build at every shard
-            # count, so replay is device-count independent (the port has
-            # no sharded build: ROADMAP A8)
+            # count, so replay is device-count independent
             backend = "device"
         index.insert_batch(
             vectors, attrs, batch_size=max(len(attrs), 1), backend=backend,

@@ -1,0 +1,149 @@
+"""Run a function on N ``torch.distributed`` ranks for the port's
+distributed tests: spawned processes on the CPU, joined by gloo over a
+``FileStore`` under the test's ``tmp_path`` (no TCP port), one thread each.
+
+The rank functions below import only ``repro_torch`` (the children never
+load JAX) and return plain data for the parent to compare.
+"""
+from __future__ import annotations
+
+import hashlib
+import multiprocessing as mp
+import queue
+import traceback
+
+
+def _entry(fn, rank: int, world: int, store_path: str, args, out) -> None:
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.set_num_threads(1)
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=world)
+        try:
+            res = fn(*args)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, res))
+    except BaseException:  # the parent reports it
+        out.put((rank, False, traceback.format_exc()))
+
+
+def run_ranks(fn, world: int, tmp_path, *args, timeout: float = 240.0):
+    """``fn(*args)`` on ranks 0..world-1 -> their results in rank order;
+    a rank that raises fails the caller with its traceback."""
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    store = str(tmp_path / f"store-{fn.__name__}-{world}")
+    procs = [ctx.Process(target=_entry,
+                         args=(fn, r, world, store, args, out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(world):
+            try:
+                rank, ok, res = out.get(timeout=timeout)
+            except queue.Empty:
+                raise AssertionError(f"{fn.__name__}: a rank hung") from None
+            if not ok:
+                raise AssertionError(f"{fn.__name__} rank {rank}:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=20)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [got[r] for r in range(world)]
+
+
+def arena_digest(arena) -> str:
+    """sha256 over the bytes of an arena's device buffers."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in (arena.vectors, arena.q_scales, arena.sq_norms, arena.attrs,
+              arena.neighbors):
+        if t is not None:
+            h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def graph_of(idx) -> dict:
+    """What the parent compares of an index: adjacency, degree counts,
+    ``state_digest``."""
+    from repro_torch.persist import state_digest
+
+    return {"layers": [a.copy() for a in idx.graph.layers],
+            "counts": [c.copy() for c in idx.graph.counts],
+            "digest": state_digest(idx)}
+
+
+def sharded_build(vectors, attrs, bs: int, kw: dict, vec_dtype: str,
+                  shards: int | None = None) -> dict:
+    """One rank's ``insert_batch(backend="sharded")`` on the CPU, in
+    micro-batch calls of ``bs`` (the fresh vertices of each call are
+    returned for the window-invariant checks)."""
+    import torch.distributed as dist
+
+    from repro_torch.core import WoWIndex
+
+    idx = WoWIndex(dim=vectors.shape[1], vec_dtype=vec_dtype, device="cpu",
+                   **kw)
+    vids = []
+    for s in range(0, len(attrs), bs):
+        vids.append(idx.insert_batch(vectors[s:s + bs], attrs[s:s + bs],
+                                     batch_size=bs, backend="sharded",
+                                     shards=shards))
+    arena = idx._arena
+    return {"rank": dist.get_rank(), "num_shards": arena.num_shards,
+            "arena": arena_digest(arena), "stats": dict(arena.stats),
+            "vids": vids, **graph_of(idx)}
+
+
+def mesh_error(shards: int) -> str:
+    """The ``ValueError`` of a build mesh whose size is not the world
+    size ("" if none was raised)."""
+    from repro_torch.parallel import build_mesh
+
+    try:
+        build_mesh(shards, device="cpu")
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def serve_waves(snap, queries, ranges, data: int, model: int,
+                kw: dict) -> dict:
+    """Two waves of ``make_serving_fn`` on a ``(data, model)`` mesh of
+    this world's ranks: each wave's result, the histogram and the visited
+    filter's size after each."""
+    from repro_torch.core.distributed import make_serving_fn
+    from repro_torch.parallel import serving_mesh
+
+    mesh = serving_mesh(data, model, device="cpu")
+    fn = make_serving_fn(mesh, snap, **kw)
+    waves, bits = [], []
+    for _ in range(2):
+        waves.append(tuple(fn(queries, ranges)))
+        bits.append(fn.state["bits"])
+    return {"coord": (mesh.coord("data"), mesh.coord("model")),
+            "waves": waves, "bits": bits, "hist": fn.state["hist"].copy()}
+
+
+def two_ranks(builds: list, err_shards: int) -> dict:
+    """The two-rank cases in one spawn: each sharded build of ``builds``
+    (argument tuples of ``sharded_build``), and the world-size error."""
+    return {"builds": [sharded_build(*b) for b in builds],
+            "error": mesh_error(err_shards)}
+
+
+def four_ranks(build: tuple, serve: tuple) -> dict:
+    """The four-rank cases in one spawn: a sharded build at 4 shards and
+    the serving function on a 2 x 2 mesh."""
+    return {"build": sharded_build(*build), "serve": serve_waves(*serve)}

@@ -167,17 +167,21 @@ def test_delete_and_compact_rows_bitwise(workload):
 
 
 def test_unported_build_backends_raise(workload):
-    """The sharded build (ROADMAP A8) and unknown engines raise before any
-    state is touched; the ops engine's default device is the card."""
+    """Unknown engines, and a sharded build of more shards than there are
+    ranks, raise before any state is touched; the ops engine's and the
+    sharded build's default device is the card."""
     idx = tc.WoWIndex(dim=16, m=8, ef_construction=32, o=4, seed=0)
-    for backend in ("sharded", "bogus"):
-        with pytest.raises(ValueError,
-                           match="registered backends: numpy, ops, device"):
-            idx.insert_batch(workload.vectors[:10], workload.attrs[:10],
-                             backend=backend)
-    with pytest.raises(ValueError, match="ROADMAP A8"):
+    with pytest.raises(ValueError, match="registered backends: numpy, ops, "
+                                         "device, sharded"):
         idx.insert_batch(workload.vectors[:10], workload.attrs[:10],
-                         backend="sharded")
+                         backend="bogus")
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        idx.insert_batch(workload.vectors[:10], workload.attrs[:10],
+                         backend="sharded", shards=2)
+    if not torch.cuda.is_available():  # device=None means the card
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            idx.insert_batch(workload.vectors[:10], workload.attrs[:10],
+                             backend="sharded")
     assert idx.store.n == 0
     idx.insert_batch(workload.vectors[:40], workload.attrs[:40])
     with pytest.raises(ValueError, match="registered backends: numpy, ops"):

@@ -31,6 +31,8 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.persist.checkpoint, repro_torch.persist.wal\n"
         "import repro_torch.persist.recovery\n"
         "import repro_torch.persist.replicate, repro_torch.serve.cluster\n"
+        "import repro_torch.parallel, repro_torch.parallel.sharding\n"
+        "import repro_torch.core.distributed, repro_torch.core.baselines\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
