@@ -305,6 +305,48 @@ before the path and reads the counters just after it:
      SFUs, at 16 a clock per SM at the card's maximum SM clock).
      ``batched_dot``'s device time is also given as a ratio to
      ``torch.bmm``'s (``device_to_bmm``, per shape);
+  7b. train — training on the card (``repro_torch.train``), run after
+     phase 7 and before phase 5e, with the previous model freed.  Leg
+     (a), full width: qwen2-7b (d 3,584, 28/4 heads x 128, d_ff 18,944,
+     vocab 152,064) cut in depth to its first TRAIN_LAYERS = 2 layers (as
+     phase 6b cuts Jamba), f32 master weights from ``init_params`` (a
+     generator seeded 0), bf16 compute, f32 AdamW moments; the bytes of
+     parameters, gradients and moments are reckoned from
+     ``abstract_params`` (the ``meta`` device) before anything is
+     allocated.  ``make_train_step(microbatches=1)`` with a zero learning
+     rate (the weights stay as they are) gives step 1's loss and grad
+     norm on the first batch; then ``make_train_step(microbatches=2,
+     remat=True)`` runs TRAIN_STEPS = 4 steps on ``DataConfig(kind=
+     "random")`` batches of 8 x 512 tokens (the Markov source's V x V
+     table would be 185 GB at this vocabulary).  Checks: step 1 equals
+     the one-microbatch step within TRAIN_MICRO_TOL, the loss absolute and
+     the grad norm relative (read on an H100 80GB HBM3 at 700 W: loss
+     equal to 6 decimals, grad norm 1.8e-6 apart; ``tests/test_train.py``
+     allows 2e-3 and 2e-2, which would miss a small accumulation fault);
+     every loss finite, step 1's within 0.5 of ln 152,064; every
+     parameter received a gradient (its first moment is nonzero) and
+     changed.  Prints each step's ms,
+     tokens/s, the model FLOP/s against 6 x (the layers' and the head's
+     parameters) x tokens plus the rematerialised forward of the layers
+     (2 x their parameters x tokens), the peak device memory beside the
+     reckoning, and the AdamW update's own time (CUDA events, three
+     updates) as a share of the step; a fifth step is traced (device busy,
+     idle share, GEMM share, top ops) and must show no kernel event.  The trained parameters are then
+     served as they are (f32) through ``LMServer``: a prefill of 2 x 256
+     prompts through ``backend="auto"`` against ``"ref"``, the
+     last-position logits within LM_REL_TOL of max |logit|,
+     ``flash_attention`` launched once a layer.  Leg (b), resume: the
+     reduced qwen2-7b on Markov data as ``launch.train --reduced`` sets it
+     up (vocab 256, seq 64, global batch 16, lr 1e-3, warmup 8 of 40): a
+     ``Trainer`` runs 20 steps with a checkpoint every 10 and
+     ``finish()``es, a new ``Trainer`` on the directory resumes at step
+     20 and runs 20 more, and an uninterrupted 40-step ``Trainer`` runs in
+     another directory (both under a ``tempfile.mkdtemp()`` root removed
+     at the end).  Checks: the two runs' parameters, moments and step
+     equal bit for bit, and their logged losses; step 40's loss below
+     step 1's and nearer the chain's entropy rate; then ``python -m
+     repro_torch.launch.train --arch qwen2-7b --reduced --steps 20
+     --device cuda`` exits 0 in a subprocess;
   8. report — the kernels JSON line, then the ok line last.  The WoW
      kernels' entries add ``executions``: the wrapper's launches in the
      device-build phase plus the launches that the phase's replayed hop
@@ -365,6 +407,12 @@ LM_DECODE = 32
 LM_EMBED = (8, 64)  # embed: queries x tokens
 LM_REL_TOL = 1e-4  # kernel vs plain, relative to max |logit| (or |embed|)
 JAMBA = "jamba-1.5-large-398b"
+TRAIN_ARCH = "qwen2-7b"  # phase 7b: full width, cut in depth
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 4
+TRAIN_SERVE = (2, 256)  # the serve-after-train prefill: batch x tokens
+TRAIN_MICRO_TOL = 1e-4  # 2 microbatches against 1: loss abs., grad norm rel.
+RESUME_STEPS = 20  # leg (b): steps before and after the resume
 LM_MODELS = {  # run -> arch, kernel launches per prefill or embed, the
     # tensors given seeded noise (JAX's zero inits, and the rwkv bonus u),
     # the weights' and compute type, and the depth cut (layers, or None)
@@ -2399,8 +2447,9 @@ def _sensitivity(params, cfg, toks, gen, dtype) -> tuple[float, float]:
     logits = []
     with torch.inference_mode():
         for inp in (x, xp):
-            lg, _ = forward(params, cfg, inp, mode="train", backend="ref",
-                            compute_dtype=dtype, last_only=True)
+            lg, _, _ = forward(params, cfg, inp, mode="train",
+                               backend="ref", compute_dtype=dtype,
+                               last_only=True)
             logits.append(lg[:, -1].float())
             del lg
     del x, xp
@@ -2568,6 +2617,253 @@ def phase_lm(run: str) -> dict:
             "embed_err": held["err"], "trace": trace,
             "decode_trace": decode_trace,
             "rag": rag}
+
+
+# ------------------------------------------------------------- 7b. train
+def _checksums(params) -> torch.Tensor:
+    """One int64 per parameter: the sum of its words (a changed value
+    changes it)."""
+    return torch.stack([p.detach().view(-1).view(torch.int32).to(
+        torch.int64).sum() for p in params.parameters()])
+
+
+def _train_full_width() -> dict:
+    """Leg (a) of phase 7b (see the module docstring)."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import abstract_params, init_params, param_count
+    from repro_torch.serve import LMServer
+    from repro_torch.train import AdamW, DataConfig, TokenSource
+    from repro_torch.train import make_train_step
+    from repro_torch.train.optimizer import decay_mask
+
+    cfg = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS,
+                              block_pattern=cfg.block_pattern[:TRAIN_LAYERS])
+    meta = abstract_params(cfg)
+    n_params = param_count(meta)
+    n_vocab = cfg.vocab_size * cfg.d_model
+    n_layers = sum(p.numel() for n, p in meta.named_parameters()
+                   if n.startswith("blocks."))
+    reckon = 16 * n_params  # f32 weights, gradients, m and v
+    del meta
+    print(f"train: {cfg.name} cut to {cfg.num_layers} layers, {n_params} "
+          f"parameters ({n_layers} in the layers, {n_vocab} each in embed "
+          f"and lm_head); weights + gradients + m + v reckoned at {reckon} "
+          f"bytes ({reckon / 1e9:.2f} GB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    params.requires_grad_(True)
+    data = TokenSource(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  kind="random"))
+
+    def batch(step: int):
+        tok, lab = data.host_batch(step, 0, [0])
+        return (torch.as_tensor(tok, device="cuda"),
+                torch.as_tensor(lab, device="cuda"))
+
+    # step 1 on one microbatch, the weights left as they are (lr 0; bf16
+    # moments, which this step never reads back, to save 6 GB)
+    tok, lab = batch(0)
+    before = _checksums(params)
+    zero = AdamW(lr=0.0, warmup=0, state_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    _, st0, m1 = make_train_step(cfg, zero, microbatches=1)(
+        params, zero.init(params), tok, lab)
+    one = {k: float(v) for k, v in m1.items()}
+    peak_one = torch.cuda.max_memory_allocated()
+    if not torch.equal(_checksums(params), before):
+        fail("train: a zero learning rate changed the weights")
+    del st0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = AdamW(lr=3e-4, warmup=2, total_steps=100)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        tok, lab = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, tok, lab)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"ms": ms, **{k: float(v) for k, v in m.items()}})
+        if i == 0:
+            no_grad = [n for n, t in state.m.items() if not bool(
+                (t != 0).any())]
+            same = [n for (n, _), a, b in zip(
+                params.named_parameters(), before, _checksums(params))
+                if a == b]
+            if no_grad or same:
+                fail(f"train: without a gradient {no_grad}, unchanged "
+                     f"{same}")
+    peak = torch.cuda.max_memory_allocated()
+    tok, lab = batch(TRAIN_STEPS)  # one more step, traced
+    trace = _trace(lambda: step(params, state, tok, lab), "train_step")
+    if any(trace["kernels"].values()):
+        fail(f"train step trace: kernel events {trace['kernels']} (the "
+             "step runs the plain versions)")
+    s1 = steps[0]
+    loss_gap = abs(s1["loss"] - one["loss"])
+    norm_gap = abs(s1["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    if not (loss_gap < TRAIN_MICRO_TOL and norm_gap < TRAIN_MICRO_TOL):
+        fail(f"train: {TRAIN_MICRO} microbatches {s1} against one {one}")
+    losses = [s["loss"] for s in steps]
+    if not (all(math.isfinite(x) for x in losses)
+            and abs(losses[0] - math.log(cfg.vocab_size)) < 0.5):
+        fail(f"train: losses {losses}, ln V {math.log(cfg.vocab_size)}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = (6 * (n_layers + n_vocab) + 2 * n_layers) * tokens
+    warm = statistics.median(s["ms"] for s in steps[1:])
+    for i, s in enumerate(steps):
+        print(f"train step {i + 1}: {s['ms']:.1f} ms, {tokens / s['ms'] * 1e3:.0f} "
+              f"tokens/s, {flops / s['ms'] / 1e9:.1f} TFLOP/s; loss "
+              f"{s['loss']:.4f}, grad norm {s['grad_norm']:.4f}, lr "
+              f"{s['lr']:.3e}")
+
+    # the AdamW update alone (the moments stand in for gradients: the same
+    # tensors to read); it moves the weights, which the serve check below
+    # takes as they come
+    decay = decay_mask(cfg)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    upd = []
+    for _ in range(3):
+        ev[0].record()
+        opt.update(state.m, state, params, decay)
+        ev[1].record()
+        torch.cuda.synchronize()
+        upd.append(ev[0].elapsed_time(ev[1]))
+    adamw_ms = statistics.median(upd)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"ok train full width: step {warm:.1f} ms (median of steps 2-"
+          f"{TRAIN_STEPS}), {tokens / warm * 1e3:.0f} tokens/s, "
+          f"{flops / warm / 1e9:.1f} TFLOP/s of {flops:.4e} flops a step "
+          f"({flops / warm / 1e9 / (BF16_FLOPS / 1e12):.3f} of the bf16 "
+          f"peak); one microbatch: loss {one['loss']:.6f}, grad norm "
+          f"{one['grad_norm']:.6f}, {TRAIN_MICRO}: {s1['loss']:.6f}, "
+          f"{s1['grad_norm']:.6f} (gaps {loss_gap:.3e}, {norm_gap:.3e} "
+          f"relative, limit {TRAIN_MICRO_TOL:g}); peak {peak} bytes "
+          f"({peak / 1e9:.2f} GB; one-microbatch check "
+          f"{peak_one / 1e9:.2f} GB) against {reckon / 1e9:.2f} GB reckoned; AdamW update {adamw_ms:.1f} ms "
+          f"({adamw_ms / warm:.3f} of the step)")
+
+    # serve the trained weights as they are
+    B, T = TRAIN_SERVE
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T)).astype(np.int32)
+    runs = {}
+    for backend in ("auto", "ref"):
+        srv = LMServer(cfg, params, max_len=T + 1, device="cuda",
+                       backend=backend, compute_dtype=torch.float32)
+        reset_counts()
+        srv.generate(prompts, steps=1)
+        runs[backend] = (srv.last_run["prefill_logits"], read_counts())
+    (lk, ck), (lp, cp) = runs["auto"], runs["ref"]
+    want = {k: (cfg.num_layers if k == "flash_attention" else 0) for k in ck}
+    err = float((lk - lp).abs().max())
+    scale = float(lp.abs().max())
+    if ck != want or any(cp.values()) or not (
+            torch.isfinite(lk).all() and err <= LM_REL_TOL * scale):
+        fail(f"train serve: launches {ck} (expected {want}), plain {cp}; "
+             f"logits differ by {err} of max {scale}")
+    print(f"ok train serve {B} x {T} (f32, the trained weights): logits err "
+          f"{err:.3e} of max {scale:.3f}, launches {ck}")
+    del params, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "layer_params": n_layers,
+            "reckoned_bytes": reckon, "peak_bytes": peak,
+            "peak_bytes_one_microbatch": peak_one, "steps": steps,
+            "step_ms": warm, "tokens_per_s": tokens / warm * 1e3,
+            "tflops": flops / warm / 1e9, "flops_per_step": flops,
+            "adamw_ms": adamw_ms, "adamw_share": adamw_ms / warm,
+            "one_microbatch": one, "serve_err": err, "serve_max": scale,
+            "launches": ck, "trace": trace}
+
+
+def _train_resume() -> dict:
+    """Leg (b) of phase 7b (see the module docstring)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train import AdamW, DataConfig, TokenSource, Trainer
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH).reduced(), vocab_size=256)
+    data = TokenSource(DataConfig(vocab_size=256, seq_len=64,
+                                  global_batch=16, kind="markov"))
+    total = 2 * RESUME_STEPS
+    opt = AdamW(lr=1e-3, warmup=min(20, total // 5), total_steps=total)
+    root = tempfile.mkdtemp()
+    try:
+        kw = dict(log_every=10, ckpt_every=10)
+        t0 = time.perf_counter()
+        a = Trainer(cfg, opt, data, ckpt_dir=os.path.join(root, "a"), **kw)
+        hist = a.run(RESUME_STEPS)
+        a.finish()
+        a = Trainer(cfg, opt, data, ckpt_dir=os.path.join(root, "a"), **kw)
+        if a.step_idx != RESUME_STEPS:
+            fail(f"train resume: at step {a.step_idx}")
+        hist += a.run(RESUME_STEPS)
+        a.finish()
+        resumed_s = time.perf_counter() - t0
+        b = Trainer(cfg, opt, data, ckpt_dir=os.path.join(root, "b"), **kw)
+        whole = b.run(total)
+        b.finish()
+        same = [n for (n, p), q in zip(a.params.named_parameters(),
+                                       b.params.parameters())
+                if not torch.equal(p, q)]
+        same += [f"m {n}" for n in a.opt_state.m
+                 if not torch.equal(a.opt_state.m[n], b.opt_state.m[n])]
+        same += [f"v {n}" for n in a.opt_state.v
+                 if not torch.equal(a.opt_state.v[n], b.opt_state.v[n])]
+        if same or {int(a.opt_state.step), int(b.opt_state.step)} != {total}:
+            fail(f"train resume: differs from the uninterrupted run in "
+                 f"{same[:5]} ({len(same)} tensors)")
+        la = [(h["step"], h["loss"]) for h in hist]
+        lb = [(h["step"], h["loss"]) for h in whole]
+        floor = data.entropy_rate()
+        first, last = lb[0][1], lb[-1][1]
+        if la != lb or not (last < first and abs(last - floor)
+                            < abs(first - floor)):
+            fail(f"train resume: losses {la} against {lb} (floor {floor})")
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TRAIN_ARCH, "--reduced", "--steps", str(RESUME_STEPS),
+             "--device", "cuda"], capture_output=True, text=True, env=env,
+            timeout=300, cwd=root)
+        launcher_s = time.perf_counter() - t1
+        if res.returncode != 0:
+            fail(f"train launcher exited {res.returncode}:\n{res.stdout}\n"
+                 f"{res.stderr}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"ok train resume: {total} steps resumed at {RESUME_STEPS} bitwise "
+          f"the uninterrupted run (parameters, m, v, step; losses {lb}); "
+          f"loss floor {floor:.4f}; the resumed pair {resumed_s:.2f} s; "
+          f"launcher {launcher_s:.2f} s: "
+          f"{res.stdout.strip().splitlines()[-1]}")
+    return {"losses": lb, "entropy_rate": floor, "resumed_s": resumed_s,
+            "launcher_s": launcher_s}
+
+
+def phase_train() -> dict:
+    return {"full_width": _train_full_width(), "resume": _train_resume()}
 
 
 def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
@@ -3038,6 +3334,9 @@ def main() -> int:
     fa = lap("kernels_flash", kernels_flash, gen)
     wk = lap("kernels_wkv6", kernels_wkv6, gen)
     mb = lap("kernels_mamba", kernels_mamba, gen)
+    train = lap("train", phase_train)
+    print(f"train phase {laps['train']} s")
+    print(f"train: {json.dumps(train)}")
     # last: no traced phase may follow its spawned ranks (see phase 5e)
     sharded = lap("sharded", phase_sharded, device["out"])
     print(f"sharded phase {laps['sharded']} s")
@@ -3111,6 +3410,8 @@ def main() -> int:
                                for a, r in lm.items()
                                if "flash_attention" in r["launches"]},
          "launches_by_path": {
+             "train_serve": train["full_width"]["launches"][
+                 "flash_attention"],
              "rag": lm[RAG_ARCH_RUN]["rag"]["launches"]["flash_attention"],
              "rag_durable": lm[RAG_ARCH_RUN]["rag"]["durable"]["launches"][
                  "flash_attention"]},

@@ -7,18 +7,22 @@ Parameters live in a ``ParamTree``: an ``nn.Module`` whose parameters
 stacked ``blocks`` of the JAX scan unstacked into a list of layers
 (``params["blocks"][i]``, the JAX ``prefix`` layers first).  Weights keep
 the JAX layouts (``wq [d, Hq, D]``, ``lm_head [d, V]``, ...), so
-``from_jax_params`` copies arrays without a transpose.  The layers run in a
-Python loop (the JAX scan exists to keep its compiled program small).
+``from_jax_params`` copies arrays without a transpose and ``to_jax_values``
+restacks them.  The layers run in a Python loop (the JAX scan exists to
+keep its compiled program small); in training each JAX scan unit
+(``cfg.scan_unit`` consecutive layers) is one rematerialised segment.
 
-``forward`` returns ``(logits, new_caches)``; the JAX version also returns
-the MoE load-balance loss, which reaches a caller with training (``moe.
-moe_apply`` returns it).
+Training is a choice at the call site: ``params.requires_grad_(True)``,
+then ``loss_fn`` (the trainer in ``repro_torch.train`` does both).
+``forward`` returns ``(logits, new_caches, aux)`` as the JAX version does,
+``aux`` being the MoE load-balance loss summed over the layers.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 from ..configs.base import ArchConfig
@@ -109,6 +113,13 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, device=None,
     return ParamTree(tree)
 
 
+def abstract_params(cfg: ArchConfig, dtype=torch.float32) -> ParamTree:
+    """The parameter tree on the ``meta`` device: shapes and dtypes, no
+    memory (the counterpart of the JAX ``eval_shape`` tree)."""
+    return init_params(cfg, torch.Generator().manual_seed(0),
+                       device="meta", dtype=dtype)
+
+
 def _to_torch(tree, device, dtype):
     if isinstance(tree, dict):
         return {k: _to_torch(v, device, dtype) for k, v in tree.items()}
@@ -149,6 +160,67 @@ def from_jax_params(cfg: ArchConfig, values: dict, device=None,
     return ParamTree(tree)
 
 
+def _prefix_len(cfg: ArchConfig) -> int:
+    """Leading layers outside the JAX scan (deepseek's dense layers)."""
+    return cfg.moe.first_k_dense if cfg.moe else 0
+
+
+def jax_path(cfg: ArchConfig, name: str) -> tuple[tuple, int | None]:
+    """A parameter's name in the port (``blocks.3.attn.wq``) -> its key
+    path in the JAX value tree and its index on the stacked unit axis
+    (None outside the scan): ``(("blocks", "l0", "attn", "wq"), 3)``, or
+    ``(("prefix", "p0", ...), None)`` for a leading dense layer."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return tuple(parts), None
+    i, pk = int(parts[1]), _prefix_len(cfg)
+    if i < pk:
+        return ("prefix", f"p{i}", *parts[2:]), None
+    u, li = divmod(i - pk, cfg.scan_unit)
+    return ("blocks", f"l{li}", *parts[2:]), u
+
+
+def named_tensors(tree) -> dict:
+    """``{name: tensor}`` of a ``ParamTree`` (its parameters) or of a
+    mapping keyed by such names (the optimizer's moments)."""
+    if isinstance(tree, nn.Module):
+        return dict(tree.named_parameters())
+    return dict(tree)
+
+
+def to_jax_values(cfg: ArchConfig, params) -> dict:
+    """The inverse of ``from_jax_params``: the JAX value tree of numpy
+    arrays, every unit's layers restacked into ``blocks/l{i}`` with the
+    unit axis leading and the leading dense layers under ``prefix/p{i}``.
+    ``params`` is a ``ParamTree`` or a mapping of its parameter names to
+    tensors of the same shapes (the optimizer's moments).  Each tensor is
+    copied once, straight into its place in a fresh host array (bf16 as
+    f32)."""
+    pk = _prefix_len(cfg)
+    if (cfg.num_layers - pk) % cfg.scan_unit:
+        raise ValueError(f"{cfg.num_layers} layers hold no whole number of "
+                         f"{cfg.scan_unit}-layer JAX scan units")
+    n_units = (cfg.num_layers - pk) // cfg.scan_unit
+    arrays: dict = {}
+    for name, t in named_tensors(params).items():
+        path, u = jax_path(cfg, name)
+        if path not in arrays:
+            shape = t.shape if u is None else (n_units, *t.shape)
+            arrays[path] = torch.empty(shape, dtype=(
+                torch.float32 if t.dtype == torch.bfloat16 else t.dtype))
+        (arrays[path] if u is None else arrays[path][u]).copy_(t.detach())
+    out: dict = {}
+    for path, a in arrays.items():
+        _put(out, path, a.numpy())
+    return out
+
+
+def _put(tree: dict, path: tuple, leaf) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = leaf
+
+
 def param_count(params: ParamTree) -> int:
     return sum(p.numel() for p in params.parameters())
 
@@ -181,8 +253,9 @@ def _cast_tree(p, dtype) -> dict:
 
 def _block_apply(p, cfg: ArchConfig, i: int, x: torch.Tensor, mode: str,
                  state, pos, cache_len: int, backend: str):
-    """One layer. Returns (x, new_state)."""
+    """One layer. Returns (x, new_state, MoE aux loss or None)."""
     kind = cfg.mixer_kind(i)
+    aux = None
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_state = state
     if kind == "attn":
@@ -218,10 +291,10 @@ def _block_apply(p, cfg: ArchConfig, i: int, x: torch.Tensor, mode: str,
             new_state = rwk.RWKVState(x_att=carry[0], x_ffn=x_ffn_last,
                                       s=carry[1])
     elif "moe" in p:
-        h, _ = moe_apply(p["moe"], cfg.moe, h)
+        h, aux = moe_apply(p["moe"], cfg.moe, h)
     else:
         h = mlp_apply(p["mlp"], h)
-    return x + h, new_state
+    return x + h, new_state, aux
 
 
 def forward(
@@ -235,14 +308,20 @@ def forward(
     backend: str = "auto",
     compute_dtype=torch.bfloat16,
     last_only: bool = False,
+    remat: bool = True,
 ):
     """inputs: tokens [B, T] (int) or embeddings [B, T, d].  Returns
-    (logits [B, T, V] in the compute type, new_caches or None).
+    (logits [B, T, V] in the compute type, new_caches or None, the MoE
+    load-balance loss summed over the layers: f32, 0 without MoE layers).
     ``last_only``: project logits for the final position only.
     ``backend`` reaches the kernels (``kernels.ops`` policy: "auto" = the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors;
     "ref" = the plain versions, with ``wkv6_chunked`` in the RWKV mixer
     and the step scan ``mamba_scan_ref`` in the Mamba mixer).
+    ``remat``: when autograd records a train-mode forward, each JAX scan
+    unit runs under ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``
+    with ``nothing_saveable``): only a unit's input is kept, and its
+    layers, the cast of its parameters included, run again in backward.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -250,13 +329,31 @@ def forward(
         x = inputs.to(compute_dtype)
     else:
         x = embed_apply(params["embed"], inputs, compute_dtype)
+    blocks = params["blocks"]
     new_caches = [] if caches is not None else None
-    for i, blk in enumerate(params["blocks"]):
-        st = caches[i] if caches is not None else None
-        x, nst = _block_apply(_cast_tree(blk, compute_dtype), cfg, i, x,
-                              mode, st, pos, cache_len, backend)
-        if caches is not None:
-            new_caches.append(nst)
+
+    def span(lo: int, hi: int, x, aux):
+        for i in range(lo, hi):
+            st = caches[i] if caches is not None else None
+            x, nst, a = _block_apply(_cast_tree(blocks[i], compute_dtype),
+                                     cfg, i, x, mode, st, pos, cache_len,
+                                     backend)
+            if caches is not None:
+                new_caches.append(nst)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    pk, n = _prefix_len(cfg), len(blocks)
+    x, aux = span(0, pk, x, aux)  # JAX runs these outside its scan
+    remat = remat and mode == "train" and torch.is_grad_enabled()
+    for lo in range(pk, n, cfg.scan_unit):
+        hi = min(lo + cfg.scan_unit, n)
+        if remat:
+            x, aux = checkpoint(span, lo, hi, x, aux, use_reentrant=False)
+        else:
+            x, aux = span(lo, hi, x, aux)
     if last_only:
         x = x[:, -1:, :]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -264,4 +361,33 @@ def forward(
         logits = logits_apply(params["embed"], x, transpose=True)
     else:
         logits = logits_apply(params["lm_head"], x, transpose=False)
-    return logits, new_caches
+    return logits, new_caches, aux
+
+
+def nll_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
+             aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """The JAX ``loss_fn``'s arithmetic on given logits: f32 logsumexp
+    minus the gold logit, its mean, plus ``aux_weight`` times the aux
+    loss.  The JAX version picks the gold logit by a one-hot einsum, which
+    stays partitionable over a vocab sharded on a mesh; a gather gives the
+    same value."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = torch.mean(logz - gold)
+    total = nll + aux_weight * aux
+    return total, {"nll": nll, "aux": aux}
+
+
+def loss_fn(params: ParamTree, cfg: ArchConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, backend: str = "ref",
+            aux_weight: float = 0.01,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
+    """Mean next-token NLL plus the weighted MoE aux loss of a train-mode
+    forward at the JAX default compute type (bf16) -> (total, {"nll",
+    "aux"}).  ``backend="ref"`` by default, as the JAX trainer: no kernel
+    has a backward, so training runs autograd through the plain
+    versions."""
+    logits, _, aux = forward(params, cfg, tokens, mode="train",
+                             backend=backend, remat=remat)
+    return nll_loss(logits, labels, aux, aux_weight)

@@ -56,7 +56,7 @@ class LMServer:
     def _prefill(self, tokens: torch.Tensor):
         caches = init_cache(self.cfg, tokens.shape[0], self.max_len,
                             self.dtype, device=self.device)
-        logits, caches = forward(
+        logits, caches, _ = forward(
             self.params, self.cfg, tokens, mode="prefill", caches=caches,
             cache_len=self.max_len, backend=self.backend,
             compute_dtype=self.dtype, last_only=True)
@@ -64,7 +64,7 @@ class LMServer:
 
     @torch.inference_mode()
     def _decode(self, tok: torch.Tensor, pos: torch.Tensor, caches: list):
-        logits, caches = forward(
+        logits, caches, _ = forward(
             self.params, self.cfg, tok, mode="decode", caches=caches,
             pos=pos, cache_len=self.max_len, backend=self.backend,
             compute_dtype=self.dtype)
@@ -118,9 +118,9 @@ class LMServer:
         so attention goes through the flash kernel)."""
         toks = torch.as_tensor(np.asarray(tokens, np.int32),
                                device=self.device)
-        logits, _ = forward(self.params, self.cfg, toks, mode="train",
-                            backend=self.backend, compute_dtype=self.dtype,
-                            last_only=True)
+        logits, _, _ = forward(self.params, self.cfg, toks, mode="train",
+                               backend=self.backend,
+                               compute_dtype=self.dtype, last_only=True)
         probs = torch.softmax(logits[:, -1].float(), dim=-1)
         emb = probs @ self.params["embed"].float()
         return emb.cpu().numpy().astype(np.float32)

@@ -147,3 +147,45 @@ def four_ranks(build: tuple, serve: tuple) -> dict:
     """The four-rank cases in one spawn: a sharded build at 4 shards and
     the serving function on a 2 x 2 mesh."""
     return {"build": sharded_build(*build), "serve": serve_waves(*serve)}
+
+
+def train_ranks(g_all, e_all, steps: int, ws, xs) -> dict:
+    """The training collectives on four ranks in one spawn: this rank's
+    shared-scale int8 payload and ``compressed_psum`` of its row of
+    ``g_all``/``e_all``; the running mean of ``steps`` error-feedback
+    reductions of that row; and ``make_gpipe`` over a 1-D ``pod`` mesh of
+    every rank (stage s = rank s, ``tanh(x @ w)``) and over a 2 x 2
+    ``(pod, data)`` mesh (two stages a column)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel import build_mesh, serving_mesh
+    from repro_torch.train.compress import compressed_psum, shared_quantize
+    from repro_torch.train.pipeline import make_gpipe
+
+    rank = dist.get_rank()
+    g = torch.from_numpy(g_all[rank])
+    e = torch.from_numpy(e_all[rank])
+    q, scale, _ = shared_quantize(g, e)
+    out, new_e = compressed_psum({"w": g}, {"w": e})
+    err = {"w": torch.zeros_like(g)}
+    acc = torch.zeros_like(g)
+    for _ in range(steps):
+        mean, err = compressed_psum({"w": g}, err)
+        acc += mean["w"]
+    def stage(w, x):
+        return torch.tanh(x @ w)
+
+    mesh = build_mesh(dist.get_world_size(), axis="pod", device="cpu")
+    got = make_gpipe(mesh, stage, "pod")(torch.from_numpy(ws),
+                                         torch.from_numpy(xs))
+    # a 2 x 2 (pod, data) mesh: each data column runs its own two stages
+    grid = serving_mesh(2, 2, device="cpu")
+    grid = dataclasses.replace(grid, axes=("pod", "data"))
+    got2 = make_gpipe(grid, stage, "pod")(torch.from_numpy(ws[:2]),
+                                          torch.from_numpy(xs))
+    return {"q": q.numpy(), "scale": float(scale), "out": out["w"].numpy(),
+            "new_e": new_e["w"].numpy(), "ef_mean": (acc / steps).numpy(),
+            "gpipe": got.numpy(), "gpipe_2x2": got2.numpy()}

@@ -1,6 +1,6 @@
 """The port stands alone: importing its entry point loads neither ``jax``,
 ``ml_dtypes`` nor the JAX package ``repro``, and no source file of the
-port (or ``chip_smoke.py``, or the port's example) imports them."""
+port (or ``chip_smoke.py``, or the port's examples) imports them."""
 import ast
 import os
 import subprocess
@@ -33,6 +33,11 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.persist.replicate, repro_torch.serve.cluster\n"
         "import repro_torch.parallel, repro_torch.parallel.sharding\n"
         "import repro_torch.core.distributed, repro_torch.core.baselines\n"
+        "import repro_torch.train, repro_torch.train.optimizer\n"
+        "import repro_torch.train.train_loop, repro_torch.train.checkpoint\n"
+        "import repro_torch.train.data, repro_torch.train.elastic\n"
+        "import repro_torch.train.compress, repro_torch.train.pipeline\n"
+        "import repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -47,7 +52,8 @@ def test_entry_point_loads_no_jax():
 def _sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "examples" / "rag_serve_torch.py"]
+                    ROOT / "examples" / "rag_serve_torch.py",
+                    ROOT / "examples" / "train_lm_torch.py"]
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)

@@ -17,7 +17,8 @@ attention archs, where both sides do the same f32 arithmetic in another
 order (measured <= 3.4e-6); 3e-4 for rwkv6, the wkv6 tolerance of the JAX
 package's own kernel tests, since against the Pallas kernel the port's
 plain path runs the step recurrence and JAX the chunked closed form
-(measured 1.5e-4; 5e-5 chunked against chunked).
+(measured 1.5e-4; 5e-5 chunked against chunked).  The train forward's
+MoE aux loss (f32, 0 without MoE layers) is held to the same tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -80,8 +81,8 @@ def test_all_archs_registered():
                          ids=["pallas", "ref"])
 @pytest.mark.parametrize("arch", SUPPORTED)
 def test_forward_matches_jax(arch, backends):
-    """train / prefill / decode logits, one prompt of T tokens then one
-    decoded token; T > window for the sliding-window arch, so its decode
+    """train / prefill / decode logits and the train forward's aux loss,
+    one prompt of T tokens then one decoded token; T > window for the sliding-window arch, so its decode
     runs on the ring the prefill left.  That T is a multiple of the
     window: the reference's prefill leaves the ring right only then
     (``test_window_decode_after_prefill_matches_forward`` holds the port
@@ -102,28 +103,29 @@ def test_forward_matches_jax(arch, backends):
     kw = dict(backend=jb, compute_dtype=jnp.float32)
     tkw = dict(backend=tb, compute_dtype=torch.float32)
 
-    jl, _, _ = jax_forward(jv, cfg, jnp.asarray(prompt), mode="train",
-                           remat=False, **kw)
-    tl, _ = forward(params, tcfg, torch.from_numpy(prompt), mode="train",
-                    **tkw)
+    jl, _, jaux = jax_forward(jv, cfg, jnp.asarray(prompt), mode="train",
+                              remat=False, **kw)
+    tl, _, taux = forward(params, tcfg, torch.from_numpy(prompt),
+                          mode="train", **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=atol)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=0, atol=atol)
 
     jc = jax_init_cache(cfg, B, S, jnp.float32)
     jl, jc, _ = jax_forward(jv, cfg, jnp.asarray(prompt), mode="prefill",
                             caches=jc, cache_len=S, **kw)
     tc = init_cache(tcfg, B, S, torch.float32, device="cpu")
-    tl, tc = forward(params, tcfg, torch.from_numpy(prompt), mode="prefill",
-                     caches=tc, cache_len=S, **tkw)
+    tl, tc, _ = forward(params, tcfg, torch.from_numpy(prompt),
+                        mode="prefill", caches=tc, cache_len=S, **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=atol)
 
     jl, _, _ = jax_forward(jv, cfg, jnp.asarray(nxt), mode="decode",
                            caches=jc, pos=jnp.asarray(pos), cache_len=S,
                            **kw)
-    tl, _ = forward(params, tcfg, torch.from_numpy(nxt), mode="decode",
-                    caches=tc, pos=torch.from_numpy(pos), cache_len=S,
-                    **tkw)
+    tl, _, _ = forward(params, tcfg, torch.from_numpy(nxt), mode="decode",
+                       caches=tc, pos=torch.from_numpy(pos), cache_len=S,
+                       **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
                                atol=atol)
 
@@ -147,13 +149,14 @@ def test_window_decode_after_prefill_matches_forward(T):
     x = torch.from_numpy(inputs(cfg, B, T + steps, seed=T))
     kw = dict(backend="auto", compute_dtype=torch.float32)
     tc = init_cache(tcfg, B, S, torch.float32, device="cpu")
-    _, tc = forward(params, tcfg, x[:, :T], mode="prefill", caches=tc,
-                    cache_len=S, **kw)
+    _, tc, _ = forward(params, tcfg, x[:, :T], mode="prefill", caches=tc,
+                       cache_len=S, **kw)
     for t in range(T, T + steps):
         pos = torch.full((B,), t, dtype=torch.int32)
-        got, tc = forward(params, tcfg, x[:, t:t + 1], mode="decode",
-                          caches=tc, pos=pos, cache_len=S, **kw)
-        full, _ = forward(params, tcfg, x[:, :t + 1], mode="train", **kw)
+        got, tc, _ = forward(params, tcfg, x[:, t:t + 1], mode="decode",
+                             caches=tc, pos=pos, cache_len=S, **kw)
+        full, _, _ = forward(params, tcfg, x[:, :t + 1], mode="train",
+                             **kw)
         np.testing.assert_allclose(got[:, -1].numpy(), full[:, -1].numpy(),
                                    rtol=0, atol=2e-5)
 
