@@ -11,6 +11,10 @@ before the path and reads the counters just after it:
   1. build — every CUDA source under ``src/repro_torch/csrc`` is compiled by
      ``nvcc`` (one process per source, all started together), with its
      ptxas report;
+  1b. lint — the port's wowlint (``repro_torch.analysis``) in processes of
+     their own: ``--fail-on-findings`` over the shipped tree must exit 0
+     (the empty ``wowlint_torch_baseline.json``), and ``--compile-smoke``
+     must count a hop chunk's capture once and nothing at its replay;
   2. host-built serve (the first slice's path) — ``repro_torch.launch.
      serve.main`` builds an 8,192-vector d = 128 index on the host with
      ``--build-backend ops`` (the host search, every hop's distances
@@ -78,7 +82,30 @@ before the path and reads the counters just after it:
      admission to reply, waves, chunks, shed waves, degraded and expired
      counts, the chunk schedule, the ``gather_norm_dot`` launches and
      replayed hops (one of the two > 0 in every kernel run, none in a
-     plain run) and the graph captures after warm-up;
+     plain run) and the graph captures after warm-up; (b) also prints its
+     captures after warm-up split into serving chunks (which must be 0:
+     its ingest stays within the snapshot's capacity) and the device
+     build's construction-search chunks (``CaptureCounter``), its rows/s
+     applied and its p99 beside those of the design whose every refresh
+     re-keyed the graph cache (REKEYED_5B);
+  5b2. guard — the capture guard (``repro_torch.analysis.CaptureCounter``)
+     on the shape-stable-ingest contract, on the index as phase 5b leaves
+     it (131,072-row capacity): a ``ServeEngine`` (kernel, bitmap, static
+     knobs, max_wave 64, the host build for its ingest, as the JAX
+     package's gate has it: the device build's own construction-search
+     chunks are not the engine's) warms up and serves the 256 queries as a
+     closed burst, then GUARD_WAVES more bursts with GUARD_ROWS rows
+     (attributes above every query range) ingested in micro-batches of
+     GUARD_BATCH, a quarter admitted with each burst and applied between
+     its chunks, then a final burst.  Checks: the capacity (rows, unique
+     values, layers) unchanged, no capture and no kernel build or load
+     after warm-up, every reply bitwise the kernel's ``search_batch`` on
+     the snapshot its wave launched with (waves in flight across a refresh
+     finish on theirs), recall@10 >= 0.90.  Prints the warm-up seconds and
+     captures, the serving set's bytes and copy-ins, one copy-in's time
+     (CUDA events over 10) beside its bound (the set's bytes read and
+     written over 3.35 TB/s), rows/s, QPS, p50/p99, the launches and
+     replayed hops;
   5c. durable — the durable lifecycle (``repro_torch.persist``) on the
      same index of phase 3 (after phase 5b's ingests; no second build),
      under a fresh ``tempfile.mkdtemp()`` root removed at the end:
@@ -398,6 +425,13 @@ CLUSTER_BATCH = 128  # rows an ack (both legs)
 CLUSTER_OUTSTANDING = 64  # queries in flight at the kill and the restart
 SIGKILL_BATCHES = 6  # cluster leg (b): the child's batches
 SIGKILL_ACKED = 4  # ... it SIGKILLs itself after this many acks
+GUARD_ROWS = 1024  # phase 5b2: rows ingested within the snapshot capacity
+GUARD_BATCH = 128  # ... in micro-batches of this many rows
+GUARD_WAVES = 4  # ... spread over this many bursts of the queries
+# phase 5b (b) before the refresh kept the engine's graphs: every refresh
+# re-keyed the graph cache (chip_smoke.py's phase 5b (b) then, on an H100
+# 80GB HBM3 at 700 W)
+REKEYED_5B = "31-32 captures, 31-36 rows/s applied, p99 5.4 s"
 N_SHARDED = 8192  # phase 5e: rows of phase 3's stream built three ways
 SHARDED_RANKS = 2  # phase 5e: ranks on the one card
 SHARDED_KW = dict(m=16, ef_construction=64, o=4, seed=0)  # phase 3's
@@ -943,11 +977,25 @@ def _engine_bitwise(tag: str, run: dict, ref, snap, scale: float,
                   SearchResult(*(np.asarray(b)[ok] for b in want)), scale)
 
 
+def _capture_kinds(cc) -> dict:
+    """A ``CaptureCounter``'s events split into serving chunks (k < W),
+    construction-search chunks (k = W) and kernel builds and loads."""
+    out = {"serving": 0, "build": 0, "other": 0}
+    for kind, name, _ in cc.events:
+        if kind != "capture":
+            out["other"] += 1
+            continue
+        f = dict(kv.split("=") for kv in name.split() if "=" in kv)
+        out["build" if f["k"] == f["W"] else "serving"] += 1
+    return out
+
+
 def phase_engine(out: dict) -> dict:
     """The request-lifecycle engine on the device-built index (see the
     module docstring, phase 5b)."""
     import numpy as np
 
+    from repro_torch.analysis import CaptureCounter
     from repro_torch.core.datasets import make_attrs, make_vectors
     from repro_torch.core.device_search import search_batch
     from repro_torch.core.snapshot import take_snapshot
@@ -1024,10 +1072,11 @@ def phase_engine(out: dict) -> dict:
         vecs = make_vectors(N_INGEST, snap.vectors.shape[1], seed=200 + b)
         attrs = make_attrs(vecs, seed=200 + b) + top
         rate = a["qps"] / 2.0
-        bb = _engine_run(f"{backend} (b) open loop at {rate:.1f} QPS + "
-                         f"{N_INGEST} ingested", backend, wl, idx, snap,
-                         extra=("--rate", str(rate), "--ingest",
-                                str(N_INGEST)), ingest=(vecs, attrs))
+        with CaptureCounter() as bcc:
+            bb = _engine_run(f"{backend} (b) open loop at {rate:.1f} QPS + "
+                             f"{N_INGEST} ingested", backend, wl, idx, snap,
+                             extra=("--rate", str(rate), "--ingest",
+                                    str(N_INGEST)), ingest=(vecs, attrs))
         if bb["stats"]["ingest"]["rows"] != N_INGEST or len(idx) != \
                 len(snap.attrs) + N_INGEST:
             fail(f"engine {backend} (b): ingest incomplete")
@@ -1036,6 +1085,24 @@ def phase_engine(out: dict) -> dict:
               f"rows/s), snapshot refreshed {bb['snapshot_refreshed']}; "
               f"graph cache before {bb['graphs_before']}, after "
               f"{bb['graphs_after']}")
+        # the engine's chunks run at k 10 < width 64, the device build's
+        # construction searches at k = width; the counter spans the run's
+        # warm-up too, whose captures are all serving chunks
+        kinds = _capture_kinds(bcc)
+        kinds["serving"] -= bb["warmup_counts"]["captures"]
+        print(f"engine {backend} (b) under ingest: "
+              f"{bb['captures_after_warmup']} captures after warm-up "
+              f"(serving chunks {kinds['serving']}, construction-search "
+              f"chunks {kinds['build']}, kernel builds/loads "
+              f"{kinds['other']}), {N_INGEST / bb['ingest_s']:.1f} rows/s "
+              f"applied while serving, p99 "
+              f"{bb['latency_ms']['p99'] / 1e3:.3f} s; with each refresh "
+              f"re-keying the graph cache: {REKEYED_5B}")
+        bb["capture_kinds"] = kinds
+        if kinds["serving"]:
+            fail(f"engine {backend} (b): {kinds['serving']} serving chunks "
+                 "captured after warm-up under an ingest within the "
+                 "snapshot's capacity")
         snap = take_snapshot(idx, prev=snap)
         top = float(np.max(attrs)) + 1.0
         runs[backend] = {"a": a, "b": bb, "c": c}
@@ -1046,6 +1113,151 @@ def phase_engine(out: dict) -> dict:
                    for rr in runs.values() for r in rr.values())
     return {"runs": runs, "launches": launches, "replayed": replayed,
             "traced": traced}
+
+
+def phase_lint() -> dict:
+    """The port's wowlint in processes of its own (phase 1b):
+    ``python -m repro_torch.analysis --fail-on-findings`` over the shipped
+    tree, then ``--compile-smoke`` on the card; a non-zero exit of either
+    fails the run."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    out = {}
+    for flag in ("--fail-on-findings", "--compile-smoke"):
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.analysis", flag],
+            capture_output=True, text=True, env=env, cwd=HERE, timeout=300)
+        lines = res.stdout.strip().splitlines()
+        last = lines[-1] if lines else ""
+        print(f"wowlint {flag}: exit {res.returncode} in "
+              f"{time.time() - t0:.1f} s: {last}")
+        if res.returncode != 0:
+            fail(f"wowlint {flag} exited {res.returncode}:\n{res.stdout}"
+                 f"{res.stderr}")
+        out[flag] = last
+    return out
+
+
+def phase_guard(out: dict) -> dict:
+    """The capture-guard leg (phase 5b2; see the module docstring): the
+    engine on the index as phase 5b leaves it, warmed up, then bursts of
+    the queries with GUARD_ROWS rows ingested between and under them, in
+    ``CaptureCounter``."""
+    import numpy as np
+
+    from repro_torch.analysis import CaptureCounter
+    from repro_torch.core import recall
+    from repro_torch.core.datasets import make_attrs, make_vectors
+    from repro_torch.core.device_search import search_batch
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.lifecycle import EngineConfig
+
+    idx, wl = out["index"], out["workload"]
+    t_leg = time.time()
+    cfg = EngineConfig(k=10, width=64, backend="cuda", visited="bitmap",
+                       adaptive=False, max_wave=64, build_backend="numpy",
+                       ingest_batch=GUARD_BATCH)
+    eng = ServeEngine(index=idx, config=cfg, device="cuda")
+    with CaptureCounter("warmup") as warm:
+        warm_s = eng.warmup()
+    di = eng._di
+    cap = (di.vectors.shape[0], di.uvals.shape[0], di.neighbors.shape[0])
+    top = float(np.max(idx.store.attrs[: idx.store.n])) + 1.0
+    vecs = make_vectors(GUARD_ROWS, idx.dim, seed=300)
+    attrs = make_attrs(vecs, seed=300) + top
+    per = GUARD_ROWS // GUARD_WAVES
+    n0, launched, replies = len(idx), {}, []
+    reset_counts()
+    t0 = time.time()
+    with CaptureCounter("after warmup") as cc:
+        for burst in range(GUARD_WAVES + 2):  # first, interleaved, final
+            if 1 <= burst <= GUARD_WAVES:
+                lo = (burst - 1) * per
+                eng.submit_ingest(vecs[lo:lo + per], attrs[lo:lo + per])
+            qi = {eng.submit(wl.queries[i], wl.ranges[i]).rid: i
+                  for i in range(QUERIES)}
+            while not eng.idle:
+                queued, waves = list(eng._queue), eng.stats.waves
+                replies.extend((qi, r) for r in eng.step())
+                if eng.stats.waves > waves:  # a wave launched on eng._snap
+                    for req in queued[: len(queued) - len(eng._queue)]:
+                        launched[req.rid] = eng._snap
+        torch.cuda.synchronize()
+    serve_s = time.time() - t0
+    counts, replays = read_counts(), read_replays()
+    di = eng._di
+    cap_after = (di.vectors.shape[0], di.uvals.shape[0],
+                 di.neighbors.shape[0])
+    if len(idx) != n0 + GUARD_ROWS or cap_after != cap:
+        fail(f"guard: {len(idx) - n0} rows ingested, capacity {cap} -> "
+             f"{cap_after}")
+    if cc.count:
+        fail(f"guard: {cc.count} captures/builds after warm-up: "
+             f"{cc.events[:8]}")
+    if counts["gather_norm_dot"] + replays["hops"] <= 0:
+        fail("guard: gather_norm_dot neither launched nor replayed")
+    snaps = {id(s): s for s in launched.values()}
+    want = {k: search_batch(s, wl.queries, wl.ranges, k=10, width=64,
+                            backend="cuda", device="cuda")
+            for k, s in snaps.items()}
+    recs = []
+    for qmap, r in replies:
+        i, snap = qmap[r.rid], launched[r.rid]
+        ref = want[id(snap)]
+        ids = np.where(ref.ids[i] >= 0,
+                       snap.ids_map[np.clip(ref.ids[i], 0, None)], -1)
+        if r.degraded or not (np.array_equal(r.ids, ids)
+                              and np.array_equal(r.dists, ref.dists[i])
+                              and (r.hops, r.dc) == (ref.hops[i],
+                                                     ref.dc[i])):
+            fail(f"guard: reply {r.rid} differs from search_batch on the "
+                 "snapshot its wave launched with")
+        recs.append(recall(np.asarray([j for j in r.ids if j >= 0]),
+                           wl.gt[i]))
+    rec = float(np.mean(recs))
+    if len(replies) != QUERIES * (GUARD_WAVES + 2) or rec < 0.90:
+        fail(f"guard: {len(replies)} replies, recall@10 {rec:.4f}")
+    st, sets = eng.engine_stats(), eng.serving_set_stats()
+    # one copy-in: every tensor of the set rewritten from a snapshot of
+    # the same capacity, timed by CUDA events over 10 of them
+    (buf, _), = eng._sets._sets.values()
+    src = [t.clone() for t in buf]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for rep in range(11):  # the first one warms up
+        if rep == 1:
+            ev[0].record()
+        for dst, t in zip(buf, src):
+            dst.copy_(t)
+    ev[1].record()
+    torch.cuda.synchronize()
+    copy_ms = ev[0].elapsed_time(ev[1]) / 10
+    copy_bound_ms = 2 * sets["bytes"] / HBM_BYTES_PER_S * 1e3
+    del src
+    res = {"warmup_s": warm_s, "warmup_captures": warm.by_kind,
+           "copy_in_ms": copy_ms, "copy_in_bound_ms": copy_bound_ms,
+           "serve_s": serve_s, "replies": len(replies),
+           "snapshots": len(snaps), "recall": rec,
+           "captures_after_warmup": cc.count, "capacity": cap,
+           "set_bytes": sets["bytes"], "set_copies": sets["copies"],
+           "rows_per_s": GUARD_ROWS / serve_s, "qps": st["qps"],
+           "p50_ms": st["p50_ms"], "p99_ms": st["p99_ms"],
+           "waves": st["waves"], "chunks": st["chunks"],
+           "launches": counts["gather_norm_dot"],
+           "replayed_hops": replays["hops"], "s": time.time() - t_leg}
+    print(f"guard: warm-up {warm_s:.3f} s ({warm.by_kind}), capacity "
+          f"(rows, uvals, layers) {cap}; {len(replies)} replies in "
+          f"{serve_s:.3f} s with {GUARD_ROWS} rows ingested in "
+          f"{GUARD_ROWS // GUARD_BATCH} micro-batches over "
+          f"{GUARD_WAVES} of {GUARD_WAVES + 2} bursts: 0 captures after "
+          f"warm-up, every reply bitwise search_batch on its wave's "
+          f"snapshot ({len(snaps)} snapshots), recall@10 {rec:.4f}, "
+          f"{st['qps']:.1f} QPS, p50 {st['p50_ms']:.3f} p99 "
+          f"{st['p99_ms']:.3f} ms, waves {st['waves']}, chunks "
+          f"{st['chunks']}; serving set {sets['bytes']} bytes, "
+          f"{sets['copies']} copy-ins of {copy_ms:.4f} ms each (bound "
+          f"{copy_bound_ms:.4f} ms); gather_norm_dot launches "
+          f"{counts['gather_norm_dot']} + replayed hops {replays['hops']}")
+    return res
 
 
 def _dir_mb(path: str) -> float:
@@ -3317,11 +3529,14 @@ def main() -> int:
         return out
 
     lap("build", phase_build)
+    lint = lap("lint", phase_lint)
     host = lap("host_serve", phase_host_serve)
     device = lap("device_build", phase_device_build)
     lap("int8_build", phase_int8_build, host["f32_recall"])
     traced = lap("trace", phase_trace, device["out"])
     engine = lap("engine", phase_engine, device["out"])
+    guard = lap("guard", phase_guard, device["out"])
+    print(f"guard phase {laps['guard']} s")
     durable = lap("durable", phase_durable, device["out"])
     cluster = lap("cluster", phase_cluster, device["out"])
     print(f"cluster phase {laps['cluster']} s")
@@ -3369,6 +3584,14 @@ def main() -> int:
          "launches_by_path": {
              "engine": engine["launches"]["gather_norm_dot"],
              "engine_replayed": engine["replayed"],
+             "engine_b_under_ingest": {
+                 b: {"captures": r["b"]["captures_after_warmup"],
+                     **r["b"]["capture_kinds"],
+                     "rows_per_s": N_INGEST / r["b"]["ingest_s"],
+                     "p99_ms": r["b"]["latency_ms"]["p99"]}
+                 for b, r in engine["runs"].items()},
+             "guard": guard["launches"],
+             "guard_replayed_hops": guard["replayed_hops"],
              "rag": lm[RAG_ARCH_RUN]["rag"]["launches"]["gather_norm_dot"],
              "rag_engine": lm[RAG_ARCH_RUN]["rag"]["engine_launches"][
                  "gather_norm_dot"],
@@ -3391,6 +3614,9 @@ def main() -> int:
                                         for k, v in cluster["b"].items()}},
          "sharded": {k: sharded[k]
                      for k in ("rows_per_s", "ranks", "serve", "row_sq")},
+         "guard": {k: v for k, v in guard.items()
+                   if k not in ("launches", "replayed_hops")},
+         "wowlint": lint,
          "shape": {k: g_main[k] for k in ("vec_dtype", "n", "B", "K", "D")}},
         {"name": "batched_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/batched_dot.cu",

@@ -78,6 +78,7 @@ the chunked compaction driver, read back once per (micro-batch, layer).
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -85,6 +86,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels.ops import BACKENDS, gather_norm_dot, merge_src_indices
+from ..monitoring import record_event
 from .hop_reference import dedupe_pairwise, eval_materialized, merge_full_sort
 from .snapshot import Snapshot, writable
 from .store import VEC_DTYPES, quantize_rows
@@ -140,9 +142,10 @@ def to_device_index(snap: Snapshot, vec_dtype: str | None = None,
     for finite filter ranges: pad neighbor rows are ``-1`` (never
     gathered), pad attrs are ``+inf`` (outside any finite range), and pad
     uvals are ``+inf`` with representative 0 — ``searchsorted`` positions
-    for finite query bounds are unchanged by an all-``+inf`` tail.  (In
-    JAX the padding keeps compiled shapes stable across ingest; here it
-    keeps the two packages' tensors equal.)
+    for finite query bounds are unchanged by an all-``+inf`` tail.  The
+    padding keeps shapes stable across ingest: in JAX the compiled ones,
+    here the serve engine's buffers and the CUDA graphs captured on them
+    (``serve.lifecycle``), and it keeps the two packages' tensors equal.
 
     ``vec_dtype`` selects the device slab storage mode ("f32"/"int8"/
     "bf16"; default: the snapshot's own ``vec_dtype``).  Quantized slabs
@@ -856,6 +859,7 @@ class _GraphedChunk:
     on one stream, as here."""
 
     def __init__(self, di: DeviceIndex, cfg: HopCfg, st: HopState, h: int):
+        t0 = time.perf_counter()
         self.static = st._replace(**{
             f: getattr(st, f).clone() for f in _STATE_TENSORS})
         GRAPH_CAPTURES["chunks"] += 1
@@ -865,6 +869,9 @@ class _GraphedChunk:
             for _ in range(h):
                 out = _hop_body(di, cfg, out)
         self.out = out
+        record_event("capture", f"hop chunk h={h} B={st.res_i.shape[0]} "
+                     f"k={cfg.k} W={cfg.width} n={di.neighbors.shape[1]}",
+                     time.perf_counter() - t0)
         self.h = h
         # the kernel each captured hop launched (graphs exist only on the
         # card, where "auto" is the kernel)
@@ -1094,7 +1101,7 @@ def _init_build_state(di: DeviceIndex, queries, ranges, eps, l_lo, l_hi,
     vstate = torch.zeros((B, v_words + 1), dtype=torch.int64, device=dev)
     # mark exactly the preloaded beam (kept seeds + entries), as the host
     # does; the carry is id-deduped, so the bitmap's add is an OR
-    _visited_mark(vstate, res_i.clamp(min=0), res_i >= 0, cfg)
+    vstate = _visited_mark(vstate, res_i.clamp(min=0), res_i >= 0, cfg)
     return HopState(
         queries=queries,
         q2=q2,

@@ -17,7 +17,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from ..monitoring import record_event
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # repo root = parents[3] of src/repro_torch/kernels/_build.py
@@ -63,8 +66,9 @@ def _target(name: str) -> Path:
 
 
 def _start(name: str):
-    """Start ``nvcc`` for one source -> (Popen, tmp path, target) or None
-    when the library for this exact source is already built."""
+    """Start ``nvcc`` for one source -> (Popen, tmp path, target, start
+    time) or None when the library for this exact source is already
+    built."""
     target = _target(name)
     if target.exists():
         return None
@@ -73,16 +77,17 @@ def _start(name: str):
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, target
+    return proc, tmp, target, time.perf_counter()
 
 
 def _finish(name: str, started) -> None:
-    proc, tmp, target = started
+    proc, tmp, target, t0 = started
     out, _ = proc.communicate()
     BUILD_LOG[name] = out
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
     os.replace(tmp, target)  # atomic: a concurrent loader sees all or none
+    record_event("build", name, time.perf_counter() - t0)
 
 
 def build_all() -> list[str]:
@@ -97,10 +102,13 @@ def build_all() -> list[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The bound library of kernel ``name``, built on first use."""
+    """The bound library of kernel ``name``, built on first use.  A load
+    that is not cached reports a ``"load"`` event (``repro_torch.
+    monitoring``), after the ``"build"`` event of its ``nvcc`` run."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
+    t0 = time.perf_counter()
     st = _start(name)
     if st is not None:
         _finish(name, st)
@@ -109,4 +117,5 @@ def load(name: str) -> ctypes.CDLL:
     fn.argtypes = list(SIGNATURES[name])
     fn.restype = ctypes.c_int
     _LIBS[name] = lib
+    record_event("load", name, time.perf_counter() - t0)
     return lib

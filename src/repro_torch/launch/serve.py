@@ -56,6 +56,10 @@ mean-DC and hop lines; ``main`` returns that run under ``"mesh"``.  Under
 prints); outside it, ``--build-shards 1`` and ``--mesh 1x1`` run in this
 one process.
 
+``--trace-compiles`` prints every CUDA-graph capture and kernel-library
+build or load of the run to stderr as it happens
+(``repro_torch.analysis.compile_guard.trace_compiles``).
+
 ``--cluster N`` is replicated serving (``repro_torch.serve.cluster``), a
 mode of its own beside the one-shot runs and ``--engine``: N members
 (a primary and N-1 replicas, one durable root each under ``--index-dir``
@@ -193,6 +197,12 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None,
                     help="torch device to build and serve on (default: "
                          "cuda)")
+    ap.add_argument("--trace-compiles", action="store_true",
+                    help="print every CUDA-graph capture and kernel-library "
+                         "build or load to stderr as it happens (wowlint "
+                         "capture guard): a capture after warmup is a "
+                         "shape-stability bug, visible here as a "
+                         "timestamped line instead of a silent p99 spike")
     return ap
 
 
@@ -218,10 +228,14 @@ def main(argv: list[str] | None = None) -> dict:
 
     ap = _parser()
     args = ap.parse_args(argv)
-    if _join_ranks():
-        with contextlib.redirect_stdout(io.StringIO()):
-            return _main(ap, args)
-    return _main(ap, args)
+    with contextlib.ExitStack() as stack:
+        if args.trace_compiles:
+            from ..analysis.compile_guard import trace_compiles
+
+            stack.enter_context(trace_compiles("launch.serve"))
+        if _join_ranks():
+            stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        return _main(ap, args)
 
 
 def _main(ap: argparse.ArgumentParser, args) -> dict:

@@ -43,12 +43,18 @@ compacted, graph-replayed path.  Two things follow:
   run eagerly once and then captured, so a static engine captures
   nothing during traffic.  A wave's first chunk holds the seed iteration
   and always runs eagerly.
-* A snapshot refresh (after an ingest) uploads a new ``DeviceIndex``,
-  whose data pointers are part of the graph cache's key: each chunk shape
-  then runs eagerly once more and is captured at its second sight, on ops
-  already warm.  The engine does not re-warm on refresh (that would cost
-  a warm-up per ingest micro-batch); the old graphs age out of the
-  cache's LRU (``graph_cache_stats``).
+* The graph cache keys a chunk by its ``DeviceIndex``'s data pointers,
+  so every chunk runs on the engine's serving set (``_ServingSets``): one
+  set of device buffers per snapshot capacity (the pow2 row and unique-
+  value capacities and the layer count).  A snapshot refresh (after an
+  ingest) uploads a new ``DeviceIndex``, which a wave keeps as its own
+  snapshot; before a chunk runs, the set takes its wave's snapshot by a
+  device-to-device copy when it holds another one.  A refresh within the
+  capacity thus keeps every pointer and captures nothing, and a wave in
+  flight across it finishes on the snapshot it launched with, as in the
+  reference.  A refresh that crosses a capacity allocates a new set,
+  whose chunk shapes are captured anew (as JAX compiles there), and the
+  sets no wave holds any longer are freed.
 
 Determinism for tests: the clock (``now``) is injectable, and an
 **WAL-backed ingest** — ``submit_ingest`` validates rows individually,
@@ -77,6 +83,7 @@ import torch
 from .. import resolve_device
 from ..core.device_search import (
     _MIN_BUCKET,
+    DeviceIndex,
     _compact_rows,
     _init_state,
     _pow2ceil,
@@ -311,13 +318,55 @@ class EngineConfig:
             raise ValueError("queue_cap/max_wave/max_slots must be >= 1")
 
 
+class _ServingSets:
+    """The device buffers every hop chunk of the engine runs on: one set
+    per snapshot capacity, so the graphs captured on a set stay valid
+    across refreshes (see the module docstring).  ``bind(src)`` returns
+    the set of ``src``'s capacity holding ``src``'s tensors, copying them
+    in (device to device) when the set holds another snapshot."""
+
+    def __init__(self):
+        self._sets: dict = {}  # capacity -> [buffers, snapshot held]
+        self.copies = 0  # copy-ins of a snapshot into an existing set
+
+    @staticmethod
+    def _capacity(di: DeviceIndex) -> tuple:
+        return tuple((tuple(t.shape), t.dtype) for t in di)
+
+    def bind(self, src: DeviceIndex) -> DeviceIndex:
+        cap = self._capacity(src)
+        entry = self._sets.get(cap)
+        if entry is None:
+            entry = self._sets[cap] = [
+                DeviceIndex(*(t.clone() for t in src)), src]
+        elif entry[1] is not src:
+            for dst, t in zip(entry[0], src):
+                dst.copy_(t)
+            entry[1] = src
+            self.copies += 1
+        return entry[0]
+
+    def retain(self, live: list) -> None:
+        """Free the sets of capacities no snapshot in ``live`` has."""
+        keep = {self._capacity(di) for di in live}
+        for cap in [c for c in self._sets if c not in keep]:
+            del self._sets[cap]
+
+    def stats(self) -> dict:
+        """Sets held, their device bytes, and the copy-ins so far."""
+        return {"sets": len(self._sets),
+                "bytes": sum(t.numel() * t.element_size()
+                             for buf, _ in self._sets.values() for t in buf),
+                "copies": self.copies}
+
+
 @dataclass(eq=False)  # identity equality: fields hold tensors
 class _Wave:
     """Slot-based in-flight state of one admitted wave."""
 
     st: object  # HopState (device)
     cfg: object  # HopCfg
-    di: object  # DeviceIndex the wave was launched against
+    di: object  # DeviceIndex the wave was launched against (its snapshot)
     ids_map: np.ndarray  # snapshot id -> external id
     reqs: list  # admitted requests (stable for the wave's lifetime)
     orig: np.ndarray  # slot -> index into reqs, -1 = retired/padding
@@ -378,6 +427,7 @@ class ServeEngine:
         self._ingest_credit = 0.0
         self._pressure = 0  # consecutive over-high-water observations
         self._recent_hists: deque = deque(maxlen=self.config.hist_window)
+        self._sets = _ServingSets()
         self._hop_s = 0.0  # EWMA wall seconds per hop chunk-iteration
         self._wave_s = 0.0  # EWMA wall seconds per executed chunk
 
@@ -425,6 +475,11 @@ class ServeEngine:
             visited_bits=self._visited_bits(),
         )
         return out
+
+    def serving_set_stats(self) -> dict:
+        """The serving sets (``_ServingSets.stats``): sets held, their
+        device bytes, and the snapshot copy-ins so far."""
+        return self._sets.stats()
 
     # -------------------------------------------------------------- admission
     def submit(self, query: np.ndarray, rng, k: int | None = None,
@@ -631,6 +686,7 @@ class ServeEngine:
                 device=self.device,
             )
             self._snap_key = key
+            self._sets.retain([self._di] + [w.di for w in self._waves])
 
     def _visited_bits(self) -> int | None:
         cfg = self.config
@@ -674,7 +730,7 @@ class ServeEngine:
         the wall seconds spent."""
         t0 = time.perf_counter()
         self._refresh_snapshot()
-        snap, di = self._snap, self._di
+        snap, di = self._snap, self._sets.bind(self._di)
         wcfg = self._wave_cfg(snap)
         h0, h1 = self._chunk_schedule()
         buckets, B = [], _MIN_BUCKET
@@ -737,7 +793,7 @@ class ServeEngine:
         w = self._waves[self._rr % len(self._waves)]
         h = w.next_h
         t0 = self._now()
-        w.st = _run_hop_chunk(w.di, w.st, w.cfg, h)
+        w.st = _run_hop_chunk(self._sets.bind(w.di), w.st, w.cfg, h)
         act = w.st.active.cpu().numpy()  # the chunk-boundary sync point
         now = self._now()
         self.stats.chunks += 1

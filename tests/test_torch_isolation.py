@@ -38,6 +38,8 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.train.data, repro_torch.train.elastic\n"
         "import repro_torch.train.compress, repro_torch.train.pipeline\n"
         "import repro_torch.launch.train\n"
+        "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+        "import repro_torch.analysis.passes, repro_torch.monitoring\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -51,9 +53,8 @@ def test_entry_point_loads_no_jax():
 
 def _sources():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py",
-                    ROOT / "examples" / "rag_serve_torch.py",
-                    ROOT / "examples" / "train_lm_torch.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "examples").glob("*_torch.py"))
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
