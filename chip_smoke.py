@@ -15,6 +15,19 @@ before the path and reads the counters just after it:
      their own: ``--fail-on-findings`` over the shipped tree must exit 0
      (the empty ``wowlint_torch_baseline.json``), and ``--compile-smoke``
      must count a hop chunk's capture once and nothing at its replay;
+  1c. tools — the port's planning tools (``repro_torch.launch``) in this
+     process: ``quant_roofline.main(["--gate", "--measure"])``: the counted
+     arithmetic-intensity gate (``op_cost`` over the plain
+     ``gather_norm_dot`` on ``meta`` tensors, int8 >= 2.5x and bf16 >=
+     1.5x f32) and the CUDA ``gather_norm_dot`` timed per storage mode at
+     the record's shape (n 2^17, d 128, B 128, W 48; each launch its own
+     ids, a graph of 20 replayed after an L2 eviction) against its byte
+     bound, each mode held to its plain version first; the kernel must
+     have launched.  Then one dry-run cell, ``rwkv6-1.6b decode_32k`` on
+     the 16 x 16 production mesh (``dryrun.build_cell``: one rank's
+     decode on ``FakeTensor``s under the ``fake`` process group, nothing
+     on the card): no error, a compute term, a rank's total bytes under
+     80 GB; its record is printed;
   2. host-built serve (the first slice's path) — ``repro_torch.launch.
      serve.main`` builds an 8,192-vector d = 128 index on the host with
      ``--build-backend ops`` (the host search, every hop's distances
@@ -62,6 +75,8 @@ before the path and reads the counters just after it:
      make, not those of replayed CUDA graphs, so each traced run also
      checks that the kernel events the profiler recorded equal the
      wrappers' launches plus one per replayed hop (``GRAPH_REPLAYS``);
+     each profiler session opens with a prelude of spin kernels that
+     takes the profiler's loss of a session's first records (``_trace``);
   5b. engine — the request-lifecycle ``ServeEngine`` on the device-built
      index of phase 3 (its current snapshot; no second build), through
      ``repro_torch.launch.serve._serve_engine`` with ``backend="cuda"``
@@ -184,9 +199,11 @@ before the path and reads the counters just after it:
      at B = 1..300 equal its bits at B = 300, where torch's plain row
      sum is also counted (on the card it splits a short row over more
      threads below 16 rows).  The first N_SHARDED =
-     8,192 rows of phase 3's stream (d 128, m 16, ef_construction 64,
+     2,048 rows of phase 3's stream (d 128, m 16, ef_construction 64,
      micro-batch 128, f32; a time cut: phase 3's 65,536 rows take ~250 s a
-     build) are built three ways on the card: ``backend="device"``,
+     build, and 8,192 rows, then 4,096, this phase's size before phase 7c
+     came and then gated its second step, left too little of the time
+     limit) are built three ways on the card: ``backend="device"``,
      ``"sharded"`` at ``shards=1`` in this process, and ``"sharded"`` on
      SHARDED_RANKS = 2 ranks sharing the one card (processes spawned by
      ``torch.multiprocessing``, joined by gloo over a ``FileStore``, each
@@ -374,6 +391,26 @@ before the path and reads the counters just after it:
      step 1's and nearer the chain's entropy rate; then ``python -m
      repro_torch.launch.train --arch qwen2-7b --reduced --steps 20
      --device cuda`` exits 0 in a subprocess;
+  7c. mesh train — the train step over a mesh of ranks
+     (``train.jit_train_step``: ZeRO-3 by ``parallel.param_shardings``
+     with ``RULES_TP_FSDP``, per-layer all-gather and reduce-scatter
+     through gloo staged through the host), run after phase 7b: MESH_RANKS
+     = 2 processes spawned as phase 5e spawns its ranks, both on the one
+     card, a ``(data 2, model 1)`` mesh, phase 7b's model (qwen2-7b at
+     full width cut to 2 layers, f32 master weights from the same seeded
+     generator, bf16 compute, f32 moments), its optimizer and batches,
+     MESH_STEPS steps of 8 x 512 tokens in 2 microbatches, each rank
+     taking 4 rows of a microbatch.  Checks, against phase 7b's one-rank
+     steps on the same weights and batches: step 1's loss within
+     TRAIN_MICRO_TOL and its grad norm within 2e-2 relative (the
+     reference's own bar); step 2, after the sharded AdamW update, its
+     loss and grad norm within MESH_STEP2_TOL (absolute, relative) of
+     phase 7b's step 2; both ranks report the same metrics; each
+     rank's resident parameter and moment bytes are half of phase 7b's
+     (12 bytes a parameter), within one row of the widest leaf for the
+     three tensors (the leaves the spec leaves whole, the QKV biases, sit
+     on both ranks).  Prints each step's ms, the gathers' and
+     reduce-scatters' ms and bytes, each rank's peak device bytes;
   8. report — the kernels JSON line, then the ok line last.  The WoW
      kernels' entries add ``executions``: the wrapper's launches in the
      device-build phase plus the launches that the phase's replayed hop
@@ -432,7 +469,7 @@ GUARD_WAVES = 4  # ... spread over this many bursts of the queries
 # re-keyed the graph cache (chip_smoke.py's phase 5b (b) then, on an H100
 # 80GB HBM3 at 700 W)
 REKEYED_5B = "31-32 captures, 31-36 rows/s applied, p99 5.4 s"
-N_SHARDED = 8192  # phase 5e: rows of phase 3's stream built three ways
+N_SHARDED = 2048  # phase 5e: rows of phase 3's stream built three ways
 SHARDED_RANKS = 2  # phase 5e: ranks on the one card
 SHARDED_KW = dict(m=16, ef_construction=64, o=4, seed=0)  # phase 3's
 LM_PROMPTS = (512, 1000, 2048)  # prompt lengths of the LM serve batches
@@ -447,6 +484,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 512, 2, 4
 TRAIN_SERVE = (2, 256)  # the serve-after-train prefill: batch x tokens
 TRAIN_MICRO_TOL = 1e-4  # 2 microbatches against 1: loss abs., grad norm rel.
 RESUME_STEPS = 20  # leg (b): steps before and after the resume
+MESH_RANKS, MESH_STEPS = 2, 2  # phase 7c: ranks on the one card, steps
+MESH_NORM_TOL = 2e-2  # phase 7c: grad norm against 7b's, relative
+# phase 7c step 2 (after a sharded AdamW update) against 7b's step 2: the
+# loss absolute, the grad norm relative (read 1.42e-4 and 8.4e-5 before
+# this gate on the H100, from bf16 gradients that round elsewhere)
+MESH_STEP2_TOL = 1e-3
 LM_MODELS = {  # run -> arch, kernel launches per prefill or embed, the
     # tensors given seeded noise (JAX's zero inits, and the rwkv bonus u),
     # the weights' and compute type, and the depth cut (layers, or None)
@@ -464,6 +507,8 @@ LM_MODELS = {  # run -> arch, kernel launches per prefill or embed, the
                 noise=("mamba.conv_b",), dtype=torch.bfloat16, layers=5),
 }
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS kernel names
+PRELUDE = 256  # spin kernels that open each profiler session (``_trace``)
+PRELUDE_CYCLES = 1_000_000  # ... of about 0.5 ms each
 COMMON = ["--dim", "128", "--queries", str(QUERIES), "--k", "10",
           "--width", "64", "--m", "16", "--ef-construction", "64",
           "--o", "4", "--build-batch", "128", "--device", "cuda"]
@@ -799,12 +844,22 @@ def phase_int8_build(f32_recall: float) -> dict:
 
 def _trace(fn, name: str) -> dict:
     """Profile one call of ``fn``: wall, device busy (union of device
-    spans), idle share, device-to-host copies and the top device ops."""
+    spans), idle share, device-to-host copies and the top device ops.
+
+    The profiler (kineto) files the first device records of a session as
+    out of its window and drops them, one more with every session of the
+    process on some machines (``PERF.md`` section 7).  So each session
+    opens with PRELUDE spin kernels, synchronised before ``fn`` starts,
+    which take that loss; every figure below leaves them out, and the
+    trace fails if the loss reached past them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRELUDE):
+            torch.cuda._sleep(PRELUDE_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -818,6 +873,13 @@ def _trace(fn, name: str) -> dict:
     dev = [e for e in trace.get("traceEvents", [])
            if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    spin = [e for e in dev if "spin_kernel" in e["name"]]
+    dev = [e for e in dev if "spin_kernel" not in e["name"]]
+    if not spin:
+        fail(f"trace {name}: the profiler dropped all {PRELUDE} prelude "
+             "records, so it may have dropped records of the traced run")
+    print(f"trace {name}: the profiler dropped {PRELUDE - len(spin)} of "
+          f"the {PRELUDE} prelude records")
     if not dev:
         fail(f"trace {name}: the profiler recorded no device activity")
     spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
@@ -2202,24 +2264,32 @@ def _sharded_rank(rank: int, world: int, store: str, vectors, attrs,
 
 
 def _spawn_sharded_ranks(vectors, attrs, queries, ranges) -> list:
-    """Run ``_sharded_rank`` on SHARDED_RANKS processes spawned with
-    ``torch.multiprocessing`` -> their results in rank order.  A rank that
-    fails, or hangs for 600 s, fails the phase."""
+    """Run ``_sharded_rank`` on SHARDED_RANKS processes -> their results
+    in rank order (``_spawn_ranks``)."""
+    return _spawn_ranks(_sharded_rank, SHARDED_RANKS, "sharded",
+                        (vectors, attrs, queries, ranges))
+
+
+def _spawn_ranks(target, world: int, tag: str, args: tuple,
+                 timeout: float = 600) -> list:
+    """Run ``target(rank, world, store, *args, results)`` on ``world``
+    processes spawned with ``torch.multiprocessing``, joined by a
+    ``FileStore`` under a fresh temporary directory -> their results in
+    rank order.  A rank that fails, or hangs for ``timeout`` s, fails the
+    phase."""
     import queue
     import shutil
     import tempfile
 
     import torch.multiprocessing as tmp
 
-    world = SHARDED_RANKS
-    base = tempfile.mkdtemp(prefix="wow-sharded-")
+    base = tempfile.mkdtemp(prefix=f"wow-{tag}-")
     results = tmp.get_context("spawn").Queue()
     ctx = tmp.start_processes(
-        _sharded_rank, nprocs=world, join=False, start_method="spawn",
-        args=(world, os.path.join(base, "store"), vectors, attrs, queries,
-              ranges, results))
+        target, nprocs=world, join=False, start_method="spawn",
+        args=(world, os.path.join(base, "store"), *args, results))
     got = {}
-    deadline = time.perf_counter() + 600
+    deadline = time.perf_counter() + timeout
     try:
         while len(got) < world:
             try:
@@ -2230,7 +2300,7 @@ def _spawn_sharded_ranks(vectors, attrs, queries, ranges) -> list:
                 pass
             # join raises when a rank failed, and is True once all exited
             if ctx.join(timeout=0.1) or time.perf_counter() > deadline:
-                fail(f"sharded: {world - len(got)} rank(s) ended or hung "
+                fail(f"{tag}: {world - len(got)} rank(s) ended or hung "
                      f"without a result")
         while not ctx.join(timeout=60):
             pass
@@ -2314,7 +2384,7 @@ def phase_sharded(out: dict) -> dict:
           f"{SHARDED_RANKS} (every rank) bitwise equal (neighbor arrays, "
           f"state_digest, the ranks' arena bytes)")
 
-    runs = {"1x1 (8,192-row index)": small,
+    runs = {f"1x1 ({N_SHARDED:,}-row index)": small,
             **{f"{SHARDED_RANKS}x1 rank {i}": rk["serve"]
                for i, rk in enumerate(ranks)}}
     for i, rk in enumerate(ranks):
@@ -3078,6 +3148,179 @@ def phase_train() -> dict:
     return {"full_width": _train_full_width(), "resume": _train_resume()}
 
 
+def _train_cfg():
+    """Phase 7b's model: TRAIN_ARCH at full width cut to TRAIN_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(TRAIN_ARCH)
+    return dataclasses.replace(cfg, num_layers=TRAIN_LAYERS,
+                               block_pattern=cfg.block_pattern[:TRAIN_LAYERS])
+
+
+def _mesh_rank(rank: int, world: int, store: str, results) -> None:
+    """One rank of phase 7c: a process of its own on ``cuda:0``, joined
+    to the others by gloo over a ``FileStore``; phase 7b's model and
+    batches through the mesh train step.  Puts what it measured on
+    ``results``; a failure ends the process non-zero."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.parallel import (
+        RULES_TP_FSDP, param_shardings, token_sharding,
+    )
+    from repro_torch.train import (
+        AdamW, DataConfig, TokenSource, jit_train_step, make_train_step,
+    )
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        cfg = _train_cfg()
+        mesh = make_host_mesh((world, 1), ("data", "model"),
+                              device="cuda:0")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(cfg, gen, device="cuda")  # phase 7b's weights
+        specs = param_shardings(params, RULES_TP_FSDP, mesh)
+        blocks = {n: sp for n, sp in specs.items()
+                  if n.startswith("blocks.")}
+        opt = AdamW(lr=3e-4, warmup=2, total_steps=100)  # phase 7b's
+        step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO,
+                               grad_shardings=specs, block_param_specs=blocks)
+        js = jit_train_step(step, mesh, specs,
+                            token_sharding(mesh, TRAIN_BATCH))
+        js.sharded.shard(params)  # the full tensors go
+        gc.collect()
+        torch.cuda.empty_cache()
+        params.requires_grad_(True)
+        state = opt.init(params)
+        resident = js.sharded.resident_bytes(params, state)
+        widest_row = max(math.prod(lay.shape[1:])
+                         for lay in js.sharded.layouts.values())
+        data = TokenSource(DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH,
+                                      kind="random"))
+        torch.cuda.reset_peak_memory_stats()
+        steps = []
+        for i in range(MESH_STEPS):
+            tok, lab = data.host_batch(i, 0, [0])
+            tok = torch.as_tensor(tok, device="cuda")
+            lab = torch.as_tensor(lab, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state, m = js(params, state, tok, lab)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            st = js.stats
+            steps.append({"ms": ms, **{k: float(v) for k, v in m.items()},
+                          **{f"{k[:-2]}_ms" if k.endswith("_s") else k:
+                             (v * 1e3 if k.endswith("_s") else v)
+                             for k, v in st.items()}})
+        results.put((rank, {
+            "coord": mesh.coord("data"), "steps": steps,
+            "resident_bytes": resident, "widest_row": widest_row,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "params": sum(math.prod(lay.shape) for lay in
+                          js.sharded.layouts.values())}))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh_train(train: dict) -> dict:
+    """Phase 7c (see the module docstring), against phase 7b's ``train``
+    result."""
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_mesh_rank, MESH_RANKS, "mesh-train", ())
+    wall = time.perf_counter() - t0
+    ref = train["full_width"]["steps"][0]
+    r0 = ranks[0]
+    metrics = [[{k: s[k] for k in ("loss", "nll", "aux", "grad_norm", "lr")}
+                for s in r["steps"]] for r in ranks]
+    if any(m != metrics[0] for m in metrics):
+        fail(f"mesh train: the ranks report different metrics {metrics}")
+    s1 = r0["steps"][0]
+    loss_gap = abs(s1["loss"] - ref["loss"])
+    norm_gap = abs(s1["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    if not (loss_gap < TRAIN_MICRO_TOL and norm_gap < MESH_NORM_TOL):
+        fail(f"mesh train: step 1 {s1} against phase 7b's one rank {ref}")
+    ref2, s2 = train["full_width"]["steps"][1], r0["steps"][1]
+    loss_gap2 = abs(s2["loss"] - ref2["loss"])
+    norm_gap2 = abs(s2["grad_norm"] - ref2["grad_norm"]) / ref2["grad_norm"]
+    if not (loss_gap2 < MESH_STEP2_TOL and norm_gap2 < MESH_STEP2_TOL):
+        fail(f"mesh train: step 2 {s2} against phase 7b's one rank {ref2}")
+    half = 12 * r0["params"] / MESH_RANKS  # f32 weights, m and v
+    slack = 12 * r0["widest_row"]
+    for r in ranks:
+        if abs(r["resident_bytes"] - half) > slack:
+            fail(f"mesh train: rank {r['coord']} holds {r['resident_bytes']}"
+                 f" bytes of parameters and moments, not half of "
+                 f"{2 * half:.0f} (+- {slack})")
+    for i, s in enumerate(r0["steps"]):
+        print(f"mesh train step {i + 1}: {s['ms']:.1f} ms; gathers "
+              f"{s.get('gather_n', 0)} in {s.get('gather_ms', 0):.1f} ms "
+              f"({s.get('gather_bytes', 0) / 1e9:.3f} GB sent), "
+              f"reduce-scatters {s.get('reduce_scatter_n', 0)} in "
+              f"{s.get('reduce_scatter_ms', 0):.1f} ms "
+              f"({s.get('reduce_scatter_bytes', 0) / 1e9:.3f} GB), "
+              f"all-reduces {s.get('all_reduce_n', 0)} in "
+              f"{s.get('all_reduce_ms', 0):.1f} ms; loss {s['loss']:.6f}, "
+              f"grad norm {s['grad_norm']:.6f}")
+    print(f"ok mesh train: {MESH_RANKS} ranks on one card, (data "
+          f"{MESH_RANKS}, model 1); step 1 loss {s1['loss']:.6f} / "
+          f"{ref['loss']:.6f} (gap {loss_gap:.3e}, limit "
+          f"{TRAIN_MICRO_TOL:g}), grad norm {s1['grad_norm']:.6f} / "
+          f"{ref['grad_norm']:.6f} ({norm_gap:.3e} relative, limit "
+          f"{MESH_NORM_TOL:g}); step 2 loss {s2['loss']:.6f} / "
+          f"{ref2['loss']:.6f} (gap {loss_gap2:.3e}), grad norm "
+          f"{s2['grad_norm']:.6f} / {ref2['grad_norm']:.6f} ({norm_gap2:.3e}"
+          f" relative; limits {MESH_STEP2_TOL:g}); resident bytes "
+          f"{[r['resident_bytes'] for r in ranks]} against half of "
+          f"phase 7b's {half:.0f} (+- {slack}); peak bytes "
+          f"{[r['peak_bytes'] for r in ranks]}; {wall:.1f} s with the "
+          f"spawn")
+    return {"ranks": ranks, "loss_gap": loss_gap, "norm_gap": norm_gap,
+            "loss_gap2": loss_gap2, "norm_gap2": norm_gap2, "wall_s": wall}
+
+
+def phase_tools() -> dict:
+    """Phase 1c (see the module docstring)."""
+    from repro_torch.launch import dryrun, quant_roofline
+    from repro_torch.launch.mesh import make_production_mesh
+
+    reset_counts()
+    out = quant_roofline.main(["--gate", "--measure"])
+    launches = read_counts()
+    if not launches["gather_norm_dot"]:
+        fail(f"tools: --measure launched no gather_norm_dot ({launches})")
+    t0 = time.perf_counter()
+    rec = dryrun.build_cell("rwkv6-1.6b", "decode_32k",
+                            make_production_mesh())
+    cell_s = time.perf_counter() - t0
+    if rec.get("error") or not rec["terms"]["compute_s"] > 0 or \
+            not rec["memory"]["total_bytes"] < 80e9:
+        fail(f"tools: dry-run cell {rec}")
+    print(f"dryrun record: {json.dumps(rec)}")
+    print(f"ok tools: AI gate int8 "
+          f"{out['counted']['int8']['ai_vs_f32']:.2f}x, bf16 "
+          f"{out['counted']['bf16']['ai_vs_f32']:.2f}x; gather_norm_dot "
+          f"launched {launches['gather_norm_dot']} times; dry-run cell "
+          f"rwkv6-1.6b decode_32k in {cell_s:.1f} s: "
+          f"{dryrun.fmt_row(rec)}")
+    return {"measured": out["measured"],
+            "counted": {m: {k: r.get(k) for k in ("flops", "bytes", "ai",
+                                                  "ai_vs_f32")}
+                        for m, r in out["counted"].items()},
+            "launches": launches,
+            "dryrun": {k: rec[k] for k in ("terms", "memory", "trace_s")}}
+
+
 def _time_ms(fn, n_in: int, reps: int = 20, rounds: int = 5) -> float:
     """Median per-launch ms of ``fn(i)`` over ``rounds`` rounds of ``reps``
     launches, after 3 warm-up launches."""
@@ -3530,6 +3773,8 @@ def main() -> int:
 
     lap("build", phase_build)
     lint = lap("lint", phase_lint)
+    tools = lap("tools", phase_tools)
+    print(f"tools phase {laps['tools']} s")
     host = lap("host_serve", phase_host_serve)
     device = lap("device_build", phase_device_build)
     lap("int8_build", phase_int8_build, host["f32_recall"])
@@ -3552,6 +3797,9 @@ def main() -> int:
     train = lap("train", phase_train)
     print(f"train phase {laps['train']} s")
     print(f"train: {json.dumps(train)}")
+    mesh_train = lap("mesh_train", phase_mesh_train, train)
+    print(f"mesh train phase {laps['mesh_train']} s")
+    print(f"mesh train: {json.dumps(mesh_train)}")
     # last: no traced phase may follow its spawned ranks (see phase 5e)
     sharded = lap("sharded", phase_sharded, device["out"])
     print(f"sharded phase {laps['sharded']} s")
@@ -3573,7 +3821,8 @@ def main() -> int:
          "launches": device["launches"]["gather_norm_dot"]
          + durable["launches"]["gather_norm_dot"]
          + cluster["launches"]["gather_norm_dot"]
-         + sharded["launches"]["gather_norm_dot"],
+         + sharded["launches"]["gather_norm_dot"]
+         + tools["launches"]["gather_norm_dot"],
          "executions": device["executions"]["gather_norm_dot"],
          "traced": traced["serve_fused_compact"],
          "max_abs_err": gnd["max_abs_err"],
@@ -3607,7 +3856,9 @@ def main() -> int:
                      "replayed": c["replayed_gather_norm_dot"]}
                  for k, c in cluster["by_step"].items()},
              "sharded": sharded["launches"]["gather_norm_dot"],
-             "sharded_by_path": sharded["by_path"]},
+             "sharded_by_path": sharded["by_path"],
+             "tools_measure": tools["launches"]["gather_norm_dot"]},
+         "measure_by_mode": tools["measured"],
          "durable": {k: v for k, v in durable.items()
                      if k not in ("launches", "by_step")},
          "cluster": {**cluster["a"], **{f"sigkill_{k}": v

@@ -21,7 +21,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
-from .layers import apply_rope, dense, rms_norm, rope_angles
+from .layers import apply_rope, dense, rms_norm, rope_angles, rp_matmul
 
 
 class KVCache(NamedTuple):
@@ -59,7 +59,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _out(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum("bthk,hkd->btd") as one matmul."""
     h, hd, d = wo.shape
-    return o.reshape(*o.shape[:-2], h * hd) @ wo.reshape(h * hd, d)
+    return rp_matmul(o.reshape(*o.shape[:-2], h * hd), wo.reshape(h * hd, d))
 
 
 def _project_qkv(p, cfg: ArchConfig, x: torch.Tensor,

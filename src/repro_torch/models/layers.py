@@ -2,9 +2,9 @@
 ``repro.models.layers``).
 
 The JAX package wraps each array in ``Param(value, logical_axes)`` for its
-sharding rules; here parameters are ``nn.Parameter``s of the model's
-modules (``models.model.LM``), so ``Param``/``split_tree`` have no
-counterpart.  The initialisers draw from an explicit ``torch.Generator``
+sharding rules; here parameters are ``nn.Parameter``s of a
+``models.model.ParamTree``, and their logical axes come from
+``models.model.logical_axes(cfg)``, keyed by parameter name.  The initialisers draw from an explicit ``torch.Generator``
 with the JAX package's distributions: a normal truncated to [-2, 2] times
 a scale, ``1/sqrt(fan_in)`` for dense weights with ``fan_in`` the product
 of every axis but the last (so ``wq [d, Hq, D]`` has fan-in ``d * Hq``, as
@@ -16,6 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .tuning import TUNING
 
 
 def normal(shape, gen: torch.Generator, scale: float = 0.02, *,
@@ -82,8 +84,19 @@ def mlp_init(gen, d_model: int, d_ff: int, *, device=None,
     }
 
 
+def rp_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product ``x @ w`` (the JAX ``rp_einsum``): with
+    ``TUNING.tp_reduce_dtype`` set, the product is rounded to that dtype
+    once, then cast back to ``x``'s (JAX's ``preferred_element_type``
+    rounds its f32 accumulation once); a no-op for bf16 inputs."""
+    out = x @ w
+    if TUNING.tp_reduce_dtype is not None:
+        out = out.to(getattr(torch, TUNING.tp_reduce_dtype)).to(x.dtype)
+    return out
+
+
 def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo"]
+    return rp_matmul(F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"]), p["wo"])
 
 
 # ------------------------------------------------------------- embeddings

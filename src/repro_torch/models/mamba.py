@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops, ref
-from .layers import dense, normal
+from .layers import dense, normal, rp_matmul
 from .tuning import TUNING
 
 
@@ -106,7 +106,7 @@ def mamba_train(p, cfg: ArchConfig, x: torch.Tensor,
     else:
         y, hT = ops.mamba_scan(*args, backend=backend, chunk=chunk)
     y = (y.to(x.dtype) + p["D"] * xc) * F.silu(z)
-    out = y @ p["out_proj"]
+    out = rp_matmul(y, p["out_proj"])
     new_state = None
     if state is not None:
         k = mc.d_conv
@@ -131,7 +131,7 @@ def mamba_decode(p, cfg: ArchConfig, x: torch.Tensor, state: MambaState
         Bm[:, 0, None, :].float()
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())[:, None, :]
     y = (y.to(x.dtype) + p["D"] * xc) * F.silu(z)
-    return y @ p["out_proj"], MambaState(conv=window[:, 1:], h=h)
+    return rp_matmul(y, p["out_proj"]), MambaState(conv=window[:, 1:], h=h)
 
 
 def make_mamba_state(cfg: ArchConfig, batch: int, dtype, *,

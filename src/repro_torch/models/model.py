@@ -221,6 +221,82 @@ def _put(tree: dict, path: tuple, leaf) -> None:
     tree[path[-1]] = leaf
 
 
+# The JAX package's logical axis names of each parameter (its ``Param``
+# axes), keyed by the leaf's name within its module; a layer's leaves are
+# stacked on a leading "layers" axis inside the JAX scan.
+_HEADS = ("heads", "head_dim")
+_KV = ("kv_heads", "head_dim")
+_MLP = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+        "wo": ("mlp", "embed")}
+_LEAF_AXES = {
+    None: {"embed": ("vocab", "embed"), "final_norm": ("embed",),
+           "lm_head": ("embed", "vocab"), "norm1": ("embed",),
+           "norm2": ("embed",)},
+    "attn": {"wq": ("embed", *_HEADS), "wk": ("embed", *_KV),
+             "wv": ("embed", *_KV), "wo": (*_HEADS, "embed"),
+             "bq": _HEADS, "bk": _KV, "bv": _KV, "q_norm": ("head_dim",),
+             "k_norm": ("head_dim",)},
+    "mlp": _MLP,
+    "shared": _MLP,
+    "moe": {"router": ("embed", "expert_unsharded"),
+            "wi_gate": ("expert", "embed", "mlp"),
+            "wi_up": ("expert", "embed", "mlp"),
+            "wo": ("expert", "mlp", "embed")},
+    "mamba": {"in_proj": ("embed", "inner"), "conv_w": ("conv", "inner"),
+              "conv_b": ("inner",), "x_proj": ("inner", "state_proj"),
+              "dt_proj": ("state_proj", "inner"), "dt_bias": ("inner",),
+              "A_log": ("inner", "state"), "D": ("inner",),
+              "out_proj": ("inner", "embed")},
+    "rwkv_tm": {"w0": ("embed",), "u": _HEADS, "ln_scale": ("embed",),
+                "ln_bias": ("embed",), "decay_a": ("embed", "lora"),
+                "decay_b": ("lora", "embed"),
+                **{f"mu_{nm}": ("embed",) for nm in "xwkvrg"},
+                **{f"lora_a_{nm}": ("embed", "lora") for nm in "wkvrg"},
+                **{f"lora_b_{nm}": ("lora", "embed") for nm in "wkvrg"},
+                **{f"w{nm}": ("embed", "heads_x_dim") for nm in "rkvgo"}},
+    "rwkv_cm": {"mu_k": ("embed",), "mu_r": ("embed",),
+                "wk": ("embed", "mlp"), "wv": ("mlp", "embed"),
+                "wr": ("embed", "embed_out")},
+}
+
+
+def param_axes(name: str) -> tuple[str, ...]:
+    """The logical axes of the port's parameter ``name`` as the port
+    stores it (a layer unstacked): ``blocks.3.attn.wq`` -> ``("embed",
+    "heads", "head_dim")``."""
+    parts = name.split(".")
+    module = parts[-2] if len(parts) > 1 and not parts[-2].isdigit() \
+        else None
+    return _LEAF_AXES[module][parts[-1]]
+
+
+def logical_axes(cfg: ArchConfig) -> dict[str, tuple[str, ...]]:
+    """``{parameter name: logical axes}`` for every parameter of ``cfg``
+    as the JAX ``Param`` carries them: a leaf inside the JAX scan has
+    "layers" first (``wq`` of a scanned layer is ``("layers", "embed",
+    "heads", "head_dim")``), a leading dense layer's (deepseek's
+    ``prefix``) and the top-level leaves do not."""
+    out = {}
+    for name, _ in abstract_params(cfg).named_parameters():
+        axes = param_axes(name)
+        out[name] = (("layers", *axes) if jax_path(cfg, name)[1] is not None
+                     else axes)
+    return out
+
+
+def tree_from_named(named: dict) -> ParamTree:
+    """A ``ParamTree`` of the tensors of ``named`` (``{name: tensor}`` as
+    ``named_tensors`` keys them), in its order: ``blocks.<i>.*`` become
+    the list of layers."""
+    tree: dict = {}
+    for name, t in named.items():
+        _put(tree, tuple(name.split(".")), t)
+    if "blocks" in tree:
+        tree["blocks"] = [tree["blocks"][str(i)]
+                          for i in range(len(tree["blocks"]))]
+    return ParamTree(tree)
+
+
 def param_count(params: ParamTree) -> int:
     return sum(p.numel() for p in params.parameters())
 
@@ -239,6 +315,13 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
             "rwkv": lambda: rwk.make_rwkv_state(cfg, batch, dtype,
                                                 device=dev)}
     return [make[cfg.mixer_kind(i)]() for i in range(cfg.num_layers)]
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, cache_len: int,
+                   dtype=torch.bfloat16) -> list:
+    """``init_cache`` on the ``meta`` device: shapes and dtypes, no
+    memory (the counterpart of the JAX ``eval_shape`` cache)."""
+    return init_cache(cfg, batch, cache_len, dtype, device="meta")
 
 
 # --------------------------------------------------------------- forward

@@ -1,6 +1,7 @@
 """Mixture-of-Experts FFN: shared + routed experts, top-k routing,
-capacity-based sort dispatch (the port of ``repro.models.moe``, its
-scatter dispatch).
+capacity-based sort dispatch (the port of ``repro.models.moe``: the
+scatter dispatch, and the 2-D gather dispatch under
+``TUNING.moe_shard_dispatch``).
 
 The expanded token->expert assignment is sorted by expert (stable), each
 token gets its position within its expert's segment, and tokens beyond
@@ -14,11 +15,19 @@ Expert counts that do not divide a mesh axis (qwen2-moe's 60) are padded
 to ``pad_to`` with dead experts the router never selects (its logits
 cover the real experts only).
 
+When the mesh train step splits a microbatch's rows over ranks, each rank
+routes its rows as part of the whole microbatch, as the reference's SPMD
+step routes them (``routed_over``): the capacity is the whole
+microbatch's, a token's position in its expert's segment counts the
+tokens of the row slices before it, and the load-balance loss takes the
+whole microbatch's expert fractions.
+
 ``lax.top_k`` breaks ties toward the lower index; ``torch.topk`` does not
 promise to.  Router probabilities from real inputs do not tie.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -26,6 +35,7 @@ import torch.nn.functional as F
 
 from ..configs.base import MoECfg
 from .layers import dense, mlp_apply, mlp_init, normal
+from .tuning import TUNING
 
 
 def _experts(shape, gen: torch.Generator, *, device=None,
@@ -56,6 +66,25 @@ def moe_init(gen: torch.Generator, cfg: MoECfg, d_model: int,
     return p
 
 
+_ROUTE = None  # set by ``routed_over``
+
+
+@contextlib.contextmanager
+def routed_over(route):
+    """Route every MoE layer run inside this block over row slices of a
+    larger batch: ``route(counts)`` takes this rank's token count of each
+    expert ([Ep] int64, its rows' top-k choices) and returns ``(before,
+    total, n)``: the counts of the row slices before this rank's, the
+    counts of all ``n`` slices (every rank holds the same number of
+    rows).  ``route=None``: the rows are the whole batch."""
+    global _ROUTE
+    prev, _ROUTE = _ROUTE, route
+    try:
+        yield
+    finally:
+        _ROUTE = prev
+
+
 def capacity(cfg: MoECfg, tokens: int) -> int:
     """Slots per expert: the capacity-factor bound, floored at
     ``min(tokens * k, 32)`` so a hot expert can take every token of a
@@ -65,6 +94,57 @@ def capacity(cfg: MoECfg, tokens: int) -> int:
                min(tokens * k, 32))
 
 
+def _experts_apply(p, h: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over the [E, C, d] dispatch buffer."""
+    a = F.silu(torch.bmm(h, p["wi_gate"])) * torch.bmm(h, p["wi_up"])
+    return torch.bmm(a, p["wo"])
+
+
+def _dispatch_scatter(p, xf, sorted_e, order, pos_sorted, C: int, cap,
+                      Ep: int) -> torch.Tensor:
+    """The flat dispatch (the JAX default): tokens scattered into an
+    [E*C + 1, d] buffer (dropped ones, at or past ``cap``, into the last
+    row), the experts run, each expanded token gathered back -> [Tt*k,
+    d]."""
+    k = order.numel() // xf.shape[0]
+    d = xf.shape[1]
+    lim = cap if isinstance(cap, int) else cap[sorted_e]
+    slot_sorted = torch.where(pos_sorted < lim, sorted_e * C + pos_sorted,
+                              Ep * C)  # dropped -> the dump row
+    disp = xf.new_zeros((Ep * C + 1, d))
+    disp[slot_sorted] = xf[order // k]
+    ye = _experts_apply(p, disp[:Ep * C].view(Ep, C, d)).view(Ep * C, d)
+    ye = torch.cat([ye, ye.new_zeros((1, d))])  # dropped <- zeros
+    slots = torch.empty_like(slot_sorted)
+    slots[order] = slot_sorted
+    return ye[slots]
+
+
+def _dispatch_2d(p, xf, sorted_e, flat_e, order, pos_sorted, counts,
+                 starts, C: int, cap, Ep: int) -> torch.Tensor:
+    """The 2-D dispatch (``TUNING.moe_shard_dispatch``, the JAX ``moe2d``
+    path): a gather from each expert's side, ``disp[e, c] = x[order[
+    starts[e] + c]]`` for ``c < min(counts[e], cap[e])`` (else a zero
+    row), the experts, then ``ye[e, pos]`` with the dropped tokens at
+    ``pos = C``, a zero column -> [Tt*k, d].  The same numbers as the
+    scatter."""
+    n = order.numel()
+    Tt, d = xf.shape
+    dev = xf.device
+    ar = torch.arange(C, device=dev)
+    slot_idx = starts[:, None] + ar[None, :]
+    valid = ar[None, :] < torch.clamp(counts, max=cap)[:, None]
+    src = torch.where(valid, order[torch.clamp(slot_idx, 0, n - 1)], n)
+    tok_of = torch.where(src < n, src // (n // Tt), Tt)
+    disp = torch.cat([xf, xf.new_zeros((1, d))])[tok_of]  # [Ep, C, d]
+    ye = _experts_apply(p, disp)
+    ye = torch.cat([ye, ye.new_zeros((Ep, 1, d))], dim=1)  # [Ep, C+1, d]
+    lim = cap if isinstance(cap, int) else cap[sorted_e]
+    pos = torch.empty_like(pos_sorted)
+    pos[order] = torch.where(pos_sorted < lim, pos_sorted, C)
+    return ye[flat_e, pos]
+
+
 def moe_apply(p, cfg: MoECfg, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> (y [B, T, d], the load-balance aux loss f32)."""
@@ -72,7 +152,6 @@ def moe_apply(p, cfg: MoECfg, x: torch.Tensor
     xf = x.reshape(-1, d)
     Tt = B * T
     E, Ep, k = cfg.num_experts, cfg.padded_experts, cfg.top_k
-    C = capacity(cfg, Tt)
     dev = x.device
 
     probs = torch.softmax((xf @ p["router"]).float(), dim=-1)  # [Tt, E]
@@ -87,21 +166,26 @@ def moe_apply(p, cfg: MoECfg, x: torch.Tensor
         0, flat_e, torch.ones_like(flat_e))  # no host sync, unlike bincount
     starts = torch.cumsum(counts, 0) - counts  # exclusive
     pos_sorted = torch.arange(Tt * k, device=dev) - starts[sorted_e]
-    slot_sorted = torch.where(pos_sorted < C, sorted_e * C + pos_sorted,
-                              Ep * C)  # dropped -> the dump row
-    disp = x.new_zeros((Ep * C + 1, d))
-    disp[slot_sorted] = xf[order // k]
-    h = disp[:Ep * C].view(Ep, C, d)
-    a = F.silu(torch.bmm(h, p["wi_gate"])) * torch.bmm(h, p["wi_up"])
-    ye = torch.bmm(a, p["wo"]).view(Ep * C, d)
-    ye = torch.cat([ye, ye.new_zeros((1, d))])  # dropped <- zeros
-    slots = torch.empty_like(slot_sorted)
-    slots[order] = slot_sorted
-    y = (ye[slots].view(Tt, k, d) * topw[..., None]).sum(dim=1)
+    if _ROUTE is None:
+        total, n = counts, 1
+        C = cap = capacity(cfg, Tt)
+    else:  # the slots that the row slices before this one left
+        before, total, n = _ROUTE(counts)
+        C = capacity(cfg, Tt * n)
+        cap = torch.clamp(C - before, min=0)
+    if TUNING.moe_shard_dispatch:
+        gathered = _dispatch_2d(p, xf, sorted_e, flat_e, order, pos_sorted,
+                                counts, starts, C, cap, Ep)
+    else:
+        gathered = _dispatch_scatter(p, xf, sorted_e, order, pos_sorted, C,
+                                     cap, Ep)
+    y = (gathered.view(Tt, k, d) * topw[..., None]).sum(dim=1)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x).reshape(Tt, d)
 
-    # switch-style load-balance loss
-    frac_tokens = counts[:E].float() / max(Tt * k, 1)
+    # switch-style load-balance loss; over row slices, each takes the
+    # whole batch's fractions and its own rows' mean probabilities, so the
+    # mean over the slices (and its gradient) is the whole batch's loss
+    frac_tokens = total[:E].float() / max(Tt * n * k, 1)
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
     return y.reshape(B, T, d), aux

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops, ref
-from .layers import dense
+from .layers import dense, rp_matmul
 from .tuning import TUNING
 
 _MIX = ("w", "k", "v", "r", "g")
@@ -151,7 +151,7 @@ def rwkv_channel_mix(p, cfg: ArchConfig, x: torch.Tensor,
     xk = x + delta * p["mu_k"]
     xr = x + delta * p["mu_r"]
     k = torch.square(torch.relu(xk @ p["wk"]))
-    y = torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"])
+    y = torch.sigmoid(xr @ p["wr"]) * rp_matmul(k, p["wv"])
     return y, (x[:, -1, :] if x_last is not None else None)
 
 

@@ -1,21 +1,38 @@
-"""Process-wide knobs of the LM path: the fields of ``repro.models.tuning``
-that the serving path reads.
+"""Process-wide knobs of the LM path (the port of ``repro.models.tuning``):
+every field of the JAX ``Tuning``, its presets and ``seq_spec``.
+
+Knobs that change numbers, computed as the JAX package computes them:
 
   attn_blocked_min_t   the plain attention evaluates query rows in blocks
                        (``kernels.ref.mha_ref(block_q=...)``) once the
                        query length reaches this, so the [Tq, Tk] score
                        matrix never materialises whole.
   attn_block_q         the query block of that path.
+  tp_reduce_dtype      the row-parallel products (attention ``wo``, MLP
+                       ``wo``, Mamba ``out_proj``, RWKV's channel-mix
+                       output) are rounded to this dtype, then cast back
+                       to the input's (``layers.rp_matmul``, the JAX
+                       ``rp_einsum``).  In JAX it sets the wire dtype of
+                       the model axis's all-reduce; the port's step
+                       replicates compute over ``model``, so only the
+                       rounding remains.
+  moe_shard_dispatch   the MoE layer dispatches by the 2-D gather
+                       ``disp[e, c] = x[order[starts[e] + c]]`` (the JAX
+                       ``moe2d`` path) instead of the flat scatter; the
+                       numbers are the same.
   rwkv_chunk           chunk of ``wkv6_chunked`` (0 = the config's).
   mamba_chunk          selective-scan chunk (0 = the config's), passed to
-                       ``ops.mamba_scan`` by the Mamba mixer as the JAX
-                       mixer passes it; it only sets the JAX scan's
-                       checkpoint boundaries, and neither the kernel nor
-                       the plain step scan needs it.
+                       ``ops.mamba_scan`` as the JAX mixer passes it; it
+                       only sets the JAX scan's checkpoint boundaries.
 
-The mesh and sharding knobs of the JAX package (``moe_shard_dispatch``,
-``moe_expert_axis`` and the rest) come with ``parallel/``; the MoE layer
-runs the scatter dispatch, the JAX default.
+Knobs that are only a ``with_sharding_constraint`` in JAX feed the port's
+sharding plan where it has a counterpart: ``cache_seq_shard`` in
+``parallel.sharding.cache_sharding``; ``batch_axes`` and
+``attn_seq_axis`` in ``seq_spec``.  ``residual_spec`` and
+``moe_expert_axis`` pin activations of the JAX program to mesh axes; the
+port's step keeps activations whole on each rank (compute is replicated
+over ``model``), so they have no effect on it.  The dry run records every
+knob's value.
 """
 from __future__ import annotations
 
@@ -26,11 +43,39 @@ import dataclasses
 class Tuning:
     attn_blocked_min_t: int = 8192
     attn_block_q: int = 2048
-    rwkv_chunk: int = 0
+    tp_reduce_dtype: str | None = None
+    # sequence-parallel attention over this mesh axis (JAX: used when the
+    # query heads do not divide the model axis)
+    attn_seq_axis: str | None = None
+    batch_axes: tuple = ()
+    # decode KV caches of non-divisible-head archs shard their sequence
+    # dim over model (flash-decoding split)
+    cache_seq_shard: bool = False
+    # MoE: the [E, C+1, d] 2-D gather dispatch instead of the flat scatter
+    moe_shard_dispatch: bool = False
+    # mesh axis the JAX MoE dispatch buffers are pinned to
+    moe_expert_axis: str = "model"
+    # residual-stream sharding constraint inside the JAX layer scan
+    residual_spec: tuple | None = None
     mamba_chunk: int = 0
+    rwkv_chunk: int = 0
 
 
 TUNING = Tuning()
+
+# Knobs that are only a ``with_sharding_constraint`` in the JAX package and
+# that the port's step never reads: it splits the batch by
+# ``token_sharding`` and computes replicated over ``model``.  (The dry run
+# sets ``batch_axes`` per cell to that same split.)
+SHARDING_ONLY = ("attn_seq_axis", "residual_spec", "moe_expert_axis")
+
+
+def inert_knobs() -> list[str]:
+    """The sharding-only knobs set away from their defaults: a dry-run
+    record made under them has the untuned record's terms."""
+    default = Tuning()
+    return [k for k in SHARDING_ONLY
+            if getattr(TUNING, k) != getattr(default, k)]
 
 
 def set_tuning(**kw) -> Tuning:
@@ -39,3 +84,47 @@ def set_tuning(**kw) -> Tuning:
             raise AttributeError(f"unknown tuning knob {k!r}")
         setattr(TUNING, k, v)
     return TUNING
+
+
+def apply_preset(names: str) -> Tuning:
+    """Comma-separated preset list, e.g. 'blocked_attn,bf16_reduce'."""
+    for name in filter(None, names.split(",")):
+        if name == "blocked_attn":
+            TUNING.attn_blocked_min_t = 2048
+        elif name == "bf16_reduce":
+            TUNING.tp_reduce_dtype = "bfloat16"
+        elif name == "dense_attn":
+            TUNING.attn_blocked_min_t = 1 << 30
+        elif name == "f32_reduce":
+            TUNING.tp_reduce_dtype = None
+        elif name == "seq_parallel_attn":
+            TUNING.attn_seq_axis = "model"
+        elif name == "cache_seq_shard":
+            TUNING.cache_seq_shard = True
+        elif name == "moe2d":
+            TUNING.moe_shard_dispatch = True
+        elif name == "moe_ep_data":
+            TUNING.moe_shard_dispatch = True
+            TUNING.moe_expert_axis = "data"
+        elif name.startswith("mamba_chunk="):
+            TUNING.mamba_chunk = int(name.split("=")[1])
+        elif name.startswith("rwkv_chunk="):
+            TUNING.rwkv_chunk = int(name.split("=")[1])
+        elif name == "opt":  # the full optimized set
+            apply_preset(
+                "blocked_attn,bf16_reduce,seq_parallel_attn,cache_seq_shard,"
+                "moe2d,rwkv_chunk=256"
+            )
+        else:
+            raise ValueError(f"unknown tuning preset {name!r}")
+    return TUNING
+
+
+def seq_spec(extra_dims: int = 2):
+    """PartitionSpec (batch_axes, attn_seq_axis, *None) or None if unset."""
+    from ..parallel.logical import PartitionSpec as P
+
+    if TUNING.attn_seq_axis is None:
+        return None
+    b = tuple(TUNING.batch_axes) or None
+    return P(b, TUNING.attn_seq_axis, *([None] * extra_dims))

@@ -1,5 +1,8 @@
 """Rank meshes: the sharded WoW build's 1-D build mesh and the serving
-function's ``(data, model)`` mesh, over ``torch.distributed`` ranks.
+function's ``(data, model)`` mesh, over ``torch.distributed`` ranks; and
+the per-(arch x shape x mesh) input and cache specs of the LM
+(``token_sharding``, ``seq_shard_axis``, ``cache_sharding``; the port of
+the rest of ``repro.parallel.sharding``).
 
 The JAX package is single-controller: one process drives a
 ``jax.sharding.Mesh`` of devices through ``shard_map``.  PyTorch's form of
@@ -156,3 +159,82 @@ def serving_mesh(data: int, model: int = 1, device=None) -> RankMesh:
     ``data * model`` ranks (the rules of ``build_mesh``)."""
     return _mesh(RankMesh, ("data", "model"), (int(data), int(model)),
                  device)
+
+
+# ------------------------------------------------ LM input and cache specs
+def _dp(mesh, batch: int) -> tuple[str, ...] | None:
+    """Largest prefix of (pod, data) that divides the batch."""
+    from .logical import batch_axes
+
+    axes = []
+    size = 1
+    for a in batch_axes(mesh):
+        if batch % (size * mesh.shape[a]) == 0:
+            axes.append(a)
+            size *= mesh.shape[a]
+    return tuple(axes) or None
+
+
+def token_sharding(mesh, batch: int):
+    """The spec of a [B, ...] token batch: B over ``_dp``."""
+    from .logical import PartitionSpec as P
+
+    return P(_dp(mesh, batch))
+
+
+def seq_shard_axis(mesh, batch: int, seq: int) -> str | None:
+    """Sequence-parallel axis for long-context serving: used when the batch
+    cannot occupy the data axis (long_500k: batch 1)."""
+    if batch % mesh.shape["data"] != 0 and seq % mesh.shape["data"] == 0:
+        return "data"
+    return None
+
+
+def cache_sharding(cfg, mesh, batch: int, seq: int):
+    """-> a function from a decode cache (``models.init_cache``'s list of
+    per-layer states) to the same list of states holding a spec per
+    tensor: the spec the JAX package gives the same leaf of its layout
+    (``[n_units, B, ...]`` for a layer of the scan, as
+    ``models.to_jax_values`` stacks parameters), without the unit axis.
+
+    KV caches [B, S, Hkv, D]: batch over (pod, data) when divisible, else
+    the sequence over data (flash-decoding style); heads over model when
+    divisible, else with ``TUNING.cache_seq_shard`` the sequence over
+    model.  SSM states [B, ...]: batch if divisible, else replicated."""
+    from ..models.model import _prefix_len
+    from ..models.tuning import TUNING
+    from .logical import PartitionSpec as P
+
+    dp = _dp(mesh, batch)
+    sp = seq_shard_axis(mesh, batch, seq)
+    pk = _prefix_len(cfg)
+    n_units = (cfg.num_layers - pk) // cfg.scan_unit
+
+    def spec_of(shp) -> P:  # the JAX rule on the JAX layout's shape
+        if len(shp) >= 3 and shp[1] == batch:
+            if len(shp) - 1 == 4 and shp[2] >= min(seq, 1024) // 2:
+                hx = "model" if shp[3] % mesh.shape["model"] == 0 else None
+                sx = None
+                if hx is None and TUNING.cache_seq_shard and \
+                        shp[2] % mesh.shape["model"] == 0:
+                    sx = "model"
+                if dp is not None:
+                    return P(None, dp, sx, hx, None)
+                if sp is not None and shp[2] % mesh.shape["data"] == 0:
+                    return P(None, None, sp, hx, None)
+                return P(None, None, None, hx, None)
+            if dp is not None:
+                return P(None, dp)
+            return P()
+        if len(shp) >= 2 and shp[0] == batch and dp is not None:
+            return P(dp)
+        return P()
+
+    def one(i: int, t) -> P:
+        if i < pk:
+            return spec_of(tuple(t.shape))
+        return P(*spec_of((n_units, *t.shape))[1:])
+
+    return lambda caches: [type(st)(*(one(i, t) for t in st))
+                           for i, st in enumerate(caches)]
+

@@ -80,14 +80,18 @@ class AdamW(NamedTuple):
         return self.lr * warm * frac
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params, decay: dict):
+    def update(self, grads, state: AdamWState, params, decay: dict,
+               norm: torch.Tensor | None = None):
         """-> (params, state, {"grad_norm", "lr"}), the parameters and
         moments written in place; ``grads`` maps parameter names to
         gradients (left as they are), ``decay`` maps them to whether
-        weight decay applies (``decay_mask``)."""
+        weight decay applies (``decay_mask``).  ``norm``: the global
+        gradient norm when the caller reduced it over ranks (the mesh
+        step, whose ``grads`` are a rank's shards); default
+        ``global_norm(grads)``."""
         grads = named_tensors(grads)
         named = named_tensors(params)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads) if norm is None else norm
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         step = state.step + 1

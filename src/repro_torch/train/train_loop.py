@@ -1,38 +1,79 @@
 """Train step and host-side Trainer (the port of ``repro.train.
 train_loop``): checkpoint/restart, the deterministic data source, resume
-by manifest.
+by manifest, and the step sharded over a mesh of ranks.
 
 ``make_train_step`` returns the step that the JAX package jits:
 microbatch gradient accumulation (an f32 sum over the microbatches, then
 the mean, as the JAX scan), the gradients of ``models.loss_fn`` (each
 scan unit rematerialised), and the AdamW update written in place.  No
 kernel has a backward in either package: the step runs autograd through
-the plain versions (``backend="ref"``, the JAX default).  The JAX
-``jit_train_step`` and ``make_train_step``'s ``grad_shardings`` and
-``block_param_specs`` shard the step over a mesh (FSDP); they are not
-ported yet.
+the plain versions (``backend="ref"``, the JAX default).
+
+``jit_train_step(step, mesh, param_shardings, batch_sharding)`` runs that
+step over a ``parallel.RankMesh`` of ``torch.distributed`` ranks, one
+process a rank, with axes ``(data, model)`` or ``(pod, data, model)``:
+PyTorch's form of the reference's single-controller SPMD jit.  Every
+rank calls it with the same global batch.  The design is ZeRO-3 by the
+specs (``parallel.logical.param_shardings``):
+
+  * each rank holds the slice of every parameter and of both AdamW
+    moments that its coordinates on the spec's mesh axes select
+    (``ShardedParams.shard`` cuts them, in place); the ranks that hold
+    the same slice (the spec leaves an axis whole) each send a part of it
+    to a gather, so every element crosses the wire once;
+  * the top-level leaves (embedding, final norm, head) are all-gathered
+    once a step; with ``block_param_specs`` each layer's parameters are
+    all-gathered inside its forward by an autograd function, again when
+    the rematerialised unit runs in backward, and that function's
+    backward reduce-scatters the layer's gradient onto the slices (the
+    reference's "FSDP per-layer AG/RS"); without it every layer is
+    gathered once a forward;
+  * a gradient is summed over the ranks that hold distinct rows of the
+    batch (``batch_sharding``'s axes, ``token_sharding``): the batch is
+    split over them, and the other ranks (``model``) compute the same
+    rows again and contribute zeros.  A leaf that the spec leaves whole
+    on some axis (a replica) is all-reduced instead, so its replicas
+    keep equal bits;
+  * the global gradient norm is an all-reduce of each region's squared
+    sum, counted once; ``AdamW.update`` then runs on the local slices;
+  * the microbatches accumulate in f32 as in the unsharded step, and the
+    mean over the ``n`` row slices and ``M`` microbatches is one division
+    by ``n * M``;
+  * an MoE layer routes a rank's rows as part of the whole microbatch, as
+    the reference's SPMD step routes them: each layer all-gathers the
+    ranks' expert counts (``models.moe.routed_over``), so the capacity,
+    the drops and the load-balance loss are the whole microbatch's.
+
+There is one step loop: ``MeshTrainStep`` shards the state and runs
+``make_train_step``'s step with itself as the step's hooks (the gathered
+parameter tree, the rank's rows, the gradients' reduction, the metrics'
+mean over the row slices, the global norm); the step's own hooks on one
+process are the identity.  The collectives run over the mesh's gloo group
+(NCCL refuses two ranks on one card); CUDA tensors are staged through the
+host.  A one-rank mesh runs the same code with no collective and is
+bitwise the unsharded step.
 
 The ``Trainer`` writes its checkpoints in the JAX package's layout and
 key paths (``{"params": JAX value tree, "opt": AdamWState}``, the moments
-restacked as the parameters), so either package resumes the other's run.
+restacked as the parameters), so either package resumes the other's run;
+``MeshTrainStep.sharded.full_state`` gathers a mesh step's state for
+``jax_state``.
 """
 from __future__ import annotations
 
+import math
 import time
+import warnings
 
 import torch
 
 from ..configs.base import ArchConfig
 from ..models.model import (
     _prefix_len, _put, abstract_params, init_params, jax_path, loss_fn,
-    named_tensors, to_jax_values,
+    named_tensors, to_jax_values, tree_from_named,
 )
-from .optimizer import AdamW, AdamWState, decay_mask
-
-_SHARDED = ("not ported yet: sharding the train step over a mesh (FSDP "
-            "grad_shardings / block_param_specs) is the second half of "
-            "ROADMAP A11c")
-
+from ..models.moe import routed_over
+from .optimizer import AdamW, AdamWState, decay_mask, global_norm
 
 def make_train_step(cfg: ArchConfig, opt: AdamW, microbatches: int = 1,
                     backend: str = "ref", remat: bool = True,
@@ -42,58 +83,545 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, microbatches: int = 1,
     gradients) and the state updated in place; the metrics ("loss",
     "nll", "aux", "grad_norm", "lr") are 0-d tensors on the device.  With
     microbatches the JAX step reports the mean loss as "nll" and 0 as
-    "aux"; so does this one."""
-    if grad_shardings is not None or block_param_specs is not None:
-        raise NotImplementedError(_SHARDED)
+    "aux"; so does this one.
+
+    ``grad_shardings`` and ``block_param_specs`` (``{name:
+    PartitionSpec}``, as ``parallel.param_shardings`` gives them) take
+    effect when ``jit_train_step`` puts the step on a mesh: the gradients
+    land on the parameters' slices, so ``grad_shardings`` must equal the
+    parameters' specs; ``block_param_specs`` (the layers' specs) turns on
+    the per-layer all-gather and reduce-scatter.  The mesh step runs this
+    step with its ``hooks`` (a ``MeshTrainStep``): what the forward reads
+    of the parameters, this rank's rows, the gradients' reduction onto
+    the slices, the metrics' mean and the global norm."""
     decay = decay_mask(cfg)
+    M = microbatches
 
-    def grads_of(params, tokens, labels):
-        loss, metrics = loss_fn(params, cfg, tokens, labels,
-                                backend=backend, remat=remat)
-        loss.backward()
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}
-
-    def step(params, opt_state, tokens, labels):
+    def step(params, opt_state, tokens, labels, hooks=None):
+        on = _ONE_PROCESS if hooks is None else hooks
         named = named_tensors(params)
-        frozen = [k for k, p in named.items() if not p.requires_grad]
-        if frozen:
-            raise ValueError(f"parameters {frozen[:3]} do not require "
-                             "gradients: call params.requires_grad_(True)")
+        _check_trainable(named)
+        B, n = tokens.shape[0], M * on.ndp
+        if B % n:
+            raise ValueError(f"batch {B} is no multiple of {M} microbatches"
+                             + (f" x {on.ndp} row slices" if on.ndp > 1
+                                else ""))
         for p in named.values():
             p.grad = None
-        if microbatches == 1:
-            loss, metrics = grads_of(params, tokens, labels)
-        else:
-            B = tokens.shape[0]
-            if B % microbatches:
-                raise ValueError(f"batch {B} is no multiple of "
-                                 f"{microbatches} microbatches")
-            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for t, lab in zip(tokens.chunk(microbatches),
-                              labels.chunk(microbatches)):
+        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        on.begin(named)
+        with routed_over(on.route):
+            for t, lab in zip(tokens.chunk(M), labels.chunk(M)):
+                ls, metrics = loss_fn(on.tree(params, named), cfg,
+                                      on.rows(t), on.rows(lab),
+                                      backend=backend, remat=remat)
+                ls.backward()
                 # .grad sums the microbatches' gradients in f32
-                loss = loss + grads_of(params, t, lab)[0]
-            for p in named.values():
-                if p.grad is not None:
-                    p.grad.div_(microbatches)
-            loss = loss / microbatches
-            metrics = {"nll": loss, "aux": torch.zeros_like(loss)}
+                loss = loss + ls.detach() if M > 1 else ls.detach()
+        on.end(named)
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in named.items()}
-        params, opt_state, om = opt.update(grads, opt_state, params,
-                                           decay)
+        if n > 1:
+            for g in grads.values():
+                g.div_(n)
+        loss = on.mean(loss / M if M > 1 else loss)
+        metrics = ({"nll": loss, "aux": torch.zeros_like(loss)} if M > 1
+                   else {k: on.mean(v.detach()) for k, v in metrics.items()})
+        params, opt_state, om = opt.update(grads, opt_state, params, decay,
+                                           norm=on.norm(grads))
         del grads
         for p in named.values():
             p.grad = None
         return params, opt_state, {"loss": loss, **metrics, **om}
 
+    step.cfg = cfg
+    step.grad_shardings = grad_shardings
+    step.block_param_specs = block_param_specs
     return step
 
 
+class _OneProcess:
+    """The step's hooks on one process: the whole batch, the parameters
+    as they are (``MeshTrainStep`` is the mesh's)."""
+
+    ndp = 1
+    route = None
+
+    def begin(self, named: dict) -> None:
+        pass
+
+    def tree(self, params, named: dict):
+        return params
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        return t
+
+    def end(self, named: dict) -> None:
+        pass
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def norm(self, grads: dict) -> None:
+        return None  # AdamW.update takes global_norm(grads)
+
+
+_ONE_PROCESS = _OneProcess()
+
+
+def _check_trainable(named: dict) -> None:
+    frozen = [k for k, p in named.items() if not p.requires_grad]
+    if frozen:
+        raise ValueError(f"parameters {frozen[:3]} do not require "
+                         "gradients: call params.requires_grad_(True)")
+
+
 def jit_train_step(step, mesh, param_shardings, batch_sharding,
-                   donate: bool = True):
-    """The JAX package's sharded jit of the step (FSDP over a mesh)."""
-    raise NotImplementedError(_SHARDED)
+                   donate: bool = True) -> "MeshTrainStep":
+    """The step of ``make_train_step`` over ``mesh`` (a
+    ``parallel.RankMesh``; every rank calls this and the returned step):
+    parameters and moments sharded by ``param_shardings`` (``{name:
+    PartitionSpec}``), the global batch split by ``batch_sharding`` (the
+    ``PartitionSpec`` of ``parallel.token_sharding``).  ``donate``: the
+    step shards the parameters and moments it is given in place (JAX's
+    donated buffers); without it, it works on copies."""
+    return MeshTrainStep(step, mesh, param_shardings, batch_sharding,
+                         donate)
+
+
+class _Layout:
+    """How one parameter is cut over a mesh: its full and local shapes,
+    the mesh axis of each dimension, and this rank's slice of it."""
+
+    def __init__(self, shape, spec, mesh):
+        from ..parallel.logical import mesh_axis_size
+
+        self.shape = tuple(shape)
+        parts = tuple(spec) + (None,) * (len(shape) - len(spec))
+        if any(isinstance(a, tuple) for a in parts):
+            raise ValueError(f"spec {spec}: a parameter dimension takes "
+                             "one mesh axis")
+        self.parts = parts
+        self.local = tuple(n // mesh_axis_size(mesh, a)
+                           for n, a in zip(self.shape, parts))
+        self.numel = math.prod(self.local)
+        used = {a for a in parts if a is not None}
+        self.kept = [a for a in mesh.axes if a in used]
+        # the ranks holding this rank's slice (the spec leaves the other
+        # axes whole): each sends 1/replicas of it to a gather, so every
+        # element crosses the wire once
+        self.replicas = math.prod(s for a, s in zip(mesh.axes, mesh.sizes)
+                                  if a not in used)
+        self.chunk = -(-self.numel // self.replicas)
+        self.rid = 0
+        for a, n in zip(mesh.axes, mesh.sizes):
+            if a not in used:
+                self.rid = self.rid * n + mesh.coord(a)
+        self.slices = tuple(
+            slice(None) if a is None else
+            slice(mesh.coord(a) * n, (mesh.coord(a) + 1) * n)
+            for a, n in zip(parts, self.local))
+        self.owner = self.rid == 0
+        # pieces [*kept sizes, *local] -> full: each kept axis right
+        # before the dimension it cuts
+        k = len(self.kept)
+        self.perm = [i for d, a in enumerate(parts) for i in (
+            ([self.kept.index(a)] if a is not None else []) + [k + d])]
+        self.inv = [self.perm.index(i) for i in range(len(self.perm))]
+        self.order = ([i for i, a in enumerate(mesh.axes) if a in used]
+                      + [i for i, a in enumerate(mesh.axes) if a not in used]
+                      + [len(mesh.axes)])
+
+    def contribution(self, shard: torch.Tensor) -> torch.Tensor:
+        """This rank's part of its slice in a gather: chunk ``rid`` of the
+        flat slice, zero-padded to ``chunk``."""
+        part = shard.reshape(-1)[self.rid * self.chunk:
+                                 (self.rid + 1) * self.chunk]
+        if part.numel() < self.chunk:
+            part = torch.cat([part, part.new_zeros(self.chunk
+                                                   - part.numel())])
+        return part
+
+    def assemble(self, pieces: torch.Tensor, mesh) -> torch.Tensor:
+        """[world, chunk] contributions of every rank -> the full tensor."""
+        kept = [mesh.shape[a] for a in self.kept]
+        t = pieces.reshape(*mesh.sizes, self.chunk).permute(self.order)
+        t = t.reshape(*kept, self.replicas * self.chunk)[..., :self.numel]
+        return t.reshape(*kept, *self.local).permute(self.perm).reshape(
+            self.shape)
+
+    def scatter(self, full: torch.Tensor, mesh) -> torch.Tensor:
+        """The full tensor -> [world, numel]: every rank's slice."""
+        interleaved = [n for d, a in enumerate(self.parts) for n in (
+            ([mesh.shape[a]] if a is not None else []) + [self.local[d]])]
+        t = full.reshape(interleaved).permute(self.inv)
+        for i, a in enumerate(mesh.axes):
+            if a not in self.kept:
+                t = t.unsqueeze(i)
+        return t.expand(*mesh.sizes, *self.local).reshape(mesh.size,
+                                                          self.numel)
+
+
+class _Bucket:
+    """Parameters gathered and reduced together: their layouts, offsets
+    in a rank's flat buffer, and the leaves the spec leaves whole on some
+    axis (all-reduced, not reduce-scattered)."""
+
+    def __init__(self, names: list, owner: "ShardedParams"):
+        self.names = names
+        self.owner = owner
+        self.layouts = [owner.layouts[n] for n in names]
+        self.offsets = [0]  # of each leaf's contribution to a gather
+        for lay in self.layouts:
+            self.offsets.append(self.offsets[-1] + lay.chunk)
+        self.sharded = [i for i, lay in enumerate(self.layouts)
+                        if lay.replicas == 1]
+        self.replicated = [i for i, lay in enumerate(self.layouts)
+                           if lay.replicas > 1]
+
+    def gather(self, shards) -> list:
+        """This rank's slices -> every leaf's full tensor."""
+        own = self.owner
+        flat = torch.cat([lay.contribution(s) for lay, s in zip(
+            self.layouts, shards)])
+        pieces = own._collective("gather", flat).view(own.mesh.size, -1)
+        return [lay.assemble(pieces[:, a:b], own.mesh) for lay, a, b in zip(
+            self.layouts, self.offsets, self.offsets[1:])]
+
+    def reduce(self, grads) -> list:
+        """Every leaf's full gradient on this rank -> this rank's slice of
+        the sum over the row slices (zeros sent by the other ranks)."""
+        own, mesh = self.owner, self.owner.mesh
+        out: list = [None] * len(grads)
+        if mesh.size == 1:
+            return [g.reshape(lay.local) for g, lay in zip(grads,
+                                                           self.layouts)]
+        if self.sharded:
+            send = torch.zeros((mesh.size, sum(
+                self.layouts[i].numel for i in self.sharded)),
+                dtype=grads[0].dtype, device=grads[0].device)
+            if own.rep:
+                col = 0
+                for i in self.sharded:
+                    lay = self.layouts[i]
+                    send[:, col:col + lay.numel] = lay.scatter(grads[i], mesh)
+                    col += lay.numel
+            mine = own._collective("reduce_scatter", send.view(-1))
+            col = 0
+            for i in self.sharded:
+                lay = self.layouts[i]
+                out[i] = mine[col:col + lay.numel].view(lay.local)
+                col += lay.numel
+        if self.replicated:
+            flat = torch.cat([grads[i].reshape(-1) for i in self.replicated])
+            if not own.rep:
+                flat = torch.zeros_like(flat)
+            summed = own._collective("all_reduce", flat)
+            col = 0
+            for i in self.replicated:
+                lay = self.layouts[i]
+                n = math.prod(lay.shape)
+                out[i] = summed[col:col + n].view(lay.shape)[
+                    lay.slices].contiguous()
+                col += n
+        return out
+
+
+class _GatherFn(torch.autograd.Function):
+    """All-gather a bucket's slices into full tensors; backward reduces
+    the full gradients back onto the slices."""
+
+    @staticmethod
+    def forward(ctx, bucket: _Bucket, *shards):
+        ctx.bucket = bucket
+        return tuple(bucket.gather(shards))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.bucket.reduce(grads))
+
+
+class _Gathered:
+    """What ``models.forward`` reads of a parameter tree: the top-level
+    leaves (gathered once a step) and ``["blocks"]``, whose ``[i]``
+    gathers layer ``i`` when the forward reads it."""
+
+    def __init__(self, top: dict, layer):
+        self._top, self._layer = top, layer
+
+    def __getitem__(self, key: str):
+        return _Layers(self._layer) if key == "blocks" else self._top[key]
+
+
+class _Layers:
+    def __init__(self, layer):
+        self._layer = layer
+
+    def __len__(self) -> int:
+        return self._layer.n
+
+    def __getitem__(self, i: int) -> dict:
+        return self._layer(i)
+
+
+class ShardedParams:
+    """The parameters of ``cfg`` sharded over ``mesh`` by ``specs``
+    (``{name: PartitionSpec}``): each leaf's layout, the buckets gathered
+    together (the top-level leaves; every layer, or all layers in one),
+    and the collectives over the mesh's group.  ``split``: the mesh axes
+    the batch rows are split over (one rank per row slice sends its
+    gradient).  ``stats`` counts the collectives since its last reset:
+    calls, seconds and the bytes a rank sent."""
+
+    def __init__(self, cfg: ArchConfig, mesh, specs: dict, split=(),
+                 per_layer: bool = True):
+        meta = dict(abstract_params(cfg).named_parameters())
+        if set(specs) != set(meta):
+            raise ValueError("the specs must name every parameter")
+        self.cfg, self.mesh, self.specs = cfg, mesh, dict(specs)
+        self.layouts = {n: _Layout(t.shape, self.specs[n], mesh)
+                        for n, t in meta.items()}
+        self.split = tuple(split)
+        self.rep = all(mesh.coord(a) == 0 for a in mesh.axes
+                       if a not in self.split)
+        blocks = [n for n in meta if n.startswith("blocks.")]
+        self.top = _Bucket([n for n in meta if n not in blocks], self)
+        self.layer_buckets = ([_Bucket([n for n in blocks if n.split(".")[1]
+                                        == str(i)], self)
+                               for i in range(cfg.num_layers)]
+                              if per_layer else [_Bucket(blocks, self)])
+        self.stats: dict = {}
+
+    def _collective(self, kind: str, t: torch.Tensor) -> torch.Tensor:
+        """``kind`` ("gather", "reduce_scatter" or "all_reduce") of the
+        flat ``t`` over the mesh's group, staged through the host for
+        CUDA tensors (gloo)."""
+        import torch.distributed as dist
+
+        mesh = self.mesh
+        if mesh.size == 1:
+            return t
+        if t.is_cuda:
+            torch.cuda.synchronize()  # the timer holds the collective only
+        t0 = time.perf_counter()
+        src = t.cpu() if t.is_cuda else t
+        with warnings.catch_warnings():  # newer torch renames the two
+            warnings.simplefilter("ignore", FutureWarning)
+            if kind == "gather":
+                out = src.new_empty(mesh.size * src.numel())
+                dist.all_gather_into_tensor(out, src, group=mesh.group)
+            elif kind == "reduce_scatter":
+                out = src.new_empty(src.numel() // mesh.size)
+                dist.reduce_scatter_tensor(out, src, group=mesh.group)
+            else:
+                out = src.clone()
+                dist.all_reduce(out, group=mesh.group)
+        out = out.to(t.device)
+        st = self.stats
+        st[f"{kind}_n"] = st.get(f"{kind}_n", 0) + 1
+        st[f"{kind}_s"] = st.get(f"{kind}_s", 0.0) + time.perf_counter() - t0
+        st[f"{kind}_bytes"] = (st.get(f"{kind}_bytes", 0)
+                               + src.numel() * src.element_size())
+        return out
+
+    @torch.no_grad()
+    def shard(self, params):
+        """Cut every parameter of ``params`` (a ``ParamTree``) that still
+        has its full shape down to this rank's slice, in place."""
+        for name, p in named_tensors(params).items():
+            lay = self.layouts[name]
+            if tuple(p.shape) == lay.shape and lay.shape != lay.local:
+                p.data = p.data[lay.slices].contiguous()
+        return params
+
+    @torch.no_grad()
+    def shard_state(self, state: AdamWState) -> AdamWState:
+        """The same for the moments (their dicts' entries replaced)."""
+        for tree in (state.m, state.v):
+            for name, t in tree.items():
+                lay = self.layouts[name]
+                if tuple(t.shape) == lay.shape and lay.shape != lay.local:
+                    tree[name] = t[lay.slices].contiguous()
+        return state
+
+    @torch.no_grad()
+    def gather(self, tree) -> dict:
+        """``{name: full tensor}`` of a sharded ``ParamTree`` or moment
+        mapping (every rank calls it)."""
+        named = named_tensors(tree)
+        out = {}
+        for bucket in [self.top, *self.layer_buckets]:
+            full = bucket.gather([named[n].detach() for n in bucket.names])
+            out.update(zip(bucket.names, full))
+        return {n: out[n] for n in named}
+
+    def full_state(self, params, opt_state: AdamWState):
+        """The gathered parameters and moments, for ``jax_state``."""
+        return self.gather(params), AdamWState(
+            step=opt_state.step, m=self.gather(opt_state.m),
+            v=self.gather(opt_state.v))
+
+    @staticmethod
+    def resident_bytes(params, opt_state: AdamWState | None = None) -> int:
+        """Bytes of a rank's parameter (and moment) slices."""
+        trees = [named_tensors(params)]
+        if opt_state is not None:
+            trees += [opt_state.m, opt_state.v]
+        return sum(t.numel() * t.element_size() for tree in trees
+                   for t in tree.values())
+
+    def gather_top(self, named: dict, grad: bool = False) -> dict:
+        """The top-level leaves (embedding, final norm, head) gathered
+        from this rank's slices ``named``, as leaves that take gradients
+        with ``grad``."""
+        return {n: t.detach().requires_grad_(grad) for n, t in zip(
+            self.top.names, self.top.gather(
+                [named[n].detach() for n in self.top.names]))}
+
+    def layers(self, named: dict):
+        """-> layer(i), layer ``i``'s tree of full tensors: per-layer
+        buckets are gathered when the forward reads the layer (again
+        under remat, by ``_GatherFn``); one bucket of every layer is
+        gathered here, once."""
+        buckets = self.layer_buckets
+        if len(buckets) == 1:
+            whole = dict(zip(buckets[0].names, _GatherFn.apply(
+                buckets[0], *(named[n] for n in buckets[0].names))))
+
+        def layer(i: int) -> dict:
+            if len(buckets) > 1:
+                b = buckets[i]
+                full = zip(b.names, _GatherFn.apply(
+                    b, *(named[n] for n in b.names)))
+            else:
+                pre = f"blocks.{i}."
+                full = ((n, t) for n, t in whole.items()
+                        if n.startswith(pre))
+            out: dict = {}
+            for name, t in full:
+                _put(out, tuple(name.split(".")[2:]), t)
+            return out
+
+        layer.n = self.cfg.num_layers
+        return layer
+
+    def tree(self, named: dict) -> "_Gathered":
+        """What ``models.forward`` reads, over this rank's slices (a
+        serving forward: no gradients)."""
+        return _Gathered(self.gather_top(named), self.layers(named))
+
+
+class MeshTrainStep:
+    """``make_train_step``'s step over a ``RankMesh`` (see the module
+    docstring; made by ``jit_train_step``): it shards the state and runs
+    the step with itself as the step's hooks.  ``sharded`` is its
+    ``ShardedParams``; ``stats`` the last call's collectives."""
+
+    def __init__(self, step, mesh, param_shardings, batch_sharding,
+                 donate: bool = True):
+        for a in ("data", "model"):
+            if a not in mesh.shape:
+                raise ValueError(f"a train mesh has axes (data, model) or "
+                                 f"(pod, data, model), not {mesh.axes}")
+        if step.grad_shardings is not None and \
+                dict(step.grad_shardings) != dict(param_shardings):
+            raise ValueError("grad_shardings must equal the parameters' "
+                             "specs: the gradients land on their slices")
+        bps = step.block_param_specs
+        if bps is not None and any(bps.get(n) != spec for n, spec in
+                                   param_shardings.items()
+                                   if n.startswith("blocks.")):
+            raise ValueError("block_param_specs must be the layers' specs")
+        split = batch_sharding[0] if len(batch_sharding) else None
+        split = (() if split is None else
+                 (split,) if isinstance(split, str) else tuple(split))
+        self.sharded = ShardedParams(step.cfg, mesh, param_shardings, split,
+                                     per_layer=bps is not None)
+        self.step, self.mesh, self.donate = step, mesh, donate
+        self.split = split
+        self.ndp = math.prod(mesh.shape[a] for a in split)
+        self.row_slice = 0
+        for a in split:
+            self.row_slice = self.row_slice * mesh.shape[a] + mesh.coord(a)
+        self._top = None
+
+    @property
+    def stats(self) -> dict:
+        return self.sharded.stats
+
+    def __call__(self, params, opt_state: AdamWState, tokens, labels):
+        if not self.donate:
+            given = named_tensors(params)
+            params = tree_from_named({k: p.detach().clone()
+                                      for k, p in given.items()})
+            for k, p in params.named_parameters():
+                p.requires_grad_(given[k].requires_grad)
+            opt_state = AdamWState(
+                step=opt_state.step.clone(),
+                m={k: t.clone() for k, t in opt_state.m.items()},
+                v={k: t.clone() for k, t in opt_state.v.items()})
+        self.sharded.shard(params)
+        opt_state = self.sharded.shard_state(opt_state)
+        self.sharded.stats = {}
+        return self.step(params, opt_state, tokens, labels, hooks=self)
+
+    # ---- the step's hooks
+    def begin(self, named: dict) -> None:
+        self._top = self.sharded.gather_top(named, grad=True)  # once a step
+
+    def tree(self, params, named: dict) -> "_Gathered":
+        return _Gathered(self._top, self.sharded.layers(named))
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        n = t.shape[0] // self.ndp
+        return t[self.row_slice * n:(self.row_slice + 1) * n]
+
+    def end(self, named: dict) -> None:
+        """The top-level leaves' gradients onto their slices."""
+        sp, top = self.sharded, self._top
+        for n, g in zip(sp.top.names, sp.top.reduce(
+                [top[n].grad if top[n].grad is not None
+                 else torch.zeros_like(top[n]) for n in sp.top.names])):
+            named[n].grad = g
+        self._top = None
+
+    @property
+    def route(self):
+        """The MoE layers' routing over the row slices (``models.moe.
+        routed_over``), or None when the batch is not split."""
+        return None if self.ndp == 1 else self._route
+
+    def _route(self, counts: torch.Tensor):
+        mesh = self.mesh
+        every = self.sharded._collective("gather", counts).view(
+            *mesh.sizes, -1)
+        # the ranks with this rank's coordinates off the split axes hold
+        # every row slice once; order them as ``rows`` numbers them
+        per = every[tuple(slice(None) if a in self.split else mesh.coord(a)
+                          for a in mesh.axes)]
+        axes = [a for a in mesh.axes if a in self.split]
+        per = per.permute(*[axes.index(a) for a in self.split],
+                          len(axes)).reshape(self.ndp, -1)
+        return per[:self.row_slice].sum(0), per.sum(0), self.ndp
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """A metric's mean over the row slices."""
+        if self.mesh.size == 1:
+            return x
+        x = x if self.sharded.rep else torch.zeros_like(x)
+        return self.sharded._collective("all_reduce", x) / self.ndp
+
+    def norm(self, grads: dict) -> torch.Tensor:
+        """The global norm of the gradients' slices: each slice's squared
+        sum counted once, all-reduced."""
+        if self.mesh.size == 1:
+            return global_norm(grads)
+        lay = self.sharded.layouts
+        sq = torch.stack([
+            torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
+            if lay[k].owner else g.new_zeros((), dtype=torch.float32)
+            for k, g in grads.items()]).sum()
+        return torch.sqrt(self.sharded._collective("all_reduce", sq))
 
 
 def jax_state(cfg: ArchConfig, params, opt_state: AdamWState) -> dict:

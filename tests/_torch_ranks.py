@@ -189,3 +189,109 @@ def train_ranks(g_all, e_all, steps: int, ws, xs) -> dict:
     return {"q": q.numpy(), "scale": float(scale), "out": out["w"].numpy(),
             "new_e": new_e["w"].numpy(), "ef_mean": (acc / steps).numpy(),
             "gpipe": got.numpy(), "gpipe_2x2": got2.numpy()}
+
+
+def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
+               steps: int, arch: str = "qwen2-7b",
+               dts: tuple = ("f32", "bf16")) -> dict:
+    """The mesh train step on this world's ranks as a ``shape`` ``(data,
+    model)`` mesh, from the JAX init values and batch in ``inputs_path``
+    (``_mesh_cfg(arch)``), 2 microbatches, at each compute dtype of
+    ``dts`` (the f32 forward by a partial of ``models.model.forward``, as
+    the JAX side does it): each step's loss and grad norm, every gradient
+    leaf gathered to its JAX layout, the rank's resident bytes against
+    the specs' share; after the f32 run rank 0 writes ``jax_state`` of
+    the gathered state to ``ckpt_dir`` at step ``steps``."""
+    import functools
+    import math
+
+    import numpy as np
+    import torch
+
+    import repro_torch.models.model as mm
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import from_jax_params
+    from repro_torch.parallel import (
+        RULES_TP_FSDP, param_shardings, token_sharding,
+    )
+    from repro_torch.train import AdamW, make_train_step, jit_train_step
+    from repro_torch.train import save
+    from repro_torch.train.train_loop import jax_state
+
+    data = np.load(inputs_path)
+    values: dict = {}
+    for k in data.files:
+        if k.startswith("values/"):
+            node = values
+            parts = k.split("/")[1:]
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[k]
+    tokens = torch.from_numpy(data["tokens"])
+    labels = torch.from_numpy(data["labels"])
+    cfg = _mesh_cfg(arch)
+    grads_seen: list = []
+
+    class Capture(AdamW):
+        def update(self, grads, state, params, decay, norm=None):
+            grads_seen.append({k: g.clone() for k, g in grads.items()})
+            return AdamW.update(self, grads, state, params, decay, norm=norm)
+
+    mesh = make_host_mesh(shape, ("data", "model"), device="cpu")
+    forward = mm.forward
+    out = {}
+    try:
+        for dt in dts:
+            mm.forward = (functools.partial(forward,
+                                            compute_dtype=torch.float32)
+                          if dt == "f32" else forward)
+            params = from_jax_params(cfg, values, device="cpu")
+            params.requires_grad_(True)
+            opt = Capture(lr=1e-3, warmup=0)
+            specs = param_shardings(params, RULES_TP_FSDP, mesh)
+            blocks = {n: s for n, s in specs.items()
+                      if n.startswith("blocks.")}
+            step = make_train_step(cfg, opt, microbatches=2,
+                                   grad_shardings=specs,
+                                   block_param_specs=blocks)
+            js = jit_train_step(step, mesh, specs,
+                                token_sharding(mesh, tokens.shape[0]))
+            state = opt.init(params)
+            runs = []
+            for _ in range(steps):
+                grads_seen.clear()
+                params, state, m = js(params, state, tokens, labels)
+                full = js.sharded.gather(grads_seen[0])
+                runs.append({"metrics": {k: float(v) for k, v in m.items()},
+                             "grads": mm.to_jax_values(cfg, full),
+                             "stats": dict(js.stats)})
+            share = sum(math.prod(lay.local) * 4 for lay in
+                        js.sharded.layouts.values())
+            res = {"runs": runs, "resident": js.sharded.resident_bytes(
+                params, state), "share": 3 * share}
+            if dt == "f32":
+                fp, fst = js.sharded.full_state(params, state)
+                if mesh.rank == 0:
+                    save(ckpt_dir, steps, jax_state(cfg, fp, fst))
+                res["values"] = mm.to_jax_values(cfg, fp)
+            out[dt] = res
+    finally:
+        mm.forward = forward
+    return out
+
+
+def _mesh_cfg(arch: str = "qwen2-7b"):
+    """The reduced qwen2-7b of the JAX package's sharded-step test, or
+    ``arch`` cut the same way; an MoE's capacity factor is 1.0, so that a
+    microbatch's busier experts drop tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(arch).reduced(
+        num_layers=2, vocab_size=64, d_model=32, d_ff=64, num_heads=4,
+        num_kv_heads=2, head_dim=16)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=1.0))
+    return cfg

@@ -40,6 +40,13 @@ def test_entry_point_loads_no_jax():
         "import repro_torch.launch.train\n"
         "import repro_torch.analysis, repro_torch.analysis.__main__\n"
         "import repro_torch.analysis.passes, repro_torch.monitoring\n"
+        "import repro_torch.parallel.logical, repro_torch.models.tuning\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.roofline, repro_torch.launch.op_cost\n"
+        "import repro_torch.launch.quant_roofline, repro_torch.launch.report\n"
+        "import torch\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not torch.distributed.is_initialized()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

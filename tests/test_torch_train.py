@@ -143,8 +143,18 @@ def test_grad_accumulation_equivalence():
     with pytest.raises(ValueError, match="requires_grad_"):
         p = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
         make_train_step(cfg, AdamW())(p, AdamW().init(p), tokens, labels)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        make_train_step(cfg, AdamW(), grad_shardings={})
+    # sharding specs take effect on a mesh (jit_train_step), where the
+    # gradients must land on the parameters' slices
+    from repro_torch.parallel import (
+        RULES_TP_FSDP, param_shardings, serving_mesh, token_sharding,
+    )
+    from repro_torch.train import jit_train_step
+
+    mesh = serving_mesh(1, 1, device="cpu")
+    with pytest.raises(ValueError, match="grad_shardings"):
+        jit_train_step(make_train_step(cfg, AdamW(), grad_shardings={}),
+                       mesh, param_shardings(p, RULES_TP_FSDP, mesh),
+                       token_sharding(mesh, 8))
 
 
 # ------------------------------------------------------ data, elasticity
