@@ -200,7 +200,7 @@ before the path and reads the counters just after it:
      sum is also counted (on the card it splits a short row over more
      threads below 16 rows).  The first N_SHARDED =
      2,048 rows of phase 3's stream (d 128, m 16, ef_construction 64,
-     micro-batch 128, f32; a time cut: phase 3's 65,536 rows take ~250 s a
+     micro-batch 128, f32; a time cut: phase 3's 32,768 rows take ~120 s a
      build, and 8,192 rows, then 4,096, this phase's size before phase 7c
      came and then gated its second step, left too little of the time
      limit) are built three ways on the card: ``backend="device"``,
@@ -393,24 +393,32 @@ before the path and reads the counters just after it:
      --device cuda`` exits 0 in a subprocess;
   7c. mesh train — the train step over a mesh of ranks
      (``train.jit_train_step``: ZeRO-3 by ``parallel.param_shardings``
-     with ``RULES_TP_FSDP``, per-layer all-gather and reduce-scatter
-     through gloo staged through the host), run after phase 7b: MESH_RANKS
-     = 2 processes spawned as phase 5e spawns its ranks, both on the one
-     card, a ``(data 2, model 1)`` mesh, phase 7b's model (qwen2-7b at
-     full width cut to 2 layers, f32 master weights from the same seeded
+     with ``RULES_TP_FSDP``, per-layer all-gather over the FSDP axes in
+     bf16 and reduce-scatter, tensor and expert parallelism over
+     ``model``; gloo staged through the host), run after phase 7b: two
+     legs of MESH_RANKS = 2 processes spawned as phase 5e spawns its
+     ranks, both on the one card, phase 7b's model (qwen2-7b at full
+     width cut to 2 layers, f32 master weights from the same seeded
      generator, bf16 compute, f32 moments), its optimizer and batches,
-     MESH_STEPS steps of 8 x 512 tokens in 2 microbatches, each rank
-     taking 4 rows of a microbatch.  Checks, against phase 7b's one-rank
-     steps on the same weights and batches: step 1's loss within
-     TRAIN_MICRO_TOL and its grad norm within 2e-2 relative (the
-     reference's own bar); step 2, after the sharded AdamW update, its
-     loss and grad norm within MESH_STEP2_TOL (absolute, relative) of
-     phase 7b's step 2; both ranks report the same metrics; each
-     rank's resident parameter and moment bytes are half of phase 7b's
-     (12 bytes a parameter), within one row of the widest leaf for the
-     three tensors (the leaves the spec leaves whole, the QKV biases, sit
-     on both ranks).  Prints each step's ms, the gathers' and
-     reduce-scatters' ms and bytes, each rank's peak device bytes;
+     MESH_STEPS steps of 8 x 512 tokens in 2 microbatches.  Leg (a), a
+     ``(data 2, model 1)`` mesh, each rank taking 4 rows of a
+     microbatch: step 1's loss within TRAIN_MICRO_TOL and its grad norm
+     within 2e-2 relative (the reference's own bar); step 2, after the
+     sharded AdamW update, its loss and grad norm within MESH_STEP2_TOL
+     (absolute, relative) of phase 7b's step 2; each rank's resident
+     parameter and moment bytes are half of phase 7b's (12 bytes a
+     parameter), within one row of the widest leaf for the three tensors
+     (the leaves the spec leaves whole, the QKV biases, sit on both
+     ranks).  Leg (b), a ``(data 1, model 2)`` mesh, each rank computing
+     its half of every head, mlp column and vocab row of all 8 rows:
+     MESH_TP_TOLS (the CPU 2 x 2 test's bf16 bars: step 1's loss within
+     1e-3 and grad norm within 2e-2 relative, step 2's within 5e-3 and
+     2e-2); resident bytes half of phase 7b's within the leaves that
+     stay whole over ``model`` (the norms); no parameter gather in
+     either step.  Both legs: both ranks report the same metrics.
+     Prints each step's ms, the gathers', reduce-scatters' and
+     all-reduces' n, ms and bytes (the ``model`` group's all-reduces
+     apart), each rank's peak device bytes;
   8. report — the kernels JSON line, then the ok line last.  The WoW
      kernels' entries add ``executions``: the wrapper's launches in the
      device-build phase plus the launches that the phase's replayed hop
@@ -422,9 +430,11 @@ before the path and reads the counters just after it:
      the durable, cluster and sharded phases', and its entry adds those
      phases' numbers under ``durable``, ``cluster`` and ``sharded``.
 
-N_DEVICE is the largest power of two from 2^15 to 2^20 whose device build,
-at the rate this script measured on an H100 at n = 32,768 (302 inserts/s,
-PERF.md), takes at most 300 s: 2^16 (~217 s); 2^17 would take ~434 s.
+N_DEVICE is 2^15, the smallest power of two from 2^15 to 2^20, a time cut:
+at 2^16 the device build took 217-278 s on H100s (PERF.md), and with phase
+7c's second leg the whole smoke took 1,188 s of its 1,200 s limit on a slow
+machine; 2^15 halves the build and the phases that serve, log and replicate
+its index.
 
 Needs one card; exits non-zero without CUDA or outside a checkout of the
 repository, before printing any result.
@@ -450,7 +460,7 @@ BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 TIE_FLIP_SHARE = 0.02
 N_HOST = 8192  # host-built (ops) serve phase
-N_DEVICE = 65536  # device-build phase (see the module docstring)
+N_DEVICE = 32768  # device-build phase (see the module docstring)
 N_INGEST = 4096
 QUERIES = 256
 RAG_ARCH_RUN = "qwen2-7b-bf16"  # the LM run the RAG phase rides on
@@ -490,6 +500,9 @@ MESH_NORM_TOL = 2e-2  # phase 7c: grad norm against 7b's, relative
 # loss absolute, the grad norm relative (read 1.42e-4 and 8.4e-5 before
 # this gate on the H100, from bf16 gradients that round elsewhere)
 MESH_STEP2_TOL = 1e-3
+# phase 7c (data 1, model 2): the CPU 2 x 2 test's bf16 bars, (loss
+# absolute, grad norm relative) at steps 1 and 2
+MESH_TP_TOLS = ((1e-3, 2e-2), (5e-3, 2e-2))
 LM_MODELS = {  # run -> arch, kernel launches per prefill or embed, the
     # tensors given seeded noise (JAX's zero inits, and the rwkv bonus u),
     # the weights' and compute type, and the depth cut (layers, or None)
@@ -3159,14 +3172,29 @@ def _train_cfg():
                                block_pattern=cfg.block_pattern[:TRAIN_LAYERS])
 
 
-def _mesh_rank(rank: int, world: int, store: str, results) -> None:
+def _mesh_rank(rank: int, world: int, store: str, shapes: tuple,
+               results) -> None:
     """One rank of phase 7c: a process of its own on ``cuda:0``, joined
     to the others by gloo over a ``FileStore``; phase 7b's model and
-    batches through the mesh train step.  Puts what it measured on
+    batches through the mesh train step on each ``(data, model)`` mesh
+    of ``shapes`` in turn (``_mesh_leg``).  Puts what it measured on
     ``results``; a failure ends the process non-zero."""
-    import gc
-
     import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        results.put((rank, [_mesh_leg(shape) for shape in shapes]))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_leg(shape: tuple) -> dict:
+    """This rank's MESH_STEPS steps of phase 7b's model on a ``shape``
+    mesh of the ranks: what it measured."""
+    import gc
 
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
@@ -3177,116 +3205,143 @@ def _mesh_rank(rank: int, world: int, store: str, results) -> None:
         AdamW, DataConfig, TokenSource, jit_train_step, make_train_step,
     )
 
-    torch.cuda.set_device(0)
-    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
-    dist.init_process_group("gloo", store=dist.FileStore(store, world),
-                            rank=rank, world_size=world)
-    try:
-        cfg = _train_cfg()
-        mesh = make_host_mesh((world, 1), ("data", "model"),
-                              device="cuda:0")
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        params = init_params(cfg, gen, device="cuda")  # phase 7b's weights
-        specs = param_shardings(params, RULES_TP_FSDP, mesh)
-        blocks = {n: sp for n, sp in specs.items()
-                  if n.startswith("blocks.")}
-        opt = AdamW(lr=3e-4, warmup=2, total_steps=100)  # phase 7b's
-        step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO,
-                               grad_shardings=specs, block_param_specs=blocks)
-        js = jit_train_step(step, mesh, specs,
-                            token_sharding(mesh, TRAIN_BATCH))
-        js.sharded.shard(params)  # the full tensors go
-        gc.collect()
-        torch.cuda.empty_cache()
-        params.requires_grad_(True)
-        state = opt.init(params)
-        resident = js.sharded.resident_bytes(params, state)
-        widest_row = max(math.prod(lay.shape[1:])
-                         for lay in js.sharded.layouts.values())
-        data = TokenSource(DataConfig(vocab_size=cfg.vocab_size,
-                                      seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH,
-                                      kind="random"))
-        torch.cuda.reset_peak_memory_stats()
-        steps = []
-        for i in range(MESH_STEPS):
-            tok, lab = data.host_batch(i, 0, [0])
-            tok = torch.as_tensor(tok, device="cuda")
-            lab = torch.as_tensor(lab, device="cuda")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            _, state, m = js(params, state, tok, lab)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            st = js.stats
-            steps.append({"ms": ms, **{k: float(v) for k, v in m.items()},
-                          **{f"{k[:-2]}_ms" if k.endswith("_s") else k:
-                             (v * 1e3 if k.endswith("_s") else v)
-                             for k, v in st.items()}})
-        results.put((rank, {
-            "coord": mesh.coord("data"), "steps": steps,
-            "resident_bytes": resident, "widest_row": widest_row,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
-            "params": sum(math.prod(lay.shape) for lay in
-                          js.sharded.layouts.values())}))
-    finally:
-        dist.destroy_process_group()
+    cfg = _train_cfg()
+    mesh = make_host_mesh(shape, ("data", "model"), device="cuda:0")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")  # phase 7b's weights
+    specs = param_shardings(params, RULES_TP_FSDP, mesh)
+    blocks = {n: sp for n, sp in specs.items()
+              if n.startswith("blocks.")}
+    opt = AdamW(lr=3e-4, warmup=2, total_steps=100)  # phase 7b's
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO,
+                           grad_shardings=specs, block_param_specs=blocks)
+    js = jit_train_step(step, mesh, specs,
+                        token_sharding(mesh, TRAIN_BATCH))
+    js.sharded.shard(params)  # the full tensors go
+    gc.collect()
+    torch.cuda.empty_cache()
+    params.requires_grad_(True)
+    state = opt.init(params)
+    resident = js.sharded.resident_bytes(params, state)
+    widest_row = max(math.prod(lay.shape[1:])
+                     for lay in js.sharded.layouts.values())
+    whole = sum(math.prod(lay.shape) for n, lay in
+                js.sharded.layouts.items()
+                if js.sharded.parts[n] is None)  # whole over model
+    data = TokenSource(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH,
+                                  kind="random"))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(MESH_STEPS):
+        tok, lab = data.host_batch(i, 0, [0])
+        tok = torch.as_tensor(tok, device="cuda")
+        lab = torch.as_tensor(lab, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = js(params, state, tok, lab)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = js.stats
+        steps.append({"ms": ms, **{k: float(v) for k, v in m.items()},
+                      **{f"{k[:-2]}_ms" if k.endswith("_s") else k:
+                         (v * 1e3 if k.endswith("_s") else v)
+                         for k, v in st.items()}})
+    out = {"coord": (mesh.coord("data"), mesh.coord("model")),
+           "steps": steps, "resident_bytes": resident,
+           "widest_row": widest_row, "whole_params": whole,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "params": sum(math.prod(lay.shape) for lay in
+                         js.sharded.layouts.values())}
+    del params, state, js, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
-def phase_mesh_train(train: dict) -> dict:
-    """Phase 7c (see the module docstring), against phase 7b's ``train``
-    result."""
-    t0 = time.perf_counter()
-    ranks = _spawn_ranks(_mesh_rank, MESH_RANKS, "mesh-train", ())
-    wall = time.perf_counter() - t0
+def _check_leg(train: dict, shape: tuple, ranks: list, wall: float) -> dict:
+    """One leg of phase 7c (the ranks' ``_mesh_leg`` results on a
+    ``shape`` mesh) held to phase 7b's one-rank steps (see the module
+    docstring)."""
+    tp = shape[1] > 1
+    name = f"mesh train (data {shape[0]}, model {shape[1]})"
     ref = train["full_width"]["steps"][0]
     r0 = ranks[0]
     metrics = [[{k: s[k] for k in ("loss", "nll", "aux", "grad_norm", "lr")}
                 for s in r["steps"]] for r in ranks]
     if any(m != metrics[0] for m in metrics):
-        fail(f"mesh train: the ranks report different metrics {metrics}")
+        fail(f"{name}: the ranks report different metrics {metrics}")
     s1 = r0["steps"][0]
     loss_gap = abs(s1["loss"] - ref["loss"])
     norm_gap = abs(s1["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
-    if not (loss_gap < TRAIN_MICRO_TOL and norm_gap < MESH_NORM_TOL):
-        fail(f"mesh train: step 1 {s1} against phase 7b's one rank {ref}")
+    tol1 = MESH_TP_TOLS[0] if tp else (TRAIN_MICRO_TOL, MESH_NORM_TOL)
+    if not (loss_gap < tol1[0] and norm_gap < tol1[1]):
+        fail(f"{name}: step 1 {s1} against phase 7b's one rank {ref}")
     ref2, s2 = train["full_width"]["steps"][1], r0["steps"][1]
     loss_gap2 = abs(s2["loss"] - ref2["loss"])
     norm_gap2 = abs(s2["grad_norm"] - ref2["grad_norm"]) / ref2["grad_norm"]
-    if not (loss_gap2 < MESH_STEP2_TOL and norm_gap2 < MESH_STEP2_TOL):
-        fail(f"mesh train: step 2 {s2} against phase 7b's one rank {ref2}")
+    tol2 = MESH_TP_TOLS[1] if tp else (MESH_STEP2_TOL, MESH_STEP2_TOL)
+    if not (loss_gap2 < tol2[0] and norm_gap2 < tol2[1]):
+        fail(f"{name}: step 2 {s2} against phase 7b's one rank {ref2}")
     half = 12 * r0["params"] / MESH_RANKS  # f32 weights, m and v
-    slack = 12 * r0["widest_row"]
+    # (data 2, model 1): within one row of the widest leaf for the three
+    # tensors (the leaves the spec leaves whole, the QKV biases, sit on
+    # both ranks); (data 1, model 2): the leaves whole over model sit on
+    # both ranks
+    slack = 12 * (r0["whole_params"] / 2 if tp else r0["widest_row"])
     for r in ranks:
         if abs(r["resident_bytes"] - half) > slack:
-            fail(f"mesh train: rank {r['coord']} holds {r['resident_bytes']}"
+            fail(f"{name}: rank {r['coord']} holds {r['resident_bytes']}"
                  f" bytes of parameters and moments, not half of "
                  f"{2 * half:.0f} (+- {slack})")
+        if tp and any(s.get("gather_n", 0) for s in r["steps"]):
+            fail(f"{name}: rank {r['coord']} gathered parameters "
+                 f"{[s.get('gather_n', 0) for s in r['steps']]}")
     for i, s in enumerate(r0["steps"]):
-        print(f"mesh train step {i + 1}: {s['ms']:.1f} ms; gathers "
+        print(f"{name} step {i + 1}: {s['ms']:.1f} ms; gathers "
               f"{s.get('gather_n', 0)} in {s.get('gather_ms', 0):.1f} ms "
               f"({s.get('gather_bytes', 0) / 1e9:.3f} GB sent), "
               f"reduce-scatters {s.get('reduce_scatter_n', 0)} in "
               f"{s.get('reduce_scatter_ms', 0):.1f} ms "
               f"({s.get('reduce_scatter_bytes', 0) / 1e9:.3f} GB), "
               f"all-reduces {s.get('all_reduce_n', 0)} in "
-              f"{s.get('all_reduce_ms', 0):.1f} ms; loss {s['loss']:.6f}, "
-              f"grad norm {s['grad_norm']:.6f}")
-    print(f"ok mesh train: {MESH_RANKS} ranks on one card, (data "
-          f"{MESH_RANKS}, model 1); step 1 loss {s1['loss']:.6f} / "
-          f"{ref['loss']:.6f} (gap {loss_gap:.3e}, limit "
-          f"{TRAIN_MICRO_TOL:g}), grad norm {s1['grad_norm']:.6f} / "
+              f"{s.get('all_reduce_ms', 0):.1f} ms; model all-reduces "
+              f"{s.get('tp_all_reduce_n', 0)} in "
+              f"{s.get('tp_all_reduce_ms', 0):.1f} ms "
+              f"({s.get('tp_all_reduce_bytes', 0) / 1e9:.3f} GB), model "
+              f"max all-reduces {s.get('tp_all_reduce_max_n', 0)} in "
+              f"{s.get('tp_all_reduce_max_ms', 0):.1f} ms; loss "
+              f"{s['loss']:.6f}, grad norm {s['grad_norm']:.6f}")
+    print(f"ok {name}: {MESH_RANKS} ranks on one card; step 1 loss "
+          f"{s1['loss']:.6f} / {ref['loss']:.6f} (gap {loss_gap:.3e}, "
+          f"limit {tol1[0]:g}), grad norm {s1['grad_norm']:.6f} / "
           f"{ref['grad_norm']:.6f} ({norm_gap:.3e} relative, limit "
-          f"{MESH_NORM_TOL:g}); step 2 loss {s2['loss']:.6f} / "
-          f"{ref2['loss']:.6f} (gap {loss_gap2:.3e}), grad norm "
-          f"{s2['grad_norm']:.6f} / {ref2['grad_norm']:.6f} ({norm_gap2:.3e}"
-          f" relative; limits {MESH_STEP2_TOL:g}); resident bytes "
+          f"{tol1[1]:g}); step 2 loss {s2['loss']:.6f} / "
+          f"{ref2['loss']:.6f} (gap {loss_gap2:.3e}, limit {tol2[0]:g}), "
+          f"grad norm {s2['grad_norm']:.6f} / {ref2['grad_norm']:.6f} "
+          f"({norm_gap2:.3e} relative, limit {tol2[1]:g}); resident bytes "
           f"{[r['resident_bytes'] for r in ranks]} against half of "
-          f"phase 7b's {half:.0f} (+- {slack}); peak bytes "
-          f"{[r['peak_bytes'] for r in ranks]}; {wall:.1f} s with the "
-          f"spawn")
+          f"phase 7b's {half:.0f} (+- {slack:.0f}); peak bytes "
+          f"{[r['peak_bytes'] for r in ranks]}; the phase {wall:.1f} s "
+          f"with the spawn")
     return {"ranks": ranks, "loss_gap": loss_gap, "norm_gap": norm_gap,
-            "loss_gap2": loss_gap2, "norm_gap2": norm_gap2, "wall_s": wall}
+            "loss_gap2": loss_gap2, "norm_gap2": norm_gap2}
+
+
+def phase_mesh_train(train: dict) -> dict:
+    """Phase 7c (see the module docstring), against phase 7b's ``train``
+    result: one spawn of MESH_RANKS ranks runs the ``(data 2, model 1)``
+    leg, then ``(data 1, model 2)``."""
+    shapes = ((MESH_RANKS, 1), (1, MESH_RANKS))
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_mesh_rank, MESH_RANKS, "mesh-train", (shapes,))
+    wall = time.perf_counter() - t0
+    out = {f"data{d}_model{m}": _check_leg(train, (d, m),
+                                           [r[i] for r in ranks], wall)
+           for i, (d, m) in enumerate(shapes)}
+    out["wall_s"] = wall
+    return out
 
 
 def phase_tools() -> dict:

@@ -4,20 +4,29 @@ step and derive the roofline terms.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch rwkv6-1.6b \\
         --shape decode_32k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen2-7b \\
+        --shape decode_32k --mesh 4x4
 
 Per cell: abstract parameters and caches (the ``meta`` device); the
 specs (``parallel.param_shardings``, ``token_sharding``,
 ``cache_sharding``); then one run of the port's own step on
 ``FakeTensor``s of rank 0's shapes (nothing computed, nothing
 allocated): the train step of ``jit_train_step`` over a ``RankMesh`` of
-the mesh's size, or a prefill or decode forward over the rank's rows
-with every layer all-gathered from its slices when the forward reads it
-(``train_loop.ShardedParams``; compute replicated over ``model``, as in
-the train step, so a rank holds its rows' whole caches; the record lists
-the plan's cache specs, ``cache_specs``, beside what the step held).  Its collectives are real calls on torch's ``fake``
-process-group backend sized to the mesh (each returns at once).  The run
-goes under ``launch.op_cost``; ``launch.roofline`` turns the counts into
-the H100's terms.
+the mesh's size, or a prefill or decode forward over the rank's rows.
+Both compute rank 0's part over ``model`` (tensor and expert
+parallelism, ``parallel.tensor_parallel``, as the train step does):
+every layer is all-gathered over the FSDP axes only, in bf16, when the
+forward reads it (``train_loop.ShardedParams``), and its products run
+over the rank's heads, mlp, experts, inner channels or vocab.  A decode
+or prefill cache follows ``cache_specs``, the plan's spec of each state:
+a KV cache holds the rank's kv heads when they divide ``model`` (the
+sequence split of ``cache_seq_shard`` is sequence-parallel attention,
+which the port does not run: such a cache holds its whole sequence), and
+the SSM states stay whole.  Its collectives are real calls on torch's
+``fake`` process-group backend sized to the mesh and its ``model`` and
+FSDP groups (each returns at once).  The run goes under
+``launch.op_cost``; ``launch.roofline`` turns the counts into the H100's
+terms.
 
 Record keys are the reference's: ``hlo_flops_per_device`` and
 ``hlo_bytes_per_device`` hold the walk's counts, ``xla_cost_analysis``
@@ -50,7 +59,7 @@ from ..parallel.logical import (
     RULES_DP_ONLY, RULES_EP_DATA, RULES_TP_FSDP, param_shardings,
 )
 from ..parallel.sharding import cache_sharding, token_sharding
-from .mesh import make_production_mesh
+from .mesh import AbstractMesh, make_production_mesh
 from .roofline import active_param_count, model_flops, roofline_terms
 
 SHAPES = {
@@ -218,6 +227,7 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
             else:
                 sp = ShardedParams(cfg, rmesh, specs, split)
                 lay = sp.layouts
+                tp = sp.model_split()
                 lower_s = time.time() - t0
                 t1 = time.time()
                 with FakeTensorMode(), torch.no_grad():
@@ -232,7 +242,8 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
                         mem["cache_bytes"] = 0  # made by the step
                     else:
                         inp = _inputs(cfg, rows, 1)
-                        caches = init_cache(cfg, rows, seq, device="cpu")
+                        caches = init_cache(cfg, rows, seq, device="cpu",
+                                            tp=tp)
                         mem["cache_bytes"] = _nbytes(
                             t for st in caches for t in st)
                         args = dict(mode="decode", caches=caches,
@@ -242,9 +253,9 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
                     with OpCost(chips) as oc:
                         if info["kind"] == "prefill":  # made by the step
                             args["caches"] = init_cache(cfg, rows, seq,
-                                                        device="cpu")
+                                                        device="cpu", tp=tp)
                         result = forward(sp.tree(named), cfg, inp,
-                                         backend=backend, **args)
+                                         backend=backend, tp=tp, **args)
                         if info["kind"] == "decode":
                             result = result[0][:, -1].argmax(-1)
                     out_bytes = oc.live
@@ -328,7 +339,9 @@ def main(argv: list[str] | None = None) -> list[dict]:
     ap = argparse.ArgumentParser(description="multi-pod dry-run")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
-    ap.add_argument("--mesh", default="single", choices=["single", "multi"])
+    ap.add_argument("--mesh", default="single",
+                    help='"single" (16 x 16), "multi" (2 x 16 x 16) or a '
+                         '(data, model) mesh "DxM", e.g. "4x4"')
     ap.add_argument("--rules", default="tp_fsdp", choices=list(RULES))
     ap.add_argument("--mb", type=int, default=None, help="microbatch override")
     ap.add_argument("--all", action="store_true", help="every arch x shape")
@@ -344,7 +357,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
 
         apply_preset(args.tune)
 
-    mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
+    if args.mesh in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=(args.mesh == "multi"))
+    else:
+        mesh = AbstractMesh(("data", "model"), tuple(
+            int(n) for n in args.mesh.split("x")))
     archs = all_archs() if args.arch is None else [args.arch]
     shapes = list(SHAPES) if args.shape is None else [args.shape]
     if not args.all and args.arch is None:

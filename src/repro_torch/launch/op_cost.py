@@ -101,6 +101,7 @@ class OpCost(TorchDispatchMode):
         self._made = weakref.WeakValueDictionary()  # id -> made here
         self._read: dict = {}  # id -> input read (kept alive)
         self.flops = 0.0
+        self.matmul_flops = 0.0  # the matmul-class ops' share of flops
         self.bytes = 0.0
         self.coll = CollectiveStats()
         self.ops = 0
@@ -148,8 +149,10 @@ class OpCost(TorchDispatchMode):
             return out
         self.ops += 1
         if name in _MATMUL:
-            self.flops += self.conv_flops(args, out) if \
-                name == "convolution" else _matmul_flops(name, args)
+            f = self.conv_flops(args, out) if name == "convolution" \
+                else _matmul_flops(name, args)
+            self.flops += f
+            self.matmul_flops += f
         elif name == "mul" and isinstance(out, torch.Tensor):
             self._products[id(out)] = out
         elif name == "sum" and args and isinstance(args[0], torch.Tensor) \

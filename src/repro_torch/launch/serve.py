@@ -48,13 +48,21 @@ after the build, ``--compact-threshold`` sets the auto-compaction cadence.
 
 ``--build-backend sharded`` splits the device build's searches over the
 ranks of a build mesh (``--build-shards N``; default: every rank), and
-``--mesh DxM`` serves one configuration (one value of each knob, the
-lock-step loop) through ``core.distributed.make_serving_fn`` on a
-``(data, model)`` mesh of D x M ranks, printing the JAX launcher's recall,
-mean-DC and hop lines; ``main`` returns that run under ``"mesh"``.  Under
-``torchrun`` every rank runs ``main`` (gloo joins the ranks; only rank 0
-prints); outside it, ``--build-shards 1`` and ``--mesh 1x1`` run in this
-one process.
+``--mesh DxM`` serves one configuration (one value of each knob) through
+``core.distributed.make_serving_fn`` on a ``(data, model)`` mesh of D x M
+ranks, the lock-step loop, printing the JAX launcher's recall, mean-DC
+and hop lines; ``main`` returns that run under ``"mesh"``.  ``--ingest N``
+then runs what the JAX launcher runs after its mesh wave: the N rows
+through ``insert_batch`` on the build backend, the incremental snapshot
+refresh and one re-serve of the queries through ``search_batch`` on this
+rank's device, compacted by the one ``--compact`` value (which the mesh
+wave ignores, as in JAX), with the JAX launcher's ``ingested``,
+``re-served ... post-ingest: recall@k`` and incremental checkpoint lines;
+``main`` returns it under ``"mesh_ingest"``.  Under ``torchrun`` every
+rank runs ``main`` (gloo joins the ranks; only rank 0 prints): every rank
+builds, ingests the same rows in the same micro-batches (the sharded
+build's phase 2 runs on every rank) and re-serves the whole batch; outside
+it, ``--build-shards 1`` and ``--mesh 1x1`` run in this one process.
 
 ``--trace-compiles`` prints every CUDA-graph capture and kernel-library
 build or load of the run to stderr as it happens
@@ -139,7 +147,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default="",
                     help='query-sharded serving on a (data, model) mesh of '
                          'ranks, e.g. "2x1" (torchrun --nproc-per-node 2); '
-                         "one configuration, the lock-step loop")
+                         "one configuration, the lock-step loop; with "
+                         "--ingest, every rank ingests the rows and "
+                         "re-serves through search_batch (compacted by "
+                         "the one --compact value)")
     ap.add_argument("--ingest", type=int, default=0,
                     help="ingest-while-serve: after the first serve wave, "
                          "stream N extra vectors through insert_batch, "
@@ -256,12 +267,12 @@ def _main(ap: argparse.ArgumentParser, args) -> dict:
         if many:
             ap.error(f"{mode} serves one configuration: one value of "
                      f"{', '.join(many)}")
-        if args.compact != ["none"]:
-            ap.error("--mesh runs the lock-step loop (no --compact)"
-                     if args.mesh else
-                     f"{mode} sets its own chunk schedule (no --compact)")
-        if args.mesh and args.ingest:
-            ap.error("--mesh serves one wave (no --ingest)")
+        if args.mesh and len(args.compact) > 1:
+            ap.error("--mesh serves one configuration (its wave is the "
+                     "lock-step loop; --compact sets the re-serve after "
+                     "--ingest): one value of --compact")
+        if not args.mesh and args.compact != ["none"]:
+            ap.error(f"{mode} sets its own chunk schedule (no --compact)")
         if args.mesh and len(args.pipeline) > 1:
             ap.error("--mesh serves one configuration: one value of "
                      "--pipeline")
@@ -277,7 +288,6 @@ def _main(ap: argparse.ArgumentParser, args) -> dict:
 
     from .. import resolve_device
     from ..core import WoWIndex, make_workload, recall
-    from ..core.datasets import make_attrs, make_vectors
     from ..core.device_search import (
         device_search, pad_queries, to_device_index,
         visited_filter_bits_measured,
@@ -400,6 +410,12 @@ def _main(ap: argparse.ArgumentParser, args) -> dict:
         return out
     if args.mesh:
         out["mesh"] = _serve_mesh(args, wl, snap, dev)
+        if args.ingest > 0:
+            out.update(_ingest(args, wl, idx, snap, build_kw, dev))
+            out["mesh_ingest"] = _reserve(args, wl, out["snapshot_after"],
+                                          out["mesh"]["result"].hops,
+                                          compacts[0], dev)
+            _checkpoint_after_ingest(args, out["index"])
         return out
 
     def serve_all(snap, warm: bool, tag: str, first=None) -> list[dict]:
@@ -479,58 +495,119 @@ def _main(ap: argparse.ArgumentParser, args) -> dict:
               f"{cold['first_reply_s'] * 1e3:.0f} ms (load + serve wave)")
 
     if args.ingest > 0:
-        # ingest-while-serve: micro-batch inserts on the build backend +
-        # incremental snapshot refresh (block-copied prefixes + dirty-row
-        # scatters), then re-serve.  The new vectors' attributes lie above
-        # every query range, so the ground truth is unchanged.
-        extra_v = make_vectors(args.ingest, args.dim, seed=99)
-        extra_a = make_attrs(extra_v, seed=99) + float(np.max(wl.attrs)) + 1.0
-        if idx is None:
-            # cold-started off the checkpoint: ingest needs the live index
-            # — run full crash recovery (checkpoint + WAL replay) now and
-            # ride the WAL from here on
-            t0 = time.time()
-            idx = open_durable(args.index_dir,
-                               compact_threshold=args.compact_threshold,
-                               device=dev)
-            print(f"recovered live index for ingest in "
-                  f"{time.time() - t0:.2f}s ({len(idx)} vectors, lsn "
-                  f"{idx._applied_lsn})")
-            out["index"] = idx
-        before = launches()
-        t0 = time.time()
-        idx.insert_batch(extra_v, extra_a, batch_size=args.build_batch or 128,
-                         backend=args.build_backend, **build_kw)
-        sync()
-        t_ing = time.time() - t0
-        ingest_launches = since(before)
-        t0 = time.time()
-        snap = take_snapshot(idx, prev=snap)
-        t_snap = time.time() - t0
-        print(f"ingested {args.ingest} vectors in {t_ing:.2f}s "
-              f"({args.ingest / max(t_ing, 1e-9):.0f} ins/s, launches "
-              f"{ingest_launches}), incremental snapshot refresh "
-              f"{t_snap * 1e3:.0f} ms ({snap.n} live)")
-        out.update(ingest_s=t_ing, ingest_launches=ingest_launches,
-                   snapshot_s=t_snap, snapshot_after=snap)
-        out["ingest_runs"] = serve_all(snap, warm=False, tag="post-ingest ",
-                                       first=out["runs"])
-        if args.index_dir:
-            # the WAL already made the ingest durable; the incremental
-            # checkpoint (O(changed rows)) just shortens the next replay
-            t0 = time.time()
-            path = idx.checkpoint(args.index_dir)
-            print(f"incremental checkpoint to {path} in "
-                  f"{(time.time() - t0) * 1e3:.0f} ms")
+        out.update(_ingest(args, wl, idx, snap, build_kw, dev))
+        out["ingest_runs"] = serve_all(out["snapshot_after"], warm=False,
+                                       tag="post-ingest ", first=out["runs"])
+        _checkpoint_after_ingest(args, out["index"])
     return out
+
+
+def _ingest(args, wl, idx, snap, build_kw: dict, device) -> dict:
+    """Ingest-while-serve: ``args.ingest`` rows through micro-batch
+    inserts on the build backend into ``idx``, then the incremental
+    snapshot refresh from ``snap`` (block-copied prefixes + dirty-row
+    scatters).  The new vectors' attributes lie above every query range,
+    so the ground truth is unchanged.  After a cold start (``idx`` None)
+    the live index is recovered first (checkpoint + WAL replay).
+    Returns the index, the new snapshot (``snapshot_after``) and the
+    ingest's seconds and kernel launches."""
+    import numpy as np
+    import torch
+
+    from ..core.datasets import make_attrs, make_vectors
+    from ..core.snapshot import take_snapshot
+    from ..kernels import launch_counters
+
+    def launches() -> dict:
+        return {k: v for c in launch_counters() for k, v in c.items()}
+
+    extra_v = make_vectors(args.ingest, args.dim, seed=99)
+    extra_a = make_attrs(extra_v, seed=99) + float(np.max(wl.attrs)) + 1.0
+    if idx is None:
+        # cold-started off the checkpoint: ingest needs the live index
+        # — run full crash recovery (checkpoint + WAL replay) now and
+        # ride the WAL from here on
+        from ..persist import open_durable
+
+        t0 = time.time()
+        idx = open_durable(args.index_dir,
+                           compact_threshold=args.compact_threshold,
+                           device=device)
+        print(f"recovered live index for ingest in "
+              f"{time.time() - t0:.2f}s ({len(idx)} vectors, lsn "
+              f"{idx._applied_lsn})")
+    before = launches()
+    t0 = time.time()
+    idx.insert_batch(extra_v, extra_a, batch_size=args.build_batch or 128,
+                     backend=args.build_backend, **build_kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t_ing = time.time() - t0
+    ingest_launches = {k: v - before[k] for k, v in launches().items()}
+    t0 = time.time()
+    snap = take_snapshot(idx, prev=snap)
+    t_snap = time.time() - t0
+    print(f"ingested {args.ingest} vectors in {t_ing:.2f}s "
+          f"({args.ingest / max(t_ing, 1e-9):.0f} ins/s, launches "
+          f"{ingest_launches}), incremental snapshot refresh "
+          f"{t_snap * 1e3:.0f} ms ({snap.n} live)")
+    return {"index": idx, "ingest_s": t_ing,
+            "ingest_launches": ingest_launches, "snapshot_s": t_snap,
+            "snapshot_after": snap}
+
+
+def _checkpoint_after_ingest(args, idx) -> None:
+    """The WAL already made the ingest durable; the incremental
+    checkpoint (O(changed rows)) just shortens the next replay."""
+    if args.index_dir:
+        t0 = time.time()
+        path = idx.checkpoint(args.index_dir)
+        print(f"incremental checkpoint to {path} in "
+              f"{(time.time() - t0) * 1e3:.0f} ms")
+
+
+def _reserve(args, wl, snap, hops, compact, device) -> dict:
+    """The JAX launcher's re-serve after its mesh wave and ingest: one
+    wave of the queries on ``snap`` through ``search_batch`` on this
+    rank's device with ``compact`` (the visited filter re-sized from the
+    mesh wave's ``hops`` under ``--visited hash --adaptive-filter``),
+    printed as the JAX launcher prints it.  Returns the result, recall,
+    visited-filter bits and ``compact``."""
+    import numpy as np
+
+    from ..core import recall
+    from ..core.device_search import (
+        search_batch, visited_filter_bits_measured,
+    )
+
+    v_bits = args.visited_bits
+    if args.adaptive_filter and args.visited[0] == "hash":
+        v_bits = visited_filter_bits_measured(hops, args.m)
+        print(f"adaptive visited filter: {v_bits} bits/query from the "
+              f"measured hop histogram (p99="
+              f"{int(np.percentile(hops, 99))})")
+    res = search_batch(snap, wl.queries, wl.ranges, k=args.k,
+                       width=args.width, backend=args.backend[0],
+                       pipeline=args.pipeline[0], visited=args.visited[0],
+                       visited_bits=v_bits, compact=compact,
+                       vec_dtype=args.vec_dtype[0], device=device)
+    recs = [recall(np.asarray([int(snap.ids_map[j]) for j in res.ids[i]
+                               if j >= 0]), wl.gt[i])
+            for i in range(args.queries)]
+    print(f"re-served {args.queries} queries post-ingest: "
+          f"recall@{args.k} = {np.mean(recs):.4f}")
+    return {"result": res, "recall": float(np.mean(recs)),
+            "visited_bits": v_bits, "compact": compact}
 
 
 def _serve_mesh(args, wl, snap, device) -> dict:
     """Query-sharded serving (``core.distributed.make_serving_fn``) on a
     ``(data, model)`` mesh of ranks: one wave of the workload's queries,
-    printed as the JAX launcher prints it.  Returns the mesh, the result,
-    recall, seconds, QPS, the serving function's state and the kernel
-    launches of the wave (this rank's)."""
+    the lock-step loop, printed as the JAX launcher prints it (with
+    ``--ingest``, ``_main`` then runs ``_ingest`` and ``_reserve`` on
+    every rank).  Returns the mesh, the result, recall, seconds, QPS, the
+    serving function's state and the kernel launches of the wave (this
+    rank's)."""
     import numpy as np
 
     from ..core import recall

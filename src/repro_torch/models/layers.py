@@ -84,29 +84,81 @@ def mlp_init(gen, d_model: int, d_ff: int, *, device=None,
     }
 
 
-def rp_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def split_on(tp, key: str):
+    """``tp`` (a ``parallel.tensor_parallel.ModelSplit`` or None) when
+    parameter ``key`` of its scope is split over ``model``, else None."""
+    return None if tp is None else tp.on(key)
+
+
+def sub(tp, key: str):
+    """``tp`` scoped to module ``key`` (None stays None)."""
+    return None if tp is None else tp.sub(key)
+
+
+def reduce_product(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+    """``x @ w`` whose contraction runs over this rank's part, summed over
+    ``model``: the partial products leave the product in f32 (its
+    accumulator), are all-reduced in f32 and rounded once to ``x``'s
+    dtype, so a split product rounds as the whole one does.  (The
+    reference's compiled step on the host all-reduces in f32 too: XLA
+    promotes a bf16 all-reduce, after rounding each partial to bf16.)"""
+    return tp.reduce(x.float() @ w.float()).to(x.dtype)
+
+
+def rp_matmul(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     """A row-parallel product ``x @ w`` (the JAX ``rp_einsum``): with
     ``TUNING.tp_reduce_dtype`` set, the product is rounded to that dtype
     once, then cast back to ``x``'s (JAX's ``preferred_element_type``
-    rounds its f32 accumulation once); a no-op for bf16 inputs."""
+    rounds its f32 accumulation once); a no-op for bf16 inputs.  With
+    ``tp`` (a ``ModelSplit``) the contraction runs over this rank's part
+    and the partial products are all-reduced over ``model``: in that
+    dtype when it is set (the wire dtype of JAX's psum), else by
+    ``reduce_product``."""
+    reduce_dtype = TUNING.tp_reduce_dtype
+    if tp is not None and reduce_dtype is None:
+        return reduce_product(x, w, tp)
     out = x @ w
-    if TUNING.tp_reduce_dtype is not None:
-        out = out.to(getattr(torch, TUNING.tp_reduce_dtype)).to(x.dtype)
+    if reduce_dtype is not None:
+        out = out.to(getattr(torch, reduce_dtype))
+        if tp is not None:
+            out = tp.reduce(out)
+        out = out.to(x.dtype)
     return out
 
 
-def mlp_apply(p, x: torch.Tensor) -> torch.Tensor:
-    return rp_matmul(F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"]), p["wo"])
+def mlp_apply(p, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU; with ``tp`` (scoped to this MLP) and ``mlp`` split over
+    ``model``, column-parallel ``wi_gate``/``wi_up`` into row-parallel
+    ``wo``."""
+    tp = split_on(tp, "wo")
+    if tp is not None:
+        x = tp.copy(x)
+    return rp_matmul(F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"]), p["wo"],
+                     tp)
 
 
 # ------------------------------------------------------------- embeddings
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor,
-                compute_dtype) -> torch.Tensor:
-    return table[tokens.long()].to(compute_dtype)
+                compute_dtype, tp=None) -> torch.Tensor:
+    """The lookup; with ``tp`` (the table's vocab split over ``model``)
+    a rank looks up the tokens of its vocab range (zeros for the rest)
+    and the rows are all-reduced: the same values as the whole table's
+    lookup."""
+    if tp is None:
+        return table[tokens.long()].to(compute_dtype)
+    V = table.shape[0]
+    local = tokens.long() - tp.range(V)[0]
+    inside = (local >= 0) & (local < V)
+    rows = table[local.clamp(0, V - 1)].to(compute_dtype)
+    return tp.reduce(rows.masked_fill(~inside[..., None], 0))
 
 
 def logits_apply(table_or_head: torch.Tensor, x: torch.Tensor,
-                 transpose: bool) -> torch.Tensor:
-    """Final projection; ``transpose=True`` for tied embedding tables."""
+                 transpose: bool, tp=None) -> torch.Tensor:
+    """Final projection; ``transpose=True`` for tied embedding tables.
+    With ``tp`` (the vocab split over ``model``): this rank's vocab range
+    of the logits."""
     w = cast(table_or_head, x.dtype)
+    if tp is not None:
+        x = tp.copy(x)
     return x @ (w.t() if transpose else w)

@@ -12,6 +12,19 @@ step in plain torch.  The dtypes follow the JAX mixer: dt goes to f32
 after the softplus, Bm, Cm and the conv output are cast to f32 for the
 scan, the state is f32, and y returns to the compute type before the D
 skip and the silu(z) gate.
+
+With ``tp`` (a ``parallel.tensor_parallel.ModelSplit`` scoped to the
+layer's ``mamba``) and ``inner`` split over ``model``, a rank runs its
+range of the inner channels: ``in_proj`` is stored ``[d, 2 di]`` cut
+contiguously over ``model`` (on two ranks, rank 0 holds every channel's
+``x`` half and rank 1 the ``z`` half), so a rank's product is all-gathered
+over ``model`` and each rank takes its channels' ``x`` and ``z`` (the
+exchange XLA's resharding makes; the backward reduce-scatters).  The
+conv, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the scan run per
+channel; ``x_proj`` is row-parallel, so dt, B and C are all-reduced
+(``layers.reduce_product``); so is ``out_proj``.  A prefill or decode state stays whole over ``model`` (as
+``parallel.cache_sharding`` lays it out): a rank reads its channels of it
+and the new state is all-gathered.
 """
 from __future__ import annotations
 
@@ -23,7 +36,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops, ref
-from .layers import dense, normal, rp_matmul
+from .layers import dense, normal, reduce_product, rp_matmul, split_on
 from .tuning import TUNING
 
 
@@ -76,28 +89,61 @@ def _conv_causal(x: torch.Tensor, w: torch.Tensor,
     return out.transpose(1, 2) + b.to(x.dtype)
 
 
-def _ssm_inputs(p, cfg: ArchConfig, xc: torch.Tensor):
-    """The conv output's projections -> (dt f32, Bm, Cm, A)."""
+def _ssm_inputs(p, cfg: ArchConfig, xc: torch.Tensor, tp=None):
+    """The conv output's projections -> (dt f32, Bm, Cm, A).  ``tp``: the
+    inner channels split; the row-parallel ``x_proj`` product is
+    all-reduced, and dt, B and C then feed every rank's channels."""
     _, _, dtr = _dims(cfg)
     N = cfg.mamba.d_state
-    dt_r, Bm, Cm = torch.split(xc @ p["x_proj"], [dtr, N, N], dim=-1)
+    if tp is None:
+        dbc = xc @ p["x_proj"]
+    else:  # every rank's channels read dt, B and C
+        dbc = tp.copy(reduce_product(xc, p["x_proj"], tp))
+    dt_r, Bm, Cm = torch.split(dbc, [dtr, N, N], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float()
     A = -torch.exp(p["A_log"])  # [di, N] in the parameters' type
     return dt, Bm, Cm, A
 
 
+def _in_proj(p, x: torch.Tensor, tp=None):
+    """``x @ in_proj`` -> (x half, z half) of the channels the rank
+    runs: all of them without ``tp``; with ``in_proj`` split over
+    ``model`` the rank's product is all-gathered and the rank takes its
+    inner channels' x and z (every channel when ``inner`` is whole)."""
+    proj = split_on(tp, "in_proj")
+    if proj is None:
+        return torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    inner = split_on(tp, "conv_w")
+    u = proj.gather(proj.copy(x) @ p["in_proj"], -1,
+                    partial=inner is not None)
+    xin, z = torch.chunk(u, 2, dim=-1)
+    if inner is None:
+        return xin, z
+    lo, hi = inner.range(p["conv_w"].shape[1])
+    return xin[..., lo:hi], z[..., lo:hi]
+
+
+def _channels(tp, p, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """A whole state's channels (``dim``) that the rank runs."""
+    if tp is None:
+        return t
+    lo, hi = tp.range(p["conv_w"].shape[1])
+    return t.narrow(dim, lo, hi - lo)
+
+
 def mamba_train(p, cfg: ArchConfig, x: torch.Tensor,
-                state: MambaState | None = None, backend: str = "auto"
-                ) -> tuple[torch.Tensor, MambaState | None]:
+                state: MambaState | None = None, backend: str = "auto",
+                tp=None) -> tuple[torch.Tensor, MambaState | None]:
     """The mixer over a whole sequence x [B, T, d] -> (out [B, T, d], the
     state after it, or None without ``state``)."""
     mc, di, _ = _dims(cfg)
     B, T, _ = x.shape
-    xin, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
+    xin, z = _in_proj(p, x, tp)
+    tp = split_on(tp, "conv_w")
     xc = F.silu(_conv_causal(xin, p["conv_w"], p["conv_b"]))
-    dt, Bm, Cm, A = _ssm_inputs(p, cfg, xc)
-    h0 = (state.h if state is not None else
-          torch.zeros((B, di, mc.d_state), dtype=torch.float32,
+    dt, Bm, Cm, A = _ssm_inputs(p, cfg, xc, tp)
+    h0 = (_channels(tp, p, state.h, 1) if state is not None else
+          torch.zeros((B, xin.shape[-1], mc.d_state), dtype=torch.float32,
                       device=x.device))
     chunk = TUNING.mamba_chunk or mc.chunk
     args = (A.float(), dt, Bm.float(), Cm.float(), xc.float(), h0)
@@ -106,32 +152,41 @@ def mamba_train(p, cfg: ArchConfig, x: torch.Tensor,
     else:
         y, hT = ops.mamba_scan(*args, backend=backend, chunk=chunk)
     y = (y.to(x.dtype) + p["D"] * xc) * F.silu(z)
-    out = rp_matmul(y, p["out_proj"])
+    out = rp_matmul(y, p["out_proj"], tp)
     new_state = None
     if state is not None:
         k = mc.d_conv
         conv_tail = (xin[:, -(k - 1):].clone() if T >= k - 1 else
-                     torch.cat([state.conv[:, T:], xin], dim=1))
+                     torch.cat([_channels(tp, p, state.conv, 2)[:, T:],
+                                xin], dim=1))
+        if tp is not None:  # the state stays whole over model
+            conv_tail, hT = tp.all_gather(conv_tail, 2), tp.all_gather(hT, 1)
         new_state = MambaState(conv=conv_tail, h=hT)
     return out, new_state
 
 
-def mamba_decode(p, cfg: ArchConfig, x: torch.Tensor, state: MambaState
-                 ) -> tuple[torch.Tensor, MambaState]:
+def mamba_decode(p, cfg: ArchConfig, x: torch.Tensor, state: MambaState,
+                 tp=None) -> tuple[torch.Tensor, MambaState]:
     """One-token step, x [B, 1, d]: the conv over the state's trailing
     inputs and the exact single-step recurrence."""
-    xin, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)  # [B, 1, di]
-    window = torch.cat([state.conv.to(x.dtype), xin], dim=1)  # [B, k, di]
+    xin, z = _in_proj(p, x, tp)  # [B, 1, di]
+    tp = split_on(tp, "conv_w")
+    window = torch.cat([_channels(tp, p, state.conv, 2).to(x.dtype), xin],
+                       dim=1)  # [B, k, di]
     xc = F.silu(torch.einsum("bkd,kd->bd", window, p["conv_w"])
                 + p["conv_b"])[:, None, :]
-    dt, Bm, Cm, A = _ssm_inputs(p, cfg, xc)
+    dt, Bm, Cm, A = _ssm_inputs(p, cfg, xc, tp)
     dt = dt[:, 0]
     a = torch.exp(dt[..., None] * A.float())  # [B, di, N]
-    h = a * state.h + (dt * xc[:, 0].float())[..., None] * \
-        Bm[:, 0, None, :].float()
+    h = a * _channels(tp, p, state.h, 1) + (dt * xc[:, 0].float())[
+        ..., None] * Bm[:, 0, None, :].float()
     y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())[:, None, :]
     y = (y.to(x.dtype) + p["D"] * xc) * F.silu(z)
-    return rp_matmul(y, p["out_proj"]), MambaState(conv=window[:, 1:], h=h)
+    conv = window[:, 1:]
+    out = rp_matmul(y, p["out_proj"], tp)
+    if tp is not None:  # the state stays whole over model
+        conv, h = tp.all_gather(conv, 2), tp.all_gather(h, 1)
+    return out, MambaState(conv=conv, h=h)
 
 
 def make_mamba_state(cfg: ArchConfig, batch: int, dtype, *,

@@ -16,6 +16,14 @@ Training is a choice at the call site: ``params.requires_grad_(True)``,
 then ``loss_fn`` (the trainer in ``repro_torch.train`` does both).
 ``forward`` returns ``(logits, new_caches, aux)`` as the JAX version does,
 ``aux`` being the MoE load-balance loss summed over the layers.
+
+``forward``, ``loss_fn`` and ``init_cache`` take ``tp``, a
+``parallel.tensor_parallel.ModelSplit``: the parameters are then a rank's
+``model`` parts (what the mesh train step's hooks give the forward) and
+every layer computes only its part of what the specs split over
+``model`` (heads, mlp, experts, Mamba's inner channels, RWKV's heads x
+dim; the vocab of the lookup and of the head, whose logits are then the
+rank's vocab range and whose loss is the vocab-parallel logsumexp).
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ from . import mamba as mam
 from . import rwkv as rwk
 from .layers import (
     cast, dense, embed_apply, logits_apply, mlp_apply, mlp_init, normal,
-    rms_norm,
+    rms_norm, split_on, sub,
 )
 from .moe import moe_apply, moe_init
 
@@ -303,18 +311,26 @@ def param_count(params: ParamTree) -> int:
 
 # ---------------------------------------------------------------- states
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
-               dtype=torch.bfloat16, device=None) -> list:
+               dtype=torch.bfloat16, device=None, tp=None) -> list:
     """Decode state: one ``KVCache``, ``MambaState`` or ``RWKVState`` per
-    layer."""
+    layer.  With ``tp`` a KV cache holds the kv heads the rank computes
+    (its share when they split over ``model``); the SSM states stay
+    whole, as ``parallel.cache_sharding`` lays them out."""
     check_supported(cfg)
     dev = resolve_device(device)
-    make = {"attn": lambda: att.make_cache(cfg, batch, cache_len, dtype,
-                                           device=dev),
-            "mamba": lambda: mam.make_mamba_state(cfg, batch, dtype,
-                                                  device=dev),
-            "rwkv": lambda: rwk.make_rwkv_state(cfg, batch, dtype,
-                                                device=dev)}
-    return [make[cfg.mixer_kind(i)]() for i in range(cfg.num_layers)]
+
+    def kv_heads(i: int) -> int:
+        wk = split_on(sub(tp, f"blocks.{i}.attn"), "wk")
+        return cfg.num_kv_heads // (1 if wk is None else wk.n)
+
+    make = {"attn": lambda i: att.make_cache(cfg, batch, cache_len, dtype,
+                                             device=dev,
+                                             kv_heads=kv_heads(i)),
+            "mamba": lambda i: mam.make_mamba_state(cfg, batch, dtype,
+                                                    device=dev),
+            "rwkv": lambda i: rwk.make_rwkv_state(cfg, batch, dtype,
+                                                  device=dev)}
+    return [make[cfg.mixer_kind(i)](i) for i in range(cfg.num_layers)]
 
 
 def abstract_cache(cfg: ArchConfig, batch: int, cache_len: int,
@@ -335,48 +351,53 @@ def _cast_tree(p, dtype) -> dict:
 
 
 def _block_apply(p, cfg: ArchConfig, i: int, x: torch.Tensor, mode: str,
-                 state, pos, cache_len: int, backend: str):
-    """One layer. Returns (x, new_state, MoE aux loss or None)."""
+                 state, pos, cache_len: int, backend: str, tp=None):
+    """One layer (``tp`` scoped to it). Returns (x, new_state, MoE aux
+    loss or None)."""
     kind = cfg.mixer_kind(i)
     aux = None
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_state = state
     if kind == "attn":
+        at = sub(tp, "attn")
         if mode == "train":
-            h = att.attn_train(p["attn"], cfg, h, backend=backend)
+            h = att.attn_train(p["attn"], cfg, h, backend=backend, tp=at)
         elif mode == "prefill":
             h, new_state = att.attn_prefill(p["attn"], cfg, h, cache_len,
-                                            backend=backend)
+                                            backend=backend, tp=at)
         else:
-            h, new_state = att.attn_decode(p["attn"], cfg, h, state, pos)
+            h, new_state = att.attn_decode(p["attn"], cfg, h, state, pos,
+                                           tp=at)
     elif kind == "mamba":
         if mode == "decode":
-            h, new_state = mam.mamba_decode(p["mamba"], cfg, h, state)
+            h, new_state = mam.mamba_decode(p["mamba"], cfg, h, state,
+                                            tp=sub(tp, "mamba"))
         else:
             h, new_state = mam.mamba_train(
                 p["mamba"], cfg, h, state=state if mode == "prefill"
-                else None, backend=backend)
+                else None, backend=backend, tp=sub(tp, "mamba"))
     else:
         st = state if mode != "train" else None
         if mode == "prefill" and st is None:
             st = rwk.make_rwkv_state(cfg, x.shape[0], x.dtype,
                                      device=x.device)
         h, carry = rwk.rwkv_time_mix(p["rwkv_tm"], cfg, h, state=st,
-                                     backend=backend)
+                                     backend=backend, tp=sub(tp, "rwkv_tm"))
     x = x + h
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if kind == "rwkv":
         x_last_in = None if mode == "train" else (
             state.x_ffn if mode == "decode" else torch.zeros_like(x[:, 0]))
         h, x_ffn_last = rwk.rwkv_channel_mix(p["rwkv_cm"], cfg, h,
-                                             x_last=x_last_in)
+                                             x_last=x_last_in,
+                                             tp=sub(tp, "rwkv_cm"))
         if mode != "train":
             new_state = rwk.RWKVState(x_att=carry[0], x_ffn=x_ffn_last,
                                       s=carry[1])
     elif "moe" in p:
-        h, aux = moe_apply(p["moe"], cfg.moe, h)
+        h, aux = moe_apply(p["moe"], cfg.moe, h, tp=sub(tp, "moe"))
     else:
-        h = mlp_apply(p["mlp"], h)
+        h = mlp_apply(p["mlp"], h, sub(tp, "mlp"))
     return x + h, new_state, aux
 
 
@@ -392,6 +413,7 @@ def forward(
     compute_dtype=torch.bfloat16,
     last_only: bool = False,
     remat: bool = True,
+    tp=None,
 ):
     """inputs: tokens [B, T] (int) or embeddings [B, T, d].  Returns
     (logits [B, T, V] in the compute type, new_caches or None, the MoE
@@ -405,22 +427,30 @@ def forward(
     unit runs under ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``
     with ``nothing_saveable``): only a unit's input is kept, and its
     layers, the cast of its parameters included, run again in backward.
+    ``tp`` (a ``ModelSplit``): ``params`` are the rank's ``model`` parts
+    and each layer computes its part (see the module docstring); the
+    logits are then the rank's vocab range when the head's vocab splits.
+    A ``blocks`` that has ``at(i, dtype)`` (the mesh step's) gives layer
+    ``i`` already cast to the compute type.
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if inputs.is_floating_point():
         x = inputs.to(compute_dtype)
     else:
-        x = embed_apply(params["embed"], inputs, compute_dtype)
+        x = embed_apply(params["embed"], inputs, compute_dtype,
+                        split_on(tp, "embed"))
     blocks = params["blocks"]
+    at = getattr(blocks, "at", None)
     new_caches = [] if caches is not None else None
 
     def span(lo: int, hi: int, x, aux):
         for i in range(lo, hi):
             st = caches[i] if caches is not None else None
-            x, nst, a = _block_apply(_cast_tree(blocks[i], compute_dtype),
+            p = blocks[i] if at is None else at(i, compute_dtype)
+            x, nst, a = _block_apply(_cast_tree(p, compute_dtype),
                                      cfg, i, x, mode, st, pos, cache_len,
-                                     backend)
+                                     backend, sub(tp, f"blocks.{i}"))
             if caches is not None:
                 new_caches.append(nst)
             if a is not None:
@@ -440,23 +470,44 @@ def forward(
     if last_only:
         x = x[:, -1:, :]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = _head_split(cfg, tp)
     if cfg.tie_embeddings:
-        logits = logits_apply(params["embed"], x, transpose=True)
+        logits = logits_apply(params["embed"], x, transpose=True, tp=head)
     else:
-        logits = logits_apply(params["lm_head"], x, transpose=False)
+        logits = logits_apply(params["lm_head"], x, transpose=False,
+                              tp=head)
     return logits, new_caches, aux
 
 
+def _head_split(cfg: ArchConfig, tp):
+    """``tp`` when the head's vocab is split over ``model``, else None."""
+    return split_on(tp, "embed" if cfg.tie_embeddings else "lm_head")
+
+
 def nll_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
-             aux_weight: float = 0.01) -> tuple[torch.Tensor, dict]:
+             aux_weight: float = 0.01, tp=None) -> tuple[torch.Tensor, dict]:
     """The JAX ``loss_fn``'s arithmetic on given logits: f32 logsumexp
     minus the gold logit, its mean, plus ``aux_weight`` times the aux
     loss.  The JAX version picks the gold logit by a one-hot einsum, which
     stays partitionable over a vocab sharded on a mesh; a gather gives the
-    same value."""
+    same value.  With ``tp`` the logits are this rank's vocab range: the
+    logsumexp's maximum and its sum of exponentials are all-reduced over
+    ``model`` (``torch.logsumexp``'s formula), and the gold logit comes
+    from the rank whose range holds the label (an all-reduce of it and
+    the other ranks' zeros)."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    if tp is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    else:
+        top = tp.max(logits.amax(dim=-1))
+        logz = top + torch.log(tp.reduce(
+            torch.exp(logits - top[..., None]).sum(dim=-1)))
+        V = logits.shape[-1]
+        local = labels.long() - tp.range(V)[0]
+        inside = (local >= 0) & (local < V)
+        gold = torch.gather(logits, -1, local.clamp(0, V - 1)[..., None])
+        gold = tp.reduce(gold[..., 0].masked_fill(~inside, 0))
     nll = torch.mean(logz - gold)
     total = nll + aux_weight * aux
     return total, {"nll": nll, "aux": aux}
@@ -464,13 +515,15 @@ def nll_loss(logits: torch.Tensor, labels: torch.Tensor, aux: torch.Tensor,
 
 def loss_fn(params: ParamTree, cfg: ArchConfig, tokens: torch.Tensor,
             labels: torch.Tensor, backend: str = "ref",
-            aux_weight: float = 0.01,
-            remat: bool = True) -> tuple[torch.Tensor, dict]:
+            aux_weight: float = 0.01, remat: bool = True,
+            tp=None) -> tuple[torch.Tensor, dict]:
     """Mean next-token NLL plus the weighted MoE aux loss of a train-mode
     forward at the JAX default compute type (bf16) -> (total, {"nll",
     "aux"}).  ``backend="ref"`` by default, as the JAX trainer: no kernel
     has a backward, so training runs autograd through the plain
-    versions."""
+    versions.  ``tp``: the forward's ``model`` split, the vocab-parallel
+    loss with it."""
     logits, _, aux = forward(params, cfg, tokens, mode="train",
-                             backend=backend, remat=remat)
-    return nll_loss(logits, labels, aux, aux_weight)
+                             backend=backend, remat=remat, tp=tp)
+    return nll_loss(logits, labels, aux, aux_weight,
+                    tp=_head_split(cfg, tp))

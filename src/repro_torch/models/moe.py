@@ -22,6 +22,15 @@ microbatch's, a token's position in its expert's segment counts the
 tokens of the row slices before it, and the load-balance loss takes the
 whole microbatch's expert fractions.
 
+With ``tp`` (a ``parallel.tensor_parallel.ModelSplit`` scoped to the
+layer's ``moe``) and the experts split over ``model`` (expert
+parallelism), every rank routes the whole microbatch (the router is
+whole, ``expert_unsharded``), runs only its experts' capacity slots in
+either dispatch, and the combine's partial sums (zeros for the other
+ranks' experts) are all-reduced over ``model``: an expert's weights are
+never gathered over ``model``.  The shared experts are a tensor-parallel
+MLP.
+
 ``lax.top_k`` breaks ties toward the lower index; ``torch.topk`` does not
 promise to.  Router probabilities from real inputs do not tie.
 """
@@ -34,7 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoECfg
-from .layers import dense, mlp_apply, mlp_init, normal
+from .layers import dense, mlp_apply, mlp_init, normal, split_on, sub
 from .tuning import TUNING
 
 
@@ -101,19 +110,24 @@ def _experts_apply(p, h: torch.Tensor) -> torch.Tensor:
 
 
 def _dispatch_scatter(p, xf, sorted_e, order, pos_sorted, C: int, cap,
-                      Ep: int) -> torch.Tensor:
+                      e_lo: int = 0) -> torch.Tensor:
     """The flat dispatch (the JAX default): tokens scattered into an
     [E*C + 1, d] buffer (dropped ones, at or past ``cap``, into the last
     row), the experts run, each expanded token gathered back -> [Tt*k,
-    d]."""
+    d].  ``p`` holds experts ``e_lo ..`` (all of them, or a rank's share
+    under expert parallelism): the other experts' tokens go to the dump
+    row too, and gather zeros."""
     k = order.numel() // xf.shape[0]
     d = xf.shape[1]
+    E = p["wi_gate"].shape[0]
     lim = cap if isinstance(cap, int) else cap[sorted_e]
-    slot_sorted = torch.where(pos_sorted < lim, sorted_e * C + pos_sorted,
-                              Ep * C)  # dropped -> the dump row
-    disp = xf.new_zeros((Ep * C + 1, d))
+    le = sorted_e - e_lo
+    keep = (pos_sorted < lim) & (le >= 0) & (le < E)
+    slot_sorted = torch.where(keep, le * C + pos_sorted,
+                              E * C)  # dropped -> the dump row
+    disp = xf.new_zeros((E * C + 1, d))
     disp[slot_sorted] = xf[order // k]
-    ye = _experts_apply(p, disp[:Ep * C].view(Ep, C, d)).view(Ep * C, d)
+    ye = _experts_apply(p, disp[:E * C].view(E, C, d)).view(E * C, d)
     ye = torch.cat([ye, ye.new_zeros((1, d))])  # dropped <- zeros
     slots = torch.empty_like(slot_sorted)
     slots[order] = slot_sorted
@@ -121,33 +135,39 @@ def _dispatch_scatter(p, xf, sorted_e, order, pos_sorted, C: int, cap,
 
 
 def _dispatch_2d(p, xf, sorted_e, flat_e, order, pos_sorted, counts,
-                 starts, C: int, cap, Ep: int) -> torch.Tensor:
+                 starts, C: int, cap, e_lo: int = 0) -> torch.Tensor:
     """The 2-D dispatch (``TUNING.moe_shard_dispatch``, the JAX ``moe2d``
     path): a gather from each expert's side, ``disp[e, c] = x[order[
     starts[e] + c]]`` for ``c < min(counts[e], cap[e])`` (else a zero
-    row), the experts, then ``ye[e, pos]`` with the dropped tokens at
-    ``pos = C``, a zero column -> [Tt*k, d].  The same numbers as the
-    scatter."""
+    row), the experts, then ``ye[e, pos]`` with the dropped tokens (and
+    those of experts outside ``p``'s ``e_lo ..``) at ``pos = C``, a zero
+    column -> [Tt*k, d].  The same numbers as the scatter."""
     n = order.numel()
     Tt, d = xf.shape
+    E = p["wi_gate"].shape[0]
     dev = xf.device
     ar = torch.arange(C, device=dev)
-    slot_idx = starts[:, None] + ar[None, :]
-    valid = ar[None, :] < torch.clamp(counts, max=cap)[:, None]
+    slot_idx = starts[e_lo:e_lo + E, None] + ar[None, :]
+    cap_e = cap if isinstance(cap, int) else cap[e_lo:e_lo + E]
+    valid = ar[None, :] < torch.clamp(counts[e_lo:e_lo + E],
+                                      max=cap_e)[:, None]
     src = torch.where(valid, order[torch.clamp(slot_idx, 0, n - 1)], n)
     tok_of = torch.where(src < n, src // (n // Tt), Tt)
-    disp = torch.cat([xf, xf.new_zeros((1, d))])[tok_of]  # [Ep, C, d]
+    disp = torch.cat([xf, xf.new_zeros((1, d))])[tok_of]  # [E, C, d]
     ye = _experts_apply(p, disp)
-    ye = torch.cat([ye, ye.new_zeros((Ep, 1, d))], dim=1)  # [Ep, C+1, d]
+    ye = torch.cat([ye, ye.new_zeros((E, 1, d))], dim=1)  # [E, C+1, d]
     lim = cap if isinstance(cap, int) else cap[sorted_e]
     pos = torch.empty_like(pos_sorted)
     pos[order] = torch.where(pos_sorted < lim, pos_sorted, C)
-    return ye[flat_e, pos]
+    le = flat_e - e_lo
+    mine = (le >= 0) & (le < E)
+    return ye[torch.where(mine, le, 0), torch.where(mine, pos, C)]
 
 
-def moe_apply(p, cfg: MoECfg, x: torch.Tensor
+def moe_apply(p, cfg: MoECfg, x: torch.Tensor, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, T, d] -> (y [B, T, d], the load-balance aux loss f32)."""
+    """x [B, T, d] -> (y [B, T, d], the load-balance aux loss f32).
+    ``tp``: expert parallelism over ``model`` (module docstring)."""
     B, T, d = x.shape
     xf = x.reshape(-1, d)
     Tt = B * T
@@ -173,15 +193,22 @@ def moe_apply(p, cfg: MoECfg, x: torch.Tensor
         before, total, n = _ROUTE(counts)
         C = capacity(cfg, Tt * n)
         cap = torch.clamp(C - before, min=0)
+    ep = split_on(tp, "wi_gate")
+    e_lo, xd = 0, xf
+    if ep is not None:  # this rank's experts; their gradients are partial
+        e_lo = ep.range(p["wi_gate"].shape[0])[0]
+        xd, topw = ep.copy(xf), ep.copy(topw)
     if TUNING.moe_shard_dispatch:
-        gathered = _dispatch_2d(p, xf, sorted_e, flat_e, order, pos_sorted,
-                                counts, starts, C, cap, Ep)
+        gathered = _dispatch_2d(p, xd, sorted_e, flat_e, order, pos_sorted,
+                                counts, starts, C, cap, e_lo)
     else:
-        gathered = _dispatch_scatter(p, xf, sorted_e, order, pos_sorted, C,
-                                     cap, Ep)
+        gathered = _dispatch_scatter(p, xd, sorted_e, order, pos_sorted, C,
+                                     cap, e_lo)
     y = (gathered.view(Tt, k, d) * topw[..., None]).sum(dim=1)
+    if ep is not None:
+        y = ep.reduce(y)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], x).reshape(Tt, d)
+        y = y + mlp_apply(p["shared"], x, sub(tp, "shared")).reshape(Tt, d)
 
     # switch-style load-balance loss; over row slices, each takes the
     # whole batch's fractions and its own rows' mean probabilities, so the

@@ -10,6 +10,22 @@ single-step recurrence in plain torch.
 Token-shift mixes use the paper's ddlerp (low-rank data-dependent
 interpolation with the previous token); the decay ``w`` is per-channel and
 data-dependent through its own LoRA: w = exp(-exp(w0 + tanh(x A_w) B_w)).
+
+With ``tp`` (a ``parallel.tensor_parallel.ModelSplit`` scoped to the
+layer's ``rwkv_tm`` or ``rwkv_cm``) and ``heads_x_dim`` split over
+``model``, the time mix projects a rank's channels of r, k, v and g
+(column-parallel ``wr``/``wk``/``wv``/``wg``), and, when the heads divide
+``model``, runs the WKV recurrence, ``u`` and the group norm per local
+head (the whole-leaf decay, ``ln_scale`` and ``ln_bias`` read at its
+channels); else it all-gathers r, k, v and g and runs the heads whole.
+``wo`` is ``[d, d]`` with axes ``("embed", "heads_x_dim")``: its output
+dimension is split and its contraction is not, so the rank's gated
+output is all-gathered over ``model`` first and its product with the
+rank's columns of ``wo`` is all-gathered for the residual.  The channel
+mix runs ``wk`` column-parallel into row-parallel ``wv``; ``wr``
+(``embed_out``) is whole.  A prefill or decode state stays whole over
+``model`` (``parallel.cache_sharding``): a rank reads its heads of it and
+the new state is all-gathered.
 """
 from __future__ import annotations
 
@@ -20,7 +36,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops, ref
-from .layers import dense, rp_matmul
+from .layers import dense, rp_matmul, split_on
 from .tuning import TUNING
 
 _MIX = ("w", "k", "v", "r", "g")
@@ -91,23 +107,38 @@ def _shifted(x: torch.Tensor, last: torch.Tensor | None) -> torch.Tensor:
 
 
 def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
-                  state: RWKVState | None = None, backend: str = "auto"):
-    """-> (y [B, T, d], (last x, new wkv state) or None without a state)."""
+                  state: RWKVState | None = None, backend: str = "auto",
+                  tp=None):
+    """-> (y [B, T, d], (last x, new wkv state) or None without a state).
+    ``tp``: the heads x dim split over ``model`` (module docstring)."""
     rc, H, N = _dims(cfg)
     B, T, d = x.shape
     step = state is not None and T == 1
     x_prev = (state.x_att[:, None, :].to(x.dtype) if step
               else _shifted(x, None if state is None else state.x_att))
     mixes = _ddlerp(p, x, x_prev)
-    r = _heads(mixes["r"] @ p["wr"], H, N)
-    k = _heads(mixes["k"] @ p["wk"], H, N)
-    v = _heads(mixes["v"] @ p["wv"], H, N)
+    tp = split_on(tp, "wr")
+    heads = tp is not None and tp.dim("u") is not None  # whole heads a rank
+    if tp is not None:  # column-parallel: their gradients are partial
+        mixes.update({nm: tp.copy(mixes[nm]) for nm in "rkvg"})
+    r, k, v = (mixes[nm] @ p[f"w{nm}"] for nm in "rkv")
     g = F.silu(mixes["g"] @ p["wg"])
     decay = p["w0"].float() + (
         torch.tanh(mixes["w"] @ p["decay_a"]) @ p["decay_b"]).float()
-    w = _heads(torch.exp(-torch.exp(decay)), H, N)  # (0, 1), f32
-
+    w = torch.exp(-torch.exp(decay))  # (0, 1), f32
+    ln_scale, ln_bias = p["ln_scale"], p["ln_bias"]
     s0 = state.s if state is not None else None
+    if heads:  # this rank's heads of the whole leaves and state
+        lo, hi = tp.range(r.shape[-1])
+        w = tp.copy(w)[..., lo:hi]
+        ln_scale, ln_bias = (tp.copy(t)[lo:hi] for t in (ln_scale, ln_bias))
+        if s0 is not None:
+            s0 = s0[:, lo // N:hi // N]
+    elif tp is not None:  # heads straddle the ranks: every rank runs all
+        r, k, v, g = (tp.gather(t, -1) for t in (r, k, v, g))
+    Hr = r.shape[-1] // N
+    r, k, v, w = (_heads(t, Hr, N) for t in (r, k, v, w))
+
     if step:  # exact single-step recurrence for decode
         rf, kf, vf = (a.float() for a in (r, k, v))
         kv = kf[..., 0, :, None] * vf[..., 0, None, :]  # [B, H, N, N]
@@ -121,9 +152,16 @@ def rwkv_time_mix(p, cfg: ArchConfig, x: torch.Tensor,
     else:
         y, s_new = ops.wkv6(r, k, v, w, p["u"], state=s0, backend=backend)
     y = y.to(x.dtype).transpose(1, 2)  # [B, T, H, N]
-    y = _group_norm(y, cfg.norm_eps).reshape(B, T, d)
-    y = y * p["ln_scale"] + p["ln_bias"]
-    y = (y * g) @ p["wo"]
+    y = _group_norm(y, cfg.norm_eps).reshape(B, T, Hr * N)
+    y = y * ln_scale + ln_bias
+    y = y * g
+    if tp is not None:  # wo's contraction is whole, its output split
+        y = tp.gather(y, -1, partial=True) if heads else tp.copy(y)
+    y = y @ p["wo"]
+    if tp is not None:
+        y = tp.gather(y, -1)
+        if heads and state is not None:  # the state stays whole
+            s_new = tp.all_gather(s_new, 1)
     carry = (x[:, -1, :], s_new) if state is not None else None
     return y, carry
 
@@ -142,16 +180,20 @@ def rwkv_channel_mix_init(gen: torch.Generator, cfg: ArchConfig, *,
 
 
 def rwkv_channel_mix(p, cfg: ArchConfig, x: torch.Tensor,
-                     x_last: torch.Tensor | None = None):
-    """-> (y [B, T, d], last x or None without ``x_last``)."""
+                     x_last: torch.Tensor | None = None, tp=None):
+    """-> (y [B, T, d], last x or None without ``x_last``).  ``tp``:
+    column-parallel ``wk`` into row-parallel ``wv`` when ``mlp`` splits."""
     T = x.shape[1]
     x_prev = (x_last[:, None, :].to(x.dtype) if x_last is not None and T == 1
               else _shifted(x, x_last))
     delta = x_prev - x
     xk = x + delta * p["mu_k"]
     xr = x + delta * p["mu_r"]
+    tp = split_on(tp, "wk")
+    if tp is not None:
+        xk = tp.copy(xk)
     k = torch.square(torch.relu(xk @ p["wk"]))
-    y = torch.sigmoid(xr @ p["wr"]) * rp_matmul(k, p["wv"])
+    y = torch.sigmoid(xr @ p["wr"]) * rp_matmul(k, p["wv"], tp)
     return y, (x[:, -1, :] if x_last is not None else None)
 
 

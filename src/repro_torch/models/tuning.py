@@ -12,10 +12,11 @@ Knobs that change numbers, computed as the JAX package computes them:
                        ``wo``, Mamba ``out_proj``, RWKV's channel-mix
                        output) are rounded to this dtype, then cast back
                        to the input's (``layers.rp_matmul``, the JAX
-                       ``rp_einsum``).  In JAX it sets the wire dtype of
-                       the model axis's all-reduce; the port's step
-                       replicates compute over ``model``, so only the
-                       rounding remains.
+                       ``rp_einsum``); with the product split over
+                       ``model`` its partial sums are all-reduced in this
+                       dtype (the wire dtype of JAX's psum).  Unset, they
+                       are all-reduced in f32 and rounded once
+                       (``layers.reduce_product``).
   moe_shard_dispatch   the MoE layer dispatches by the 2-D gather
                        ``disp[e, c] = x[order[starts[e] + c]]`` (the JAX
                        ``moe2d`` path) instead of the flat scatter; the
@@ -28,11 +29,15 @@ Knobs that change numbers, computed as the JAX package computes them:
 Knobs that are only a ``with_sharding_constraint`` in JAX feed the port's
 sharding plan where it has a counterpart: ``cache_seq_shard`` in
 ``parallel.sharding.cache_sharding``; ``batch_axes`` and
-``attn_seq_axis`` in ``seq_spec``.  ``residual_spec`` and
-``moe_expert_axis`` pin activations of the JAX program to mesh axes; the
-port's step keeps activations whole on each rank (compute is replicated
-over ``model``), so they have no effect on it.  The dry run records every
-knob's value.
+``attn_seq_axis`` in ``seq_spec``.  ``residual_spec``,
+``moe_expert_axis`` and ``attn_seq_axis`` pin activations of the JAX
+program to mesh axes; the port's step splits the batch over the rows'
+axes and a layer's heads, mlp, experts or channels over ``model`` by the
+parameters' specs, and keeps the residual stream whole on each rank: it
+runs no sequence-parallel attention and no expert parallelism over
+``data`` (experts are gathered over ``data`` as any FSDP leaf, the same
+numbers with more bytes), so these have no effect on it.  The dry run
+records every knob's value.
 """
 from __future__ import annotations
 
@@ -65,8 +70,8 @@ TUNING = Tuning()
 
 # Knobs that are only a ``with_sharding_constraint`` in the JAX package and
 # that the port's step never reads: it splits the batch by
-# ``token_sharding`` and computes replicated over ``model``.  (The dry run
-# sets ``batch_axes`` per cell to that same split.)
+# ``token_sharding`` and a layer's compute over ``model`` by the specs.
+# (The dry run sets ``batch_axes`` per cell to that same split.)
 SHARDING_ONLY = ("attn_seq_axis", "residual_spec", "moe_expert_axis")
 
 

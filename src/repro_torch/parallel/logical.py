@@ -17,14 +17,19 @@ them).
 How the port's train step uses the specs (``train.train_loop``): every
 rank holds the slice of each parameter and of both AdamW moments that its
 coordinates on the spec's mesh axes select (ZeRO-3 / FSDP over ``data``
-through the ``embed`` rule); a layer's parameters are all-gathered before
-its forward and its gradient reduce-scattered back onto the slices.  The
-JAX package's TP rules (heads, mlp, experts over ``model``) shard storage
-the same way, and the port replicates the compute over ``model``.
+through the ``embed`` rule).  A spec also decides what a rank computes
+(``model_parts``): the dimension it puts on ``model`` (heads, kv heads,
+mlp, experts, Mamba's inner channels, RWKV's heads x dim, the vocab) is
+never gathered over ``model``, and the rank computes only its range of
+it (tensor and expert parallelism, ``parallel.tensor_parallel``); only
+the spec's other axes, the FSDP axes (``fsdp_axes``: ``data`` and
+``pod``), are all-gathered before a layer's forward and reduce-scattered
+after its backward.  A dimension that ``spec_for`` leaves whole is
+computed whole, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, NamedTuple
 
 # base rules: logical axis name -> mesh axis name (None = replicate)
 RULES_TP_FSDP: dict[str, str | None] = {
@@ -117,3 +122,60 @@ def param_shardings(params, rules, mesh) -> dict:
 def batch_axes(mesh) -> tuple[str, ...]:
     """Mesh axes that jointly shard the global batch."""
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
+
+
+MODEL_AXIS = "model"
+
+
+class ModelPart(NamedTuple):
+    """A parameter's dimension split over ``model`` and one rank's
+    range ``[lo, hi)`` of it."""
+
+    dim: int
+    lo: int
+    hi: int
+
+
+def fsdp_axes(mesh) -> tuple[str, ...]:
+    """The mesh axes a layer is all-gathered over before its forward (and
+    its gradient reduce-scattered over after its backward): every axis
+    but ``model``, in the mesh's order."""
+    return tuple(a for a in mesh.shape if a != MODEL_AXIS)
+
+
+def model_dim(spec) -> int | None:
+    """The dimension that ``spec`` puts on ``model``, or None when the
+    parameter is whole over it."""
+    for d, a in enumerate(spec):
+        if a == MODEL_AXIS:
+            return d
+    return None
+
+
+def fsdp_spec(spec) -> PartitionSpec:
+    """``spec`` over the FSDP axes alone (``model`` dropped): how the
+    rank's ``model`` part of a parameter is cut over the ranks that hold
+    the other parts of it."""
+    return PartitionSpec(*(None if a == MODEL_AXIS else a for a in spec))
+
+
+def model_parts(shapes: Mapping[str, tuple], specs: Mapping,
+                mesh, coord: int) -> dict[str, ModelPart | None]:
+    """``{name: ModelPart or None}``: for every parameter (``shapes``,
+    ``{name: full shape}``; ``specs`` as ``param_shardings`` gives them),
+    the dimension its spec puts on ``model`` and the range of it that the
+    rank at ``model`` coordinate ``coord`` holds and computes, or None
+    for a parameter the spec leaves whole over ``model`` (every rank
+    computes what reads it whole)."""
+    n = mesh.shape.get(MODEL_AXIS, 1)
+    if not 0 <= coord < n:
+        raise ValueError(f"model coordinate {coord} outside 0..{n - 1}")
+    out: dict = {}
+    for name, shape in shapes.items():
+        d = model_dim(specs[name])
+        if d is None or n == 1:
+            out[name] = None
+            continue
+        local = shape[d] // mesh_axis_size(mesh, specs[name][d])
+        out[name] = ModelPart(d, coord * local, (coord + 1) * local)
+    return out

@@ -23,6 +23,7 @@ one card.
 """
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from dataclasses import dataclass
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 _GLOO_GROUPS: dict = {}  # default group -> its gloo twin (NCCL default)
+_SUB_GROUPS: dict = {}  # (parent group, member ranks) -> their group
 
 
 @dataclass(frozen=True)
@@ -59,6 +61,30 @@ class RankMesh:
         rank = self.rank if rank is None else rank
         i = self.axes.index(axis)
         return (rank // math.prod(self.sizes[i + 1:])) % self.sizes[i]
+
+    def sub(self, axes) -> "RankMesh":
+        """The mesh of the ranks that share this rank's coordinates on
+        every axis but ``axes``: those axes (in this mesh's order), this
+        rank's place among those ranks, and a gloo group over them (None
+        for one rank).  The train step's ``model`` group and its FSDP
+        group (``data`` and ``pod``) are two such meshes.  Only the
+        members make a group (``use_local_synchronization``), once."""
+        axes = tuple(a for a in self.axes if a in axes)
+        sizes = tuple(self.shape[a] for a in axes)
+        coords = [self.coord(a) for a in self.axes]
+        strides = [math.prod(self.sizes[i + 1:]) for i in
+                   range(len(self.axes))]
+        members = []
+        for combo in itertools.product(*(range(n) for n in sizes)):
+            c = list(coords)
+            for a, v in zip(axes, combo):
+                c[self.axes.index(a)] = v
+            members.append(sum(x * st for x, st in zip(c, strides)))
+        group = None
+        if len(members) > 1:
+            group = _subgroup(self.group, tuple(members))
+        return RankMesh(axes, sizes, members.index(self.rank), self.device,
+                        group)
 
     def all_gather(self, a: np.ndarray) -> list[np.ndarray]:
         """Every rank's ``a`` (same shape and dtype on every rank), in rank
@@ -108,6 +134,20 @@ def _gloo_group():
     if key not in _GLOO_GROUPS:
         _GLOO_GROUPS[key] = dist.new_group(backend="gloo")
     return _GLOO_GROUPS[key]
+
+
+def _subgroup(parent, members: tuple[int, ...]):
+    """A group over ``members`` (global ranks, ascending) of the default
+    group: gloo, or the default group's backend when that is gloo or the
+    dry run's ``fake``; made once by the members alone."""
+    dist = torch.distributed
+    key = (id(parent), members)
+    if key not in _SUB_GROUPS:  # the entry keeps ``parent`` (its id) alive
+        backend = dist.get_backend()
+        _SUB_GROUPS[key] = (parent, dist.new_group(
+            list(members), backend=None if backend in ("gloo", "fake")
+            else "gloo", use_local_synchronization=True))
+    return _SUB_GROUPS[key][1]
 
 
 def _mesh(cls, axes: tuple[str, ...], sizes: tuple[int, ...], device):

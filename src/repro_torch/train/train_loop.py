@@ -13,29 +13,59 @@ the plain versions (``backend="ref"``, the JAX default).
 step over a ``parallel.RankMesh`` of ``torch.distributed`` ranks, one
 process a rank, with axes ``(data, model)`` or ``(pod, data, model)``:
 PyTorch's form of the reference's single-controller SPMD jit.  Every
-rank calls it with the same global batch.  The design is ZeRO-3 by the
-specs (``parallel.logical.param_shardings``):
+rank calls it with the same global batch.  Each parameter's spec
+(``parallel.logical.param_shardings``) decides what a rank stores and
+what it computes:
 
   * each rank holds the slice of every parameter and of both AdamW
     moments that its coordinates on the spec's mesh axes select
-    (``ShardedParams.shard`` cuts them, in place); the ranks that hold
-    the same slice (the spec leaves an axis whole) each send a part of it
-    to a gather, so every element crosses the wire once;
-  * the top-level leaves (embedding, final norm, head) are all-gathered
-    once a step; with ``block_param_specs`` each layer's parameters are
-    all-gathered inside its forward by an autograd function, again when
-    the rematerialised unit runs in backward, and that function's
-    backward reduce-scatters the layer's gradient onto the slices (the
-    reference's "FSDP per-layer AG/RS"); without it every layer is
-    gathered once a forward;
+    (``ShardedParams.shard`` cuts them, in place);
+  * the dimension that the spec puts on ``model`` (heads, kv heads, mlp,
+    experts, Mamba's inner channels, RWKV's heads x dim, the vocab) is
+    never gathered over ``model``: the forward computes the rank's part
+    of it (tensor and expert parallelism, ``parallel.tensor_parallel``),
+    given as a ``ModelSplit`` (``ShardedParams.model_split``) from the
+    step's hooks to ``models.loss_fn``.  A dimension that ``spec_for``
+    leaves whole is computed whole, as in the reference;
+  * only the spec's other axes, the FSDP axes (``data``, ``pod``), are
+    gathered, over the FSDP group (the ranks with this rank's ``model``
+    coordinate), so a layer arrives as the rank's ``model`` part.  The top
+    level leaves (embedding, final norm, head) are gathered once a step in
+    f32; with ``block_param_specs`` each layer's floating leaves are cast
+    to the compute type first (the reference casts a unit while it is
+    still sharded, so the FSDP all-gathers move bf16) and all-gathered
+    inside its forward by an autograd function, again when the
+    rematerialised unit runs in backward, and that function's backward
+    reduce-scatters the gradient in the dtype autograd gives it there
+    (the transpose of the bf16 gather) before the cast's backward lands
+    it in the f32 accumulator; without it every layer is gathered once
+    a forward, in f32.  The ranks that hold the same part (the spec
+    leaves an FSDP axis whole) each send a piece of it, so every element
+    crosses the wire once;
+  * the collectives of a layer over ``model``, per microbatch forward
+    (run again when the unit is rematerialised; the backward's are the
+    transposes): attention, its q/k/v input's backward all-reduce and
+    the row-parallel ``wo``'s all-reduce; an MLP (and a shared expert)
+    the same pair; an MoE layer, the combine's all-reduce and its
+    dispatch input's and gate weights' backward all-reduces; Mamba, the
+    all-gather of the ``in_proj`` product (backward: reduce-scatter),
+    the ``x_proj`` all-reduce (and its backward one) and ``out_proj``'s;
+    RWKV's time mix, the input's backward all-reduce, the all-gathers
+    before and after ``wo`` (backward: reduce-scatter and a slice), the
+    channel mix an MLP's pair.  The lookup and the head are
+    vocab-parallel: the lookup's rows and the logsumexp's maximum, sum
+    and gold logit are all-reduced;
   * a gradient is summed over the ranks that hold distinct rows of the
-    batch (``batch_sharding``'s axes, ``token_sharding``): the batch is
-    split over them, and the other ranks (``model``) compute the same
-    rows again and contribute zeros.  A leaf that the spec leaves whole
-    on some axis (a replica) is all-reduced instead, so its replicas
+    batch (``batch_sharding``'s axes, ``token_sharding``); every rank of
+    a ``model`` group holds the same rows and each computes its part, and
+    the whole leaves' gradients come out equal on all of them (every
+    rank computes them from the same all-reduced activations and
+    gradients).  A leaf that the spec leaves whole on an FSDP axis (a
+    replica) is all-reduced over the FSDP group instead, so its replicas
     keep equal bits;
   * the global gradient norm is an all-reduce of each region's squared
-    sum, counted once; ``AdamW.update`` then runs on the local slices;
+    sum, counted once over the whole mesh (``model`` parts too);
+    ``AdamW.update`` then runs on the local slices;
   * the microbatches accumulate in f32 as in the unsharded step, and the
     mean over the ``n`` row slices and ``M`` microbatches is one division
     by ``n * M``;
@@ -46,12 +76,15 @@ specs (``parallel.logical.param_shardings``):
 
 There is one step loop: ``MeshTrainStep`` shards the state and runs
 ``make_train_step``'s step with itself as the step's hooks (the gathered
-parameter tree, the rank's rows, the gradients' reduction, the metrics'
-mean over the row slices, the global norm); the step's own hooks on one
-process are the identity.  The collectives run over the mesh's gloo group
-(NCCL refuses two ranks on one card); CUDA tensors are staged through the
-host.  A one-rank mesh runs the same code with no collective and is
-bitwise the unsharded step.
+parameter tree, the ``model`` split, the rank's rows, the gradients'
+reduction, the metrics' mean over the row slices, the global norm); the
+step's own hooks on one process are the identity.  The collectives run
+over gloo groups (NCCL refuses two ranks on one card): the mesh's, its
+FSDP group's and its ``model`` group's (``RankMesh.sub``); CUDA tensors
+are staged through the host.  A mesh whose ``model`` axis has one rank
+runs no ``model`` collective (the forward is the unsharded one), and a
+one-rank mesh runs no collective at all and is bitwise the unsharded
+step.
 
 The ``Trainer`` writes its checkpoints in the JAX package's layout and
 key paths (``{"params": JAX value tree, "opt": AdamWState}``, the moments
@@ -72,7 +105,9 @@ from ..models.model import (
     _prefix_len, _put, abstract_params, init_params, jax_path, loss_fn,
     named_tensors, to_jax_values, tree_from_named,
 )
+from ..models.layers import cast
 from ..models.moe import routed_over
+from ..parallel.tensor_parallel import ModelSplit
 from .optimizer import AdamW, AdamWState, decay_mask, global_norm
 
 def make_train_step(cfg: ArchConfig, opt: AdamW, microbatches: int = 1,
@@ -114,7 +149,8 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, microbatches: int = 1,
             for t, lab in zip(tokens.chunk(M), labels.chunk(M)):
                 ls, metrics = loss_fn(on.tree(params, named), cfg,
                                       on.rows(t), on.rows(lab),
-                                      backend=backend, remat=remat)
+                                      backend=backend, remat=remat,
+                                      tp=on.tp)
                 ls.backward()
                 # .grad sums the microbatches' gradients in f32
                 loss = loss + ls.detach() if M > 1 else ls.detach()
@@ -146,6 +182,7 @@ class _OneProcess:
 
     ndp = 1
     route = None
+    tp = None
 
     def begin(self, named: dict) -> None:
         pass
@@ -263,14 +300,17 @@ class _Layout:
 
 
 class _Bucket:
-    """Parameters gathered and reduced together: their layouts, offsets
-    in a rank's flat buffer, and the leaves the spec leaves whole on some
-    axis (all-reduced, not reduce-scattered)."""
+    """Parameters gathered and reduced together over ``mesh`` (the whole
+    mesh, or the FSDP group): their layouts on it, offsets in a rank's
+    flat buffer, and the leaves the spec leaves whole on one of its axes
+    (all-reduced, not reduce-scattered).  ``rep``: this rank sends its
+    gradients (the other ranks of its row slice send zeros)."""
 
-    def __init__(self, names: list, owner: "ShardedParams"):
+    def __init__(self, names: list, layouts: dict, mesh, rep: bool,
+                 owner: "ShardedParams"):
         self.names = names
-        self.owner = owner
-        self.layouts = [owner.layouts[n] for n in names]
+        self.owner, self.mesh, self.rep = owner, mesh, rep
+        self.layouts = [layouts[n] for n in names]
         self.offsets = [0]  # of each leaf's contribution to a gather
         for lay in self.layouts:
             self.offsets.append(self.offsets[-1] + lay.chunk)
@@ -279,19 +319,23 @@ class _Bucket:
         self.replicated = [i for i, lay in enumerate(self.layouts)
                            if lay.replicas > 1]
 
+    def _collective(self, kind: str, t: torch.Tensor) -> torch.Tensor:
+        return self.owner._collective(kind, t, self.mesh)
+
     def gather(self, shards) -> list:
-        """This rank's slices -> every leaf's full tensor."""
-        own = self.owner
+        """This rank's slices -> every leaf's tensor over the mesh."""
+        mesh = self.mesh
         flat = torch.cat([lay.contribution(s) for lay, s in zip(
             self.layouts, shards)])
-        pieces = own._collective("gather", flat).view(own.mesh.size, -1)
-        return [lay.assemble(pieces[:, a:b], own.mesh) for lay, a, b in zip(
+        pieces = self._collective("gather", flat).view(mesh.size, -1)
+        return [lay.assemble(pieces[:, a:b], mesh) for lay, a, b in zip(
             self.layouts, self.offsets, self.offsets[1:])]
 
     def reduce(self, grads) -> list:
-        """Every leaf's full gradient on this rank -> this rank's slice of
-        the sum over the row slices (zeros sent by the other ranks)."""
-        own, mesh = self.owner, self.owner.mesh
+        """Every leaf's gradient over the mesh on this rank -> this rank's
+        slice of the sum over the row slices (zeros sent by the other
+        ranks)."""
+        mesh = self.mesh
         out: list = [None] * len(grads)
         if mesh.size == 1:
             return [g.reshape(lay.local) for g, lay in zip(grads,
@@ -300,13 +344,13 @@ class _Bucket:
             send = torch.zeros((mesh.size, sum(
                 self.layouts[i].numel for i in self.sharded)),
                 dtype=grads[0].dtype, device=grads[0].device)
-            if own.rep:
+            if self.rep:
                 col = 0
                 for i in self.sharded:
                     lay = self.layouts[i]
                     send[:, col:col + lay.numel] = lay.scatter(grads[i], mesh)
                     col += lay.numel
-            mine = own._collective("reduce_scatter", send.view(-1))
+            mine = self._collective("reduce_scatter", send.view(-1))
             col = 0
             for i in self.sharded:
                 lay = self.layouts[i]
@@ -314,9 +358,9 @@ class _Bucket:
                 col += lay.numel
         if self.replicated:
             flat = torch.cat([grads[i].reshape(-1) for i in self.replicated])
-            if not own.rep:
+            if not self.rep:
                 flat = torch.zeros_like(flat)
-            summed = own._collective("all_reduce", flat)
+            summed = self._collective("all_reduce", flat)
             col = 0
             for i in self.replicated:
                 lay = self.layouts[i]
@@ -354,6 +398,9 @@ class _Gathered:
 
 
 class _Layers:
+    """The layers as ``models.forward`` reads them: ``at(i, dtype)`` is
+    layer ``i`` with its floating leaves in ``dtype``."""
+
     def __init__(self, layer):
         self._layer = layer
 
@@ -363,18 +410,28 @@ class _Layers:
     def __getitem__(self, i: int) -> dict:
         return self._layer(i)
 
+    def at(self, i: int, dtype) -> dict:
+        return self._layer(i, dtype)
+
 
 class ShardedParams:
     """The parameters of ``cfg`` sharded over ``mesh`` by ``specs``
-    (``{name: PartitionSpec}``): each leaf's layout, the buckets gathered
-    together (the top-level leaves; every layer, or all layers in one),
-    and the collectives over the mesh's group.  ``split``: the mesh axes
-    the batch rows are split over (one rank per row slice sends its
-    gradient).  ``stats`` counts the collectives since its last reset:
-    calls, seconds and the bytes a rank sent."""
+    (``{name: PartitionSpec}``): each leaf's layout over the whole mesh
+    (what a rank stores; ``gather`` and ``full_state``), its ``model``
+    part (``parts``: ``logical.model_parts``) and that part's layout over
+    the FSDP group (``compute_layouts``: what the step gathers), the
+    buckets the step gathers together (the top-level leaves; every layer,
+    or all layers in one), and the collectives over the mesh's groups.
+    ``split``: the mesh axes the batch rows are split over (one rank per
+    row slice sends its gradient).  ``stats`` counts the collectives
+    since its last reset: calls, seconds and the bytes a rank sent, by
+    kind; the ``model`` group's are prefixed ``tp_`` and the MoE routing
+    counts' ``route_``."""
 
     def __init__(self, cfg: ArchConfig, mesh, specs: dict, split=(),
                  per_layer: bool = True):
+        from ..parallel.logical import fsdp_axes, fsdp_spec, model_parts
+
         meta = dict(abstract_params(cfg).named_parameters())
         if set(specs) != set(meta):
             raise ValueError("the specs must name every parameter")
@@ -384,21 +441,46 @@ class ShardedParams:
         self.split = tuple(split)
         self.rep = all(mesh.coord(a) == 0 for a in mesh.axes
                        if a not in self.split)
+        self.fsdp = mesh.sub(fsdp_axes(mesh))
+        self.model = mesh.sub(("model",))
+        self.parts = model_parts({n: tuple(t.shape) for n, t in meta.items()},
+                                 self.specs, mesh, self.model.rank)
+        self.compute_layouts = {}
+        for n, t in meta.items():
+            shape, part = list(t.shape), self.parts[n]
+            if part is not None:
+                shape[part.dim] = part.hi - part.lo
+            self.compute_layouts[n] = _Layout(
+                shape, fsdp_spec(self.specs[n]), self.fsdp)
+        frep = all(self.fsdp.coord(a) == 0 for a in self.fsdp.axes
+                   if a not in self.split)
         blocks = [n for n in meta if n.startswith("blocks.")]
-        self.top = _Bucket([n for n in meta if n not in blocks], self)
-        self.layer_buckets = ([_Bucket([n for n in blocks if n.split(".")[1]
-                                        == str(i)], self)
-                               for i in range(cfg.num_layers)]
-                              if per_layer else [_Bucket(blocks, self)])
+        top = [n for n in meta if n not in blocks]
+        layer_names = [[n for n in blocks if n.split(".")[1] == str(i)]
+                       for i in range(cfg.num_layers)]
+
+        def bucket(names, whole: bool) -> _Bucket:
+            if whole:
+                return _Bucket(names, self.layouts, mesh, self.rep, self)
+            return _Bucket(names, self.compute_layouts, self.fsdp, frep,
+                           self)
+
+        self.top = bucket(top, False)
+        self.layer_buckets = ([bucket(ns, False) for ns in layer_names]
+                              if per_layer else [bucket(blocks, False)])
+        self._whole = [bucket(top, True)] + [bucket(ns, True)
+                                             for ns in layer_names]
         self.stats: dict = {}
 
-    def _collective(self, kind: str, t: torch.Tensor) -> torch.Tensor:
-        """``kind`` ("gather", "reduce_scatter" or "all_reduce") of the
-        flat ``t`` over the mesh's group, staged through the host for
-        CUDA tensors (gloo)."""
+    def _collective(self, kind: str, t: torch.Tensor, mesh=None,
+                    label: str = "") -> torch.Tensor:
+        """``kind`` ("gather", "reduce_scatter", "all_reduce" or
+        "all_reduce_max") of the flat ``t`` over ``mesh``'s group (default:
+        the whole mesh), staged through the host for CUDA tensors
+        (gloo); counted in ``stats`` under ``label + kind``."""
         import torch.distributed as dist
 
-        mesh = self.mesh
+        mesh = self.mesh if mesh is None else mesh
         if mesh.size == 1:
             return t
         if t.is_cuda:
@@ -415,14 +497,26 @@ class ShardedParams:
                 dist.reduce_scatter_tensor(out, src, group=mesh.group)
             else:
                 out = src.clone()
-                dist.all_reduce(out, group=mesh.group)
+                dist.all_reduce(out, op=dist.ReduceOp.MAX
+                                if kind == "all_reduce_max"
+                                else dist.ReduceOp.SUM, group=mesh.group)
         out = out.to(t.device)
-        st = self.stats
-        st[f"{kind}_n"] = st.get(f"{kind}_n", 0) + 1
-        st[f"{kind}_s"] = st.get(f"{kind}_s", 0.0) + time.perf_counter() - t0
-        st[f"{kind}_bytes"] = (st.get(f"{kind}_bytes", 0)
-                               + src.numel() * src.element_size())
+        st, key = self.stats, label + kind
+        st[f"{key}_n"] = st.get(f"{key}_n", 0) + 1
+        st[f"{key}_s"] = st.get(f"{key}_s", 0.0) + time.perf_counter() - t0
+        st[f"{key}_bytes"] = (st.get(f"{key}_bytes", 0)
+                              + src.numel() * src.element_size())
         return out
+
+    def model_split(self):
+        """The forward's ``parallel.tensor_parallel.ModelSplit`` over this
+        rank's ``model`` group, or None when ``model`` has one rank."""
+        if self.model.size == 1:
+            return None
+        return ModelSplit(
+            self.model.size, self.model.rank,
+            {n: None if p is None else p.dim for n, p in self.parts.items()},
+            lambda kind, t: self._collective(kind, t, self.model, "tp_"))
 
     @torch.no_grad()
     def shard(self, params):
@@ -447,10 +541,10 @@ class ShardedParams:
     @torch.no_grad()
     def gather(self, tree) -> dict:
         """``{name: full tensor}`` of a sharded ``ParamTree`` or moment
-        mapping (every rank calls it)."""
+        mapping, gathered over the whole mesh (every rank calls it)."""
         named = named_tensors(tree)
         out = {}
-        for bucket in [self.top, *self.layer_buckets]:
+        for bucket in self._whole:
             full = bucket.gather([named[n].detach() for n in bucket.names])
             out.update(zip(bucket.names, full))
         return {n: out[n] for n in named}
@@ -471,28 +565,33 @@ class ShardedParams:
                    for t in tree.values())
 
     def gather_top(self, named: dict, grad: bool = False) -> dict:
-        """The top-level leaves (embedding, final norm, head) gathered
-        from this rank's slices ``named``, as leaves that take gradients
-        with ``grad``."""
+        """The top-level leaves (embedding, final norm, head), the rank's
+        ``model`` parts gathered over the FSDP group from this rank's
+        slices ``named``, in f32, as leaves that take gradients with
+        ``grad``."""
         return {n: t.detach().requires_grad_(grad) for n, t in zip(
             self.top.names, self.top.gather(
                 [named[n].detach() for n in self.top.names]))}
 
     def layers(self, named: dict):
-        """-> layer(i), layer ``i``'s tree of full tensors: per-layer
-        buckets are gathered when the forward reads the layer (again
-        under remat, by ``_GatherFn``); one bucket of every layer is
-        gathered here, once."""
+        """-> layer(i, dtype=None), layer ``i``'s tree of the rank's
+        ``model`` parts: per-layer buckets cast their floating leaves to
+        ``dtype`` and are gathered over the FSDP group when the forward
+        reads the layer (again under remat, by ``_GatherFn``); one bucket
+        of every layer is gathered here, once, in the stored dtype."""
         buckets = self.layer_buckets
         if len(buckets) == 1:
             whole = dict(zip(buckets[0].names, _GatherFn.apply(
                 buckets[0], *(named[n] for n in buckets[0].names))))
 
-        def layer(i: int) -> dict:
+        def layer(i: int, dtype=None) -> dict:
             if len(buckets) > 1:
                 b = buckets[i]
-                full = zip(b.names, _GatherFn.apply(
-                    b, *(named[n] for n in b.names)))
+                shards = [named[n] for n in b.names]
+                if dtype is not None:  # cast while still sharded
+                    shards = [cast(t, dtype) if t.is_floating_point() else t
+                              for t in shards]
+                full = zip(b.names, _GatherFn.apply(b, *shards))
             else:
                 pre = f"blocks.{i}."
                 full = ((n, t) for n, t in whole.items()
@@ -507,7 +606,8 @@ class ShardedParams:
 
     def tree(self, named: dict) -> "_Gathered":
         """What ``models.forward`` reads, over this rank's slices (a
-        serving forward: no gradients)."""
+        serving forward: no gradients); give the forward
+        ``tp=model_split()``."""
         return _Gathered(self.gather_top(named), self.layers(named))
 
 
@@ -537,6 +637,7 @@ class MeshTrainStep:
                  (split,) if isinstance(split, str) else tuple(split))
         self.sharded = ShardedParams(step.cfg, mesh, param_shardings, split,
                                      per_layer=bps is not None)
+        self.tp = self.sharded.model_split()
         self.step, self.mesh, self.donate = step, mesh, donate
         self.split = split
         self.ndp = math.prod(mesh.shape[a] for a in split)
@@ -577,7 +678,8 @@ class MeshTrainStep:
         return t[self.row_slice * n:(self.row_slice + 1) * n]
 
     def end(self, named: dict) -> None:
-        """The top-level leaves' gradients onto their slices."""
+        """The top-level leaves' gradients onto their slices (reduced
+        over the FSDP group)."""
         sp, top = self.sharded, self._top
         for n, g in zip(sp.top.names, sp.top.reduce(
                 [top[n].grad if top[n].grad is not None
@@ -593,7 +695,8 @@ class MeshTrainStep:
 
     def _route(self, counts: torch.Tensor):
         mesh = self.mesh
-        every = self.sharded._collective("gather", counts).view(
+        every = self.sharded._collective("gather", counts,
+                                         label="route_").view(
             *mesh.sizes, -1)
         # the ranks with this rank's coordinates off the split axes hold
         # every row slice once; order them as ``rows`` numbers them

@@ -261,14 +261,17 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
             for _ in range(steps):
                 grads_seen.clear()
                 params, state, m = js(params, state, tokens, labels)
+                stats = dict(js.stats)  # the step's, before this gather
                 full = js.sharded.gather(grads_seen[0])
                 runs.append({"metrics": {k: float(v) for k, v in m.items()},
                              "grads": mm.to_jax_values(cfg, full),
-                             "stats": dict(js.stats)})
+                             "stats": stats})
             share = sum(math.prod(lay.local) * 4 for lay in
                         js.sharded.layouts.values())
             res = {"runs": runs, "resident": js.sharded.resident_bytes(
-                params, state), "share": 3 * share}
+                params, state), "share": 3 * share,
+                   "compute_shapes": {n: lay.shape for n, lay in
+                                      js.sharded.compute_layouts.items()}}
             if dt == "f32":
                 fp, fst = js.sharded.full_state(params, state)
                 if mesh.rank == 0:
@@ -280,17 +283,27 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
     return out
 
 
+def tp_mesh_train(cases: list, shape: tuple, steps: int) -> dict:
+    """``mesh_train`` at f32 compute for each ``(arch, inputs_path,
+    ckpt_dir)`` of ``cases`` on this world's ranks as a ``shape`` mesh, in
+    one spawn -> ``{arch: its result}``."""
+    return {arch: mesh_train(inp, ckpt, shape, steps, arch, ("f32",))
+            for arch, inp, ckpt in cases}
+
+
 def _mesh_cfg(arch: str = "qwen2-7b"):
     """The reduced qwen2-7b of the JAX package's sharded-step test, or
-    ``arch`` cut the same way; an MoE's capacity factor is 1.0, so that a
-    microbatch's busier experts drop tokens."""
+    ``arch`` cut the same way (Jamba to one 8-layer scan unit); an MoE's
+    capacity factor is 1.0, so that a microbatch's busier experts drop
+    tokens."""
     import dataclasses
 
     from repro_torch.configs import get_arch
 
-    cfg = get_arch(arch).reduced(
-        num_layers=2, vocab_size=64, d_model=32, d_ff=64, num_heads=4,
-        num_kv_heads=2, head_dim=16)
+    cfg = get_arch(arch)
+    cfg = cfg.reduced(
+        num_layers=max(2, cfg.scan_unit), vocab_size=64, d_model=32,
+        d_ff=64, num_heads=4, num_kv_heads=2, head_dim=16)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=1.0))

@@ -376,7 +376,7 @@ def test_launcher_two_ranks_torchrun(jax_lines):
      "--build-shards requires --build-backend sharded"),
     (["--mesh", "1x1", "--engine"], "one mode or the other"),
     (["--mesh", "1x1", "--cluster", "3"], "one mode or the other"),
-    (["--mesh", "1x1", "--compact", "8,8"], "lock-step loop"),
+    (["--mesh", "1x1", "--compact", "8,8", "4,4"], "lock-step loop"),
     (["--mesh", "1x1", "--visited", "bitmap", "hash"],
      "one configuration"),
 ])
