@@ -105,7 +105,7 @@ before the path and reads the counters just after it:
      re-keyed the graph cache (REKEYED_5B);
   5b2. guard — the capture guard (``repro_torch.analysis.CaptureCounter``)
      on the shape-stable-ingest contract, on the index as phase 5b leaves
-     it (131,072-row capacity): a ``ServeEngine`` (kernel, bitmap, static
+     it (its pow2 capacities): a ``ServeEngine`` (kernel, bitmap, static
      knobs, max_wave 64, the host build for its ingest, as the JAX
      package's gate has it: the device build's own construction-search
      chunks are not the engine's) warms up and serves the 256 queries as a
@@ -200,7 +200,7 @@ before the path and reads the counters just after it:
      sum is also counted (on the card it splits a short row over more
      threads below 16 rows).  The first N_SHARDED =
      2,048 rows of phase 3's stream (d 128, m 16, ef_construction 64,
-     micro-batch 128, f32; a time cut: phase 3's 32,768 rows take ~120 s a
+     micro-batch 128, f32; a time cut: phase 3's 32,768 rows took ~120 s a
      build, and 8,192 rows, then 4,096, this phase's size before phase 7c
      came and then gated its second step, left too little of the time
      limit) are built three ways on the card: ``backend="device"``,
@@ -419,6 +419,45 @@ before the path and reads the counters just after it:
      Prints each step's ms, the gathers', reduce-scatters' and
      all-reduces' n, ms and bytes (the ``model`` group's all-reduces
      apart), each rank's peak device bytes;
+  7d. expert parallelism over ``data`` and sequence-parallel attention
+     (cut in depth as phase 7b cuts it, full width; each leg prints an
+     ``ok`` line with the card's name and power limit).  Leg (a) runs in
+     phase 7c's spawn, its third leg: first, in this process, the one-rank
+     plain step of EP_ARCH = qwen2-moe-a2.7b (d 2,048, 16/16 heads x 128,
+     60 experts padded to 64, top-4, expert ff 1,408, 4 shared, vocab
+     151,936) cut to TRAIN_LAYERS = 2 layers, f32 master weights from a
+     generator seeded 0, bf16 compute and bf16 AdamW moments, MESH_STEPS
+     steps of phase 7b's batches (8 x 512 in 2 microbatches), freed after;
+     then the ranks as a ``(data 2, model 1)`` mesh under
+     ``RULES_EP_DATA`` and the ``moe_ep_data`` preset: each expert leaf's
+     experts on ``data``, never gathered nor reduce-scattered, the tokens
+     sent to them by an all-to-all over ``data``.  Checks: phase 7c (data
+     2, model 1)'s bars against the one-rank steps (step 1 loss within
+     TRAIN_MICRO_TOL, grad norm 2e-2 relative; step 2 within
+     MESH_STEP2_TOL); every rank's gathered bytes equal, exactly, the
+     reckoned bytes of the non-expert leaves (the top-level leaves once in
+     f32, each layer's bucket in bf16 in each microbatch's forward and its
+     rematerialised backward) and no expert leaf is in a bucket; resident
+     bytes half of the one rank's 8 bytes a parameter, within a row of the
+     widest leaf; all-to-alls ran.  Prints both byte counts and the
+     all-to-alls' n, ms and GB a rank.  Leg (b) (the ``seq_parallel``
+     phase, its own spawn of SEQ_RANKS = 3 ranks on the card): phase 7b's
+     model as ``(data 1, model 3)`` under SEQ_TUNE (``seq_parallel_attn,
+     cache_seq_shard``; 28 q and 4 kv heads divide 3 neither, so each rank
+     attends for its slice of the 512 query rows, 171/171/170, and the
+     rows are all-gathered over ``model``; the vocab splits 3 ways, the
+     rest is whole): 2 steps against phase 7b's with MESH_TP_TOLS, no
+     parameter gather, each rank's parameters and their f32 state
+     reckoned beside its peak bytes.  Then, on the same ranks with the
+     trained weights at f32 compute, SEQ_SERVE: a prefill of 2 x 510
+     seeded tokens into a 516-slot cache, 172 slots a rank, through the
+     CUDA ``flash_attention`` at ``q_offset`` > 0 (one launch a layer a
+     rank), then 4 greedy decode steps on the split cache (flash-decoding
+     across ``model``), held to the one-rank forward on the card (rank 0,
+     the vocab-split leaves sent to it) fed the same tokens: every step's
+     logits within LM_REL_TOL of max |logit|, tokens equal or a near tie
+     at that tolerance, each rank's cache ``[2, 172, 4, 128]`` a layer;
+     the kernel's launches join the ``flash_attention`` row;
   8. report — the kernels JSON line, then the ok line last.  The WoW
      kernels' entries add ``executions``: the wrapper's launches in the
      device-build phase plus the launches that the phase's replayed hop
@@ -430,11 +469,12 @@ before the path and reads the counters just after it:
      the durable, cluster and sharded phases', and its entry adds those
      phases' numbers under ``durable``, ``cluster`` and ``sharded``.
 
-N_DEVICE is 2^15, the smallest power of two from 2^15 to 2^20, a time cut:
-at 2^16 the device build took 217-278 s on H100s (PERF.md), and with phase
-7c's second leg the whole smoke took 1,188 s of its 1,200 s limit on a slow
-machine; 2^15 halves the build and the phases that serve, log and replicate
-its index.
+N_DEVICE is 2^14, a time cut of a million-vector deployment: at 2^16 the
+device build took 217-278 s on H100s (PERF.md), and with phase 7c's second
+leg the whole smoke took 1,188 s of its 1,200 s limit on a slow machine, so
+it went to 2^15 (the build 137-146 s); phase 7d then brought the whole
+smoke to 1,040.8 s on a normal machine, and 2^14 halves the build again and
+shrinks the phases that serve, log and replicate its index.
 
 Needs one card; exits non-zero without CUDA or outside a checkout of the
 repository, before printing any result.
@@ -450,6 +490,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+CARD = ["card not read"]  # name and power limit, as nvidia-smi gives them
 sys.path.insert(0, os.path.join(HERE, "src"))
 
 import torch  # noqa: E402
@@ -460,7 +501,7 @@ BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 TF32_FLOPS = 495e12  # H100 SXM TF32 tensor cores, dense
 TIE_FLIP_SHARE = 0.02
 N_HOST = 8192  # host-built (ops) serve phase
-N_DEVICE = 32768  # device-build phase (see the module docstring)
+N_DEVICE = 16384  # device-build phase (see the module docstring)
 N_INGEST = 4096
 QUERIES = 256
 RAG_ARCH_RUN = "qwen2-7b-bf16"  # the LM run the RAG phase rides on
@@ -503,6 +544,11 @@ MESH_STEP2_TOL = 1e-3
 # phase 7c (data 1, model 2): the CPU 2 x 2 test's bf16 bars, (loss
 # absolute, grad norm relative) at steps 1 and 2
 MESH_TP_TOLS = ((1e-3, 2e-2), (5e-3, 2e-2))
+EP_ARCH = "qwen2-moe-a2.7b"  # phase 7d (a): full width, TRAIN_LAYERS deep
+EP_TUNE = "moe_ep_data"
+SEQ_RANKS = 3  # phase 7d (b): a (data 1, model 3) mesh on the one card
+SEQ_TUNE = "seq_parallel_attn,cache_seq_shard"
+SEQ_SERVE = (2, 510, 516, 4)  # batch, prompt tokens, cache slots, decodes
 LM_MODELS = {  # run -> arch, kernel launches per prefill or embed, the
     # tensors given seeded noise (JAX's zero inits, and the rwkv bonus u),
     # the weights' and compute type, and the depth cut (layers, or None)
@@ -3172,13 +3218,13 @@ def _train_cfg():
                                block_pattern=cfg.block_pattern[:TRAIN_LAYERS])
 
 
-def _mesh_rank(rank: int, world: int, store: str, shapes: tuple,
+def _mesh_rank(rank: int, world: int, store: str, legs: tuple,
                results) -> None:
-    """One rank of phase 7c: a process of its own on ``cuda:0``, joined
-    to the others by gloo over a ``FileStore``; phase 7b's model and
-    batches through the mesh train step on each ``(data, model)`` mesh
-    of ``shapes`` in turn (``_mesh_leg``).  Puts what it measured on
-    ``results``; a failure ends the process non-zero."""
+    """One rank of phases 7c and 7d: a process of its own on ``cuda:0``,
+    joined to the others by gloo over a ``FileStore``; the mesh train
+    step on each ``(kind, (data, model))`` leg of ``legs`` in turn
+    (``_mesh_leg``).  Puts what it measured on ``results``; a failure
+    ends the process non-zero."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -3186,33 +3232,72 @@ def _mesh_rank(rank: int, world: int, store: str, shapes: tuple,
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        results.put((rank, [_mesh_leg(shape) for shape in shapes]))
+        results.put((rank, [_mesh_leg(shape, kind) for kind, shape in legs]))
     finally:
         dist.destroy_process_group()
 
 
-def _mesh_leg(shape: tuple) -> dict:
-    """This rank's MESH_STEPS steps of phase 7b's model on a ``shape``
-    mesh of the ranks: what it measured."""
+def _leg_setup(kind: str):
+    """A leg's model, rules, presets and optimizer: "tp" phase 7b's
+    (phase 7c), "ep" phase 7d (a)'s MoE under ``RULES_EP_DATA``, "seq"
+    phase 7b's model under SEQ_TUNE (phase 7d (b))."""
+    from repro_torch.parallel import RULES_EP_DATA, RULES_TP_FSDP
+    from repro_torch.train import AdamW
+
+    if kind == "ep":
+        return (_ep_cfg(), RULES_EP_DATA, EP_TUNE,
+                AdamW(lr=3e-4, warmup=2, total_steps=100,
+                      state_dtype="bfloat16"))
+    return (_train_cfg(), RULES_TP_FSDP, SEQ_TUNE if kind == "seq" else "",
+            AdamW(lr=3e-4, warmup=2, total_steps=100))  # phase 7b's
+
+
+def _ep_cfg():
+    """Phase 7d (a)'s model: EP_ARCH at full width cut to TRAIN_LAYERS."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch(EP_ARCH)
+    return dataclasses.replace(cfg, num_layers=TRAIN_LAYERS,
+                               block_pattern=cfg.block_pattern[:TRAIN_LAYERS])
+
+
+def _mesh_leg(shape: tuple, kind: str = "tp") -> dict:
+    """This rank's MESH_STEPS steps of a leg's model (``_leg_setup``) on a
+    ``shape`` mesh of the ranks, under its presets: what it measured (and
+    for "seq" the serving leg, ``_seq_serve``)."""
+    import dataclasses
+
+    from repro_torch.models.tuning import TUNING, apply_preset
+
+    cfg, rules, tune, opt = _leg_setup(kind)
+    saved = dataclasses.asdict(TUNING)
+    apply_preset(tune)
+    try:
+        return _run_leg(cfg, rules, opt, shape, kind)
+    finally:
+        for k, v in saved.items():
+            setattr(TUNING, k, v)
+
+
+def _run_leg(cfg, rules, opt, shape: tuple, kind: str) -> dict:
+    """``_mesh_leg``'s steps under the presets already applied."""
     import gc
 
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
-    from repro_torch.parallel import (
-        RULES_TP_FSDP, param_shardings, token_sharding,
-    )
+    from repro_torch.parallel import param_shardings, token_sharding
     from repro_torch.train import (
-        AdamW, DataConfig, TokenSource, jit_train_step, make_train_step,
+        DataConfig, TokenSource, jit_train_step, make_train_step,
     )
 
-    cfg = _train_cfg()
     mesh = make_host_mesh(shape, ("data", "model"), device="cuda:0")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(cfg, gen, device="cuda")  # phase 7b's weights
-    specs = param_shardings(params, RULES_TP_FSDP, mesh)
+    params = init_params(cfg, gen, device="cuda")  # the one-rank weights
+    specs = param_shardings(params, rules, mesh)
     blocks = {n: sp for n, sp in specs.items()
               if n.startswith("blocks.")}
-    opt = AdamW(lr=3e-4, warmup=2, total_steps=100)  # phase 7b's
     step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO,
                            grad_shardings=specs, block_param_specs=blocks)
     js = jit_train_step(step, mesh, specs,
@@ -3248,24 +3333,42 @@ def _mesh_leg(shape: tuple) -> dict:
                       **{f"{k[:-2]}_ms" if k.endswith("_s") else k:
                          (v * 1e3 if k.endswith("_s") else v)
                          for k, v in st.items()}})
+    sp = js.sharded
     out = {"coord": (mesh.coord("data"), mesh.coord("model")),
            "steps": steps, "resident_bytes": resident,
            "widest_row": widest_row, "whole_params": whole,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "params": sum(math.prod(lay.shape) for lay in
-                         js.sharded.layouts.values())}
-    del params, state, js, step
+                         sp.layouts.values()),
+           "local_params": sum(lay.numel for lay in sp.layouts.values()),
+           # a step's gathers: the top-level leaves once in f32, each
+           # layer's bucket (bf16) in each microbatch's forward and again
+           # in its rematerialised backward; expert leaves on data never
+           "reckoned_gather_bytes": sum(
+               sp.compute_layouts[n].chunk * 4 for n in sp.top.names)
+           + 2 * TRAIN_MICRO * sum(sp.compute_layouts[n].chunk * 2
+                                   for b in sp.layer_buckets
+                                   for n in b.names),
+           "expert_leaves": len(sp.expert_leaves),
+           "experts_in_buckets": len(sp.expert_leaves & {
+               n for b in [sp.top, *sp.layer_buckets] for n in b.names})}
+    if kind == "seq":
+        out["serve"] = _seq_serve(cfg, js, params)
+    del params, state, js, step, sp
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def _check_leg(train: dict, shape: tuple, ranks: list, wall: float) -> dict:
-    """One leg of phase 7c (the ranks' ``_mesh_leg`` results on a
-    ``shape`` mesh) held to phase 7b's one-rank steps (see the module
-    docstring)."""
+def _check_leg(train: dict, shape: tuple, ranks: list, wall: float,
+               kind: str = "tp") -> dict:
+    """One leg of phase 7c or 7d (the ranks' ``_mesh_leg`` results on a
+    ``shape`` mesh) held to the one-rank steps ``train`` (phase 7b's, or
+    phase 7d (a)'s for "ep"; see the module docstring)."""
     tp = shape[1] > 1
-    name = f"mesh train (data {shape[0]}, model {shape[1]})"
+    name = {"tp": "mesh train", "ep": "ep data",
+            "seq": "seq parallel"}[kind] + \
+        f" (data {shape[0]}, model {shape[1]})"
     ref = train["full_width"]["steps"][0]
     r0 = ranks[0]
     metrics = [[{k: s[k] for k in ("loss", "nll", "aux", "grad_norm", "lr")}
@@ -3284,20 +3387,35 @@ def _check_leg(train: dict, shape: tuple, ranks: list, wall: float) -> dict:
     tol2 = MESH_TP_TOLS[1] if tp else (MESH_STEP2_TOL, MESH_STEP2_TOL)
     if not (loss_gap2 < tol2[0] and norm_gap2 < tol2[1]):
         fail(f"{name}: step 2 {s2} against phase 7b's one rank {ref2}")
-    half = 12 * r0["params"] / MESH_RANKS  # f32 weights, m and v
+    # f32 weights and moments (bf16 moments for "ep")
+    per_param = 8 if kind == "ep" else 12
+    world = len(ranks)
+    half = per_param * r0["params"] / world
     # (data 2, model 1): within one row of the widest leaf for the three
     # tensors (the leaves the spec leaves whole, the QKV biases, sit on
     # both ranks); (data 1, model 2): the leaves whole over model sit on
-    # both ranks
-    slack = 12 * (r0["whole_params"] / 2 if tp else r0["widest_row"])
+    # both ranks; (data 1, model 3): only the vocab splits (the module
+    # docstring), so no share is gated, the reckoning is printed
+    slack = per_param * (r0["whole_params"] / 2 if tp
+                         else r0["widest_row"])
     for r in ranks:
-        if abs(r["resident_bytes"] - half) > slack:
+        if kind != "seq" and abs(r["resident_bytes"] - half) > slack:
             fail(f"{name}: rank {r['coord']} holds {r['resident_bytes']}"
                  f" bytes of parameters and moments, not half of "
                  f"{2 * half:.0f} (+- {slack})")
         if tp and any(s.get("gather_n", 0) for s in r["steps"]):
             fail(f"{name}: rank {r['coord']} gathered parameters "
                  f"{[s.get('gather_n', 0) for s in r['steps']]}")
+        if kind == "ep":
+            got = [s.get("gather_bytes", 0) for s in r["steps"]]
+            if r["experts_in_buckets"] or not r["expert_leaves"] or any(
+                    g != r["reckoned_gather_bytes"] for g in got):
+                fail(f"{name}: rank {r['coord']} gathered {got} bytes "
+                     f"against {r['reckoned_gather_bytes']} reckoned for "
+                     f"the non-expert leaves; {r['experts_in_buckets']} "
+                     f"of {r['expert_leaves']} expert leaves in a bucket")
+            if not all(s.get("ep_all_to_all_n", 0) for s in r["steps"]):
+                fail(f"{name}: rank {r['coord']} ran no all-to-all")
     for i, s in enumerate(r0["steps"]):
         print(f"{name} step {i + 1}: {s['ms']:.1f} ms; gathers "
               f"{s.get('gather_n', 0)} in {s.get('gather_ms', 0):.1f} ms "
@@ -3311,9 +3429,26 @@ def _check_leg(train: dict, shape: tuple, ranks: list, wall: float) -> dict:
               f"{s.get('tp_all_reduce_ms', 0):.1f} ms "
               f"({s.get('tp_all_reduce_bytes', 0) / 1e9:.3f} GB), model "
               f"max all-reduces {s.get('tp_all_reduce_max_n', 0)} in "
-              f"{s.get('tp_all_reduce_max_ms', 0):.1f} ms; loss "
+              f"{s.get('tp_all_reduce_max_ms', 0):.1f} ms; model "
+              f"all-gathers {s.get('tp_gather_n', 0)} in "
+              f"{s.get('tp_gather_ms', 0):.1f} ms "
+              f"({s.get('tp_gather_bytes', 0) / 1e9:.3f} GB); data "
+              f"all-to-alls {s.get('ep_all_to_all_n', 0)} in "
+              f"{s.get('ep_all_to_all_ms', 0):.1f} ms "
+              f"({s.get('ep_all_to_all_bytes', 0) / 1e9:.4f} GB); loss "
               f"{s['loss']:.6f}, grad norm {s['grad_norm']:.6f}")
-    print(f"ok {name}: {MESH_RANKS} ranks on one card; step 1 loss "
+    if kind == "ep":
+        print(f"{name}: gathered bytes a step "
+              f"{[[s.get('gather_bytes', 0) for s in r['steps']] for r in ranks]}"
+              f", reckoned for the non-expert leaves "
+              f"{[r['reckoned_gather_bytes'] for r in ranks]}; "
+              f"{r0['expert_leaves']} expert leaves, none in a bucket")
+    if kind == "seq":
+        print(f"{name}: {[r['local_params'] for r in ranks]} parameters "
+              f"a rank; weights, gradients and moments in f32 reckoned at "
+              f"{[16 * r['local_params'] for r in ranks]} bytes, peak "
+              f"{[r['peak_bytes'] for r in ranks]}")
+    print(f"ok {name} on {CARD[0]}: {world} ranks on one card; step 1 loss "
           f"{s1['loss']:.6f} / {ref['loss']:.6f} (gap {loss_gap:.3e}, "
           f"limit {tol1[0]:g}), grad norm {s1['grad_norm']:.6f} / "
           f"{ref['grad_norm']:.6f} ({norm_gap:.3e} relative, limit "
@@ -3321,25 +3456,230 @@ def _check_leg(train: dict, shape: tuple, ranks: list, wall: float) -> dict:
           f"{ref2['loss']:.6f} (gap {loss_gap2:.3e}, limit {tol2[0]:g}), "
           f"grad norm {s2['grad_norm']:.6f} / {ref2['grad_norm']:.6f} "
           f"({norm_gap2:.3e} relative, limit {tol2[1]:g}); resident bytes "
-          f"{[r['resident_bytes'] for r in ranks]} against half of "
-          f"phase 7b's {half:.0f} (+- {slack:.0f}); peak bytes "
+          f"{[r['resident_bytes'] for r in ranks]} against 1/{world} of "
+          f"the one rank's {world * half:.0f}: {half:.0f} (+- "
+          f"{slack:.0f}{', not gated' if kind == 'seq' else ''}); peak bytes "
           f"{[r['peak_bytes'] for r in ranks]}; the phase {wall:.1f} s "
           f"with the spawn")
     return {"ranks": ranks, "loss_gap": loss_gap, "norm_gap": norm_gap,
             "loss_gap2": loss_gap2, "norm_gap2": norm_gap2}
 
 
+def _ep_one_rank() -> dict:
+    """Phase 7d (a)'s one-rank reference: the plain step of ``_ep_cfg()``
+    (f32 master weights from a generator seeded 0, bf16 compute, bf16
+    moments) over MESH_STEPS of phase 7b's batches, as phase 7b steps."""
+    import gc
+
+    from repro_torch.models import abstract_params, init_params, param_count
+    from repro_torch.train import DataConfig, TokenSource, make_train_step
+
+    cfg, _, _, opt = _leg_setup("ep")
+    n = param_count(abstract_params(cfg))
+    print(f"ep data: {cfg.name} cut to {cfg.num_layers} layers, {n} "
+          f"parameters ({cfg.moe.num_experts} experts padded to "
+          f"{cfg.moe.padded_experts}, top-{cfg.moe.top_k}); one rank's f32 "
+          f"weights and gradients and bf16 moments reckoned at {12 * n} "
+          f"bytes")
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(cfg, gen, device="cuda")
+    params.requires_grad_(True)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, microbatches=TRAIN_MICRO, remat=True)
+    data = TokenSource(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  kind="random"))
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(MESH_STEPS):
+        tok, lab = data.host_batch(i, 0, [0])
+        tok = torch.as_tensor(tok, device="cuda")
+        lab = torch.as_tensor(lab, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, m = step(params, state, tok, lab)
+        torch.cuda.synchronize()
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                      **{k: float(v) for k, v in m.items()}})
+        if not math.isfinite(steps[-1]["loss"]):
+            fail(f"ep data: one-rank step {i + 1} {steps[-1]}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"ep data one rank: steps {[round(s['ms'], 1) for s in steps]} "
+          f"ms, losses {[s['loss'] for s in steps]}, peak {peak} bytes")
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"full_width": {"steps": steps, "peak_bytes": peak}}
+
+
 def phase_mesh_train(train: dict) -> dict:
-    """Phase 7c (see the module docstring), against phase 7b's ``train``
-    result: one spawn of MESH_RANKS ranks runs the ``(data 2, model 1)``
-    leg, then ``(data 1, model 2)``."""
-    shapes = ((MESH_RANKS, 1), (1, MESH_RANKS))
+    """Phase 7c and phase 7d (a) (see the module docstring), against
+    phase 7b's ``train`` result and phase 7d (a)'s one-rank steps: one
+    spawn of MESH_RANKS ranks runs the ``(data 2, model 1)`` leg, then
+    ``(data 1, model 2)``, then the MoE leg under ``RULES_EP_DATA``."""
     t0 = time.perf_counter()
-    ranks = _spawn_ranks(_mesh_rank, MESH_RANKS, "mesh-train", (shapes,))
+    ep_ref = _ep_one_rank()
+    ep_ref_s = time.perf_counter() - t0
+    legs = (("tp", (MESH_RANKS, 1)), ("tp", (1, MESH_RANKS)),
+            ("ep", (MESH_RANKS, 1)))
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_mesh_rank, MESH_RANKS, "mesh-train", (legs,))
     wall = time.perf_counter() - t0
-    out = {f"data{d}_model{m}": _check_leg(train, (d, m),
-                                           [r[i] for r in ranks], wall)
-           for i, (d, m) in enumerate(shapes)}
+    out = {}
+    for i, (kind, (d, m)) in enumerate(legs):
+        out[f"{kind}_data{d}_model{m}"] = _check_leg(
+            ep_ref if kind == "ep" else train, (d, m),
+            [r[i] for r in ranks], wall, kind)
+    out["wall_s"] = wall
+    out["ep_one_rank"] = ep_ref
+    out["ep_one_rank_s"] = ep_ref_s
+    return out
+
+
+def _seq_serve(cfg, js, params) -> dict:
+    """Phase 7d (b)'s serving leg on this rank: the trained weights at
+    f32 compute, a prefill of SEQ_SERVE's batch x prompt (seeded tokens,
+    the same on every rank) into a cache of its slots, split over
+    ``model`` (``cache_seq_shard``), with sequence-parallel attention
+    through the kernel, then its decode steps, greedy on the logits
+    gathered over ``model``.  Rank 0 then runs the one-rank forward on
+    the card (the top-level leaves gathered whole) fed the same tokens:
+    each step's max |logit| gap and scale, the tokens and its top-2
+    margins."""
+    from repro_torch.models.model import (
+        forward, init_cache, named_tensors, tree_from_named,
+    )
+
+    B, T, S, steps = SEQ_SERVE
+    sp = js.sharded
+    tp = sp.model_split()
+    named = {n: t.detach() for n, t in named_tensors(params).items()}
+    prompt = torch.randint(0, cfg.vocab_size, (B, T), generator=torch.
+                           Generator().manual_seed(7)).to("cuda")
+    kw = dict(cache_len=S, backend="auto", compute_dtype=torch.float32)
+
+    def run(tree, split) -> tuple:
+        caches = init_cache(cfg, B, S, torch.float32, device="cuda",
+                            tp=split)
+        shapes = [list(c.k.shape) for c in caches]
+        reset_counts()
+        lg, caches, _ = forward(tree, cfg, prompt, mode="prefill",
+                                caches=caches, last_only=True, tp=split,
+                                **kw)
+        launches = read_counts()["flash_attention"]
+        outs, toks = [], []
+        for i in range(steps + 1):
+            full = lg[:, -1].float()
+            if split is not None and full.shape[-1] < cfg.vocab_size:
+                full = split.all_gather(full, -1)
+            outs.append(full)
+            tok = fed[i] if fed else full.argmax(-1)
+            toks.append(tok)
+            if i == steps:
+                break
+            pos = torch.full((B,), T + i, dtype=torch.int32, device="cuda")
+            lg, caches, _ = forward(tree, cfg, tok[:, None].int(),
+                                    mode="decode", caches=caches, pos=pos,
+                                    tp=split, **kw)
+        return outs, toks, launches, shapes
+
+    fed: list = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, toks, launches, shapes = run(sp.tree(named), tp)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        top = _gather_to_rank0(sp, named)
+        res = {"launches": launches, "cache_shapes": shapes,
+               "serve_ms": serve_ms, "tokens": [t.tolist() for t in toks]}
+        if sp.mesh.rank == 0:
+            whole = tree_from_named({**top, **{
+                n: t for n, t in named.items() if n not in top}})
+            fed[:] = toks
+            ref, _, ref_launches, _ = run(whole, None)
+            gaps, scales, margins, same = [], [], [], []
+            for got, want, tok in zip(outs, ref, toks):
+                gaps.append(float((got - want).abs().max()))
+                scales.append(float(want.abs().max()))
+                top2 = want.topk(2, dim=-1).values
+                margins.append((top2[:, 0] - top2[:, 1]).tolist())
+                same.append((want.argmax(-1) == tok).tolist())
+            res.update(ref_launches=ref_launches, gaps=gaps,
+                       scales=scales, margins=margins, same=same)
+            del whole, ref
+        del top
+    return res
+
+
+def _gather_to_rank0(sp, named: dict) -> dict:
+    """The top-level leaves whole on rank 0 of a ``(data 1, model n)``
+    mesh (``{}`` elsewhere): the ``model`` parts sent to rank 0 alone
+    (``torch.distributed.gather`` through the host), concatenated."""
+    import torch.distributed as dist
+
+    out = {}
+    for n in sp.top.names:
+        part, t = sp.parts[n], named[n]
+        if part is None:
+            out[n] = t
+            continue
+        src = t.cpu()
+        every = ([torch.empty_like(src) for _ in range(sp.mesh.size)]
+                 if sp.mesh.rank == 0 else None)
+        dist.gather(src, every, dst=0, group=sp.model.group)
+        if every is not None:
+            out[n] = torch.cat(every, dim=part.dim).to(t.device)
+    return out if sp.mesh.rank == 0 else {}
+
+
+def _seq_rank(rank: int, world: int, store: str, results) -> None:
+    """One rank of phase 7d (b) (``_mesh_rank``'s "seq" leg)."""
+    _mesh_rank(rank, world, store, (("seq", (1, SEQ_RANKS)),), results)
+
+
+def phase_seq_parallel(train: dict) -> dict:
+    """Phase 7d (b) (see the module docstring): one spawn of SEQ_RANKS
+    ranks, phase 7b's model under SEQ_TUNE, 2 steps held to phase 7b's,
+    then the serving leg held to the one-rank forward."""
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in _spawn_ranks(_seq_rank, SEQ_RANKS, "seq", ())]
+    wall = time.perf_counter() - t0
+    out = _check_leg(train, (1, SEQ_RANKS), ranks, wall, "seq")
+    B, T, S, steps = SEQ_SERVE
+    serves = [r["serve"] for r in ranks]
+    s0 = serves[0]
+    if any(s["tokens"] != s0["tokens"] for s in serves):
+        fail("seq parallel: the ranks decoded different tokens")
+    for r, s in zip(ranks, serves):
+        want = [[B, S // SEQ_RANKS, 4, 128]] * TRAIN_LAYERS
+        if s["cache_shapes"] != want or s["launches"] != TRAIN_LAYERS:
+            fail(f"seq parallel: rank {r['coord']} cache {s['cache_shapes']}"
+                 f" (want {want}), flash_attention launched "
+                 f"{s['launches']} times in its prefill")
+    if s0["ref_launches"] != TRAIN_LAYERS:
+        fail(f"seq parallel: the one-rank prefill launched "
+             f"{s0['ref_launches']} flash_attention")
+    for i, (gap, scale, margin, same) in enumerate(zip(
+            s0["gaps"], s0["scales"], s0["margins"], s0["same"])):
+        tol = LM_REL_TOL * scale
+        if gap > tol or not all(ok or m < tol
+                                for ok, m in zip(same, margin)):
+            fail(f"seq parallel: step {i} logits {gap:.3e} apart (limit "
+                 f"{tol:.3e}), tokens equal {same}, margins {margin}")
+    launches = sum(s["launches"] for s in serves) + s0["ref_launches"]
+    print(f"ok seq parallel serve on {CARD[0]}: {SEQ_RANKS} ranks, prefill "
+          f"B {B} x T {T} (rows {T // SEQ_RANKS} a rank, the kernel at "
+          f"q_offset > 0) into {S} slots ({S // SEQ_RANKS} a rank), {steps} "
+          f"decode steps in {s0['serve_ms']:.1f} ms; max |logit| gaps "
+          f"{[f'{g:.3e}' for g in s0['gaps']]} against the one-rank "
+          f"forward (limits {[f'{LM_REL_TOL * c:.3e}' for c in s0['scales']]}"
+          f"), tokens {s0['tokens']}; flash_attention launched "
+          f"{[s['launches'] for s in serves]} + {s0['ref_launches']}; the "
+          f"phase {wall:.1f} s with the spawn")
+    out["flash_launches"] = launches
     out["wall_s"] = wall
     return out
 
@@ -3604,6 +3944,8 @@ def kernels_flash(gen) -> dict:
         ("h2o-danube-3-4b", 1, 8192, 8192, 32, 8, 120, 4096, 0, f32),
         ("h2o-danube-3-4b bf16", 1, 8192, 8192, 32, 8, 120, 4096, 0, bf16),
         ("q_offset", 8, 512, 2048, 28, 4, 128, None, 1536, f32),
+        # phase 7d (b)'s last rank: its 170 query rows after 340
+        ("seq-parallel slice", 2, 170, 510, 28, 4, 128, None, 340, f32),
     ]
     out, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     for name, B, Tq, Tk, Hq, Hkv, D, window, q_offset, dt in cases:
@@ -3815,6 +4157,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
+    CARD[0] = smi
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
     t_start = time.time()
@@ -3853,8 +4196,12 @@ def main() -> int:
     print(f"train phase {laps['train']} s")
     print(f"train: {json.dumps(train)}")
     mesh_train = lap("mesh_train", phase_mesh_train, train)
-    print(f"mesh train phase {laps['mesh_train']} s")
+    print(f"mesh train phase {laps['mesh_train']} s (phase 7d (a)'s one "
+          f"rank {mesh_train['ep_one_rank_s']:.1f} s of it)")
     print(f"mesh train: {json.dumps(mesh_train)}")
+    seq = lap("seq_parallel", phase_seq_parallel, train)
+    print(f"seq parallel phase {laps['seq_parallel']} s")
+    print(f"seq parallel: {json.dumps(seq)}")
     # last: no traced phase may follow its spawned ranks (see phase 5e)
     sharded = lap("sharded", phase_sharded, device["out"])
     print(f"sharded phase {laps['sharded']} s")
@@ -3869,6 +4216,7 @@ def main() -> int:
     # each LM kernel's launches over every model that runs it
     lm_launches = {k: sum(r["launches"].get(k, 0) for r in lm.values())
                    for k in ("flash_attention", "wkv6", "mamba_scan")}
+    lm_launches["flash_attention"] += seq["flash_launches"]
     report = {"kernels": [
         {"name": "gather_norm_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_norm_dot.cu",
@@ -3946,7 +4294,8 @@ def main() -> int:
                  "flash_attention"],
              "rag": lm[RAG_ARCH_RUN]["rag"]["launches"]["flash_attention"],
              "rag_durable": lm[RAG_ARCH_RUN]["rag"]["durable"]["launches"][
-                 "flash_attention"]},
+                 "flash_attention"],
+             "seq_parallel": seq["flash_launches"]},
          "traced": lm["qwen2-7b"]["trace"]["shares"],
          "traced_bf16": {r: lm[r]["trace"]["shares"]
                          for r in ("qwen2-7b-bf16", JAMBA)},

@@ -17,16 +17,23 @@ Both compute rank 0's part over ``model`` (tensor and expert
 parallelism, ``parallel.tensor_parallel``, as the train step does):
 every layer is all-gathered over the FSDP axes only, in bf16, when the
 forward reads it (``train_loop.ShardedParams``), and its products run
-over the rank's heads, mlp, experts, inner channels or vocab.  A decode
-or prefill cache follows ``cache_specs``, the plan's spec of each state:
-a KV cache holds the rank's kv heads when they divide ``model`` (the
-sequence split of ``cache_seq_shard`` is sequence-parallel attention,
-which the port does not run: such a cache holds its whole sequence), and
-the SSM states stay whole.  Its collectives are real calls on torch's
-``fake`` process-group backend sized to the mesh and its ``model`` and
-FSDP groups (each returns at once).  The run goes under
-``launch.op_cost``; ``launch.roofline`` turns the counts into the H100's
-terms.
+over the rank's heads, mlp, experts, inner channels or vocab.  Under
+``--rules ep_data`` the experts stay on their ``data`` rank (never
+gathered) and the tokens travel to them by an all-to-all over ``data``;
+the walk cannot read the routing's counts on fake tensors, so it sends
+each rank's tokens evenly (``ExpertSplit.sizes``).  A serving forward
+routes each rank's rows as part of the whole batch (``models.moe.
+routed_over``), as the train step does.  Under ``--tune
+seq_parallel_attn`` (or ``opt``) a cell whose query heads do not divide
+``model`` attends for rank 0's slice of the query rows and all-gathers
+the rows (``models.attention``).  A decode or prefill cache follows
+``cache_specs``, the plan's spec of each state: a KV cache holds the
+rank's kv heads when they divide ``model``, else under
+``cache_seq_shard`` its ``1 / n`` of the slots; the SSM states stay
+whole.  Its collectives are real calls on torch's ``fake`` process-group
+backend sized to the mesh and its ``model``, ``data`` and FSDP groups
+(each returns at once).  The run goes under ``launch.op_cost``;
+``launch.roofline`` turns the counts into the H100's terms.
 
 Record keys are the reference's: ``hlo_flops_per_device`` and
 ``hlo_bytes_per_device`` hold the walk's counts, ``xla_cost_analysis``
@@ -36,10 +43,13 @@ cache bytes beside the reference's keys: ``argument_bytes`` (parameters,
 moments, caches, inputs), ``temp_bytes`` (the peak of live bytes the step
 allocated, gradients included), ``output_bytes`` (what it allocated and
 returned), ``alias_bytes`` 0 (the step updates in place) and
-``total_bytes = argument_bytes + temp_bytes``.  ``tuning`` states every
-knob; ``tuning_inert`` names those set that have no effect on the port's
-step (``models.tuning.SHARDING_ONLY``).  A cell that fails is written as
-``error``.
+``total_bytes = argument_bytes + temp_bytes``.  ``rank_collectives``
+holds rank 0's collectives by kind as ``ShardedParams.stats`` counts
+them (calls and bytes sent; ``tp_`` the ``model`` group's, ``ep_`` the
+experts' all-to-alls and counts over ``data``, ``route_`` the MoE
+counts).  ``tuning`` states every knob; ``tuning_inert`` names those set
+that have no effect on the port's step (``models.tuning.
+SHARDING_ONLY``).  A cell that fails is written as ``error``.
 """
 from __future__ import annotations
 
@@ -56,7 +66,8 @@ import torch
 from ..configs import all_archs, get_arch
 from ..configs.base import ArchConfig
 from ..parallel.logical import (
-    RULES_DP_ONLY, RULES_EP_DATA, RULES_TP_FSDP, param_shardings,
+    RULES_DP_ONLY, RULES_EP_DATA, RULES_TP_FSDP, expert_data_leaves,
+    param_shardings,
 )
 from ..parallel.sharding import cache_sharding, token_sharding
 from .mesh import AbstractMesh, make_production_mesh
@@ -142,6 +153,7 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
 
     from ..models.model import abstract_params, init_cache, tree_from_named
     from ..models.model import forward
+    from ..models.moe import routed_over
     from ..models.tuning import TUNING, inert_knobs
     from ..train.optimizer import AdamW
     from ..train.train_loop import (
@@ -188,6 +200,11 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
                                   st._fields, st)})
     mem: dict = {}
     try:
+        if expert_data_leaves(specs) and mesh.shape["data"] > 1 and \
+                "data" not in split:
+            return {"arch": arch, "shape": shape, "skipped": (
+                f"experts on data take the batch rows split over data; a "
+                f"batch of {batch} does not divide {mesh.shape['data']}")}
         with _fake_world(mesh) as rmesh:
             if info["kind"] == "train":
                 dps = _dp_size(mesh)
@@ -224,6 +241,7 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
                     with OpCost(chips) as oc:
                         js(params, state, tokens, labels)
                     out_bytes = 0
+                stats = js.stats
             else:
                 sp = ShardedParams(cfg, rmesh, specs, split)
                 lay = sp.layouts
@@ -250,7 +268,7 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
                                     pos=torch.zeros(rows, dtype=torch.int32),
                                     cache_len=seq)
                     mem["input_bytes"] = _nbytes([inp])
-                    with OpCost(chips) as oc:
+                    with OpCost(chips) as oc, routed_over(sp.route):
                         if info["kind"] == "prefill":  # made by the step
                             args["caches"] = init_cache(cfg, rows, seq,
                                                         device="cpu", tp=tp)
@@ -260,6 +278,7 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
                             result = result[0][:, -1].argmax(-1)
                     out_bytes = oc.live
                     del result
+                stats = sp.stats
             trace_s = time.time() - t1
     finally:
         TUNING.attn_seq_axis = saved_seq_axis
@@ -304,6 +323,8 @@ def build_cell(arch: str, shape: str, mesh, rules_name: str = "tp_fsdp",
             "total_bytes": args_bytes + rec_c["peak_live_bytes"],
         },
         "op_cost": {k: rec_c[k] for k in ("ops", "repeats")},
+        "rank_collectives": {k: v for k, v in sorted(stats.items())
+                             if not k.endswith("_s")},
         "token_spec": list(tok_spec),
         "cache_specs": cache_specs,
         "rows_per_rank": rows,

@@ -23,6 +23,32 @@ a rank computes every kv head and its q heads read the ones that GQA
 maps them to.  A cache holds the kv heads the rank computes, as
 ``parallel.cache_sharding`` lays it out (heads over ``model`` only when
 they divide).
+
+Sequence-parallel attention (``TUNING.attn_seq_axis == "model"``, the
+``seq_parallel_attn`` preset) takes over when the query heads are whole
+over ``model`` (they do not divide it; the dry run resolves the knob so,
+per cell, as the reference does): a rank projects q for its slice of the
+query rows (``ModelSplit.seq_range``: ceil-sized slices, the last rank
+shorter), the keys and values its rows see, attends at ``q_offset`` =
+its first row (the flash kernel on the card), runs the whole ``wo`` on
+its rows and all-gathers the rows over ``model``, so the residual stream
+stays whole on every rank.  The leaves it reads whole and ``x`` enter
+through ``tp.copy``.  A contiguous split leaves the causal imbalance:
+the last rank sees the most keys.  The reference pins the rows to
+``model`` by a sharding constraint; the numbers are the unsharded ones.
+
+``TUNING.cache_seq_shard`` splits a decode cache's slots over ``model``
+where the kv heads do not divide it and the slots do (``cache_split``,
+``parallel.cache_sharding``'s rule): a rank holds slots ``[r * S / n,
+(r + 1) * S / n)`` (a ring's too: key p stays in slot ``p % window``).
+Prefill writes the rank's slots; decode writes the new key and value on
+the rank that owns slot ``pos``, and each rank attends over its slots
+for every q head (gathered over ``model`` when they split): the
+softmax's maximum, sum and weighted values are merged across ``model``
+(``ModelSplit.max`` and all-reduces, flash-decoding), then ``wo`` runs
+as without the split.  Where the batch rows are not split (the dry
+run's ``long_500k`` cells, a batch of 1), the reference's rule puts the
+slots on ``data`` instead; the port keeps them whole on every rank there.
 """
 from __future__ import annotations
 
@@ -35,6 +61,7 @@ from ..kernels import ops
 from .layers import (
     apply_rope, dense, rms_norm, rope_angles, rp_matmul, split_on,
 )
+from .tuning import TUNING
 
 
 class KVCache(NamedTuple):
@@ -94,16 +121,64 @@ def _project_qkv(p, cfg: ArchConfig, x: torch.Tensor,
                 bk, bv = tp.copy(bk), tp.copy(bv)
         if cfg.qk_norm:
             q_norm, k_norm = tp.copy(q_norm), tp.copy(k_norm)
-    q, k, v = _proj(x, p["wq"]), _proj(x, wk), _proj(x, wv)
+    rope = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    q = _heads(cfg, x, p["wq"], p.get("bq"), q_norm, rope)
+    k = _heads(cfg, x, wk, bk, k_norm, rope)
+    v = _heads(cfg, x, wv, bv, None, None)
+    return q, k, v
+
+
+def _heads(cfg: ArchConfig, x, w, b, norm, rope) -> torch.Tensor:
+    """One projection of ``x`` to heads: the bias (qkv_bias), the norm
+    (qk_norm) and RoPE by ``rope`` = ``rope_angles``'s (sin, cos) at the
+    rows' positions (None for v)."""
+    t = _proj(x, w)
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + bk
-        v = v + bv
-    if cfg.qk_norm:
-        q = rms_norm(q, q_norm, cfg.norm_eps)
-        k = rms_norm(k, k_norm, cfg.norm_eps)
-    sin, cos = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
+        t = t + b
+    if cfg.qk_norm and norm is not None:
+        t = rms_norm(t, norm, cfg.norm_eps)
+    return t if rope is None else apply_rope(t, *rope)
+
+
+def seq_split(tp):
+    """``tp`` when sequence-parallel attention runs: ``TUNING.
+    attn_seq_axis`` is "model", ``model`` has more than one rank and
+    ``wq``'s heads are whole over it; else None."""
+    if tp is None or tp.n == 1 or TUNING.attn_seq_axis != "model" or \
+            tp.dim("wq") is not None:
+        return None
+    return tp
+
+
+def _seq_causal(p, cfg: ArchConfig, x: torch.Tensor, backend: str, sq,
+                all_kv: bool):
+    """Causal attention for this rank's slice of the query rows (module
+    docstring) -> (out [B, rows, Hq, D], k, v, ``wo`` as the rank reads
+    it): k and v of the keys its rows see, or of all ``T`` rows
+    (``all_kv``, a prefill's cache)."""
+    B, T, _ = x.shape
+    lo, hi = sq.seq_range(T)
+    W = cfg.sliding_window or None
+    k0 = 0 if all_kv or W is None else max(0, lo - W + 1)
+    k1 = T if all_kv else hi
+    # every rank's rows read x and these whole leaves: partial gradients
+    x = sq.copy(x)
+    w = {key: sq.copy(t) for key, t in p.items()}
+    # the keys' rows [k0, k1) hold the query rows [lo, hi)
+    sin, cos = rope_angles(torch.arange(k0, k1, device=x.device).expand(
+        B, k1 - k0), cfg.resolved_head_dim, cfg.rope_theta)
+    q = _heads(cfg, x[:, lo:hi], w["wq"], w.get("bq"), w.get("q_norm"),
+               (sin[:, lo - k0:hi - k0], cos[:, lo - k0:hi - k0]))
+    xk = x[:, k0:k1]
+    k = _heads(cfg, xk, w["wk"], w.get("bk"), w.get("k_norm"), (sin, cos))
+    v = _heads(cfg, xk, w["wv"], w.get("bv"), None, None)
+    if hi > lo:
+        out = ops.flash_attention(q, k[:, :hi - k0], v[:, :hi - k0],
+                                  causal=True, window=W, q_offset=lo - k0,
+                                  backend=backend)
+    else:  # more ranks than rows
+        out = q
+    return out, k, v, w["wo"]
 
 
 def _kv_of_q(cfg: ArchConfig, tp, hq: int, k: torch.Tensor,
@@ -140,9 +215,62 @@ def _causal(p, cfg: ArchConfig, x: torch.Tensor, backend: str, tp=None):
 def attn_train(p, cfg: ArchConfig, x: torch.Tensor,
                backend: str = "auto", tp=None) -> torch.Tensor:
     """Full-sequence causal attention (training / prefill)."""
+    sq = seq_split(tp)
+    if sq is not None:
+        out, _, _, wo = _seq_causal(p, cfg, x, backend, sq, all_kv=False)
+        return sq.gather_rows(_out(out, wo), x.shape[1])
     tp = split_on(tp, "wq")
     out, _, _ = _causal(p, cfg, x, backend, tp)
     return _out(out, p["wo"], tp)
+
+
+def cache_split(cfg: ArchConfig, tp, cache_len: int):
+    """``tp`` (scoped to the layer's ``attn``) when ``TUNING.
+    cache_seq_shard`` splits the layer's KV cache of ``cache_len`` over
+    ``model``, by ``parallel.cache_sharding``'s rule: more than one rank,
+    the batch rows split (``tp.rows_split``: where they are not, the rule
+    puts the slots on ``data`` or keeps them whole), kv heads whole over
+    ``model``, the slots a multiple of its size and at least
+    ``min(cache_len, 1024) // 2`` (the rule's test for a KV cache); else
+    None."""
+    if tp is None or tp.n == 1 or not TUNING.cache_seq_shard or \
+            not tp.rows_split or tp.dim("wk") is not None:
+        return None
+    slots = _slots(cfg, cache_len)
+    if slots % tp.n or slots < min(cache_len, 1024) // 2:
+        return None
+    return tp
+
+
+def _slots(cfg: ArchConfig, cache_len: int) -> int:
+    return (min(cache_len, cfg.sliding_window) if cfg.sliding_window
+            else cache_len)
+
+
+def _write_prefill(cfg: ArchConfig, cache: KVCache, k, v, cs,
+                   S: int) -> None:
+    """The last keys and values of a prefill (``k``/``v``: all its rows)
+    into their slots: key p in slot ``p % window`` with a window,
+    else from slot 0; with ``cs`` (a split cache) only the rank's slots
+    ``[r * S / n, (r + 1) * S / n)`` of the ``S``."""
+    dev, T = k.device, k.shape[1]
+    take = min(T, S)
+    W = cfg.sliding_window
+    if cs is None:
+        src = torch.arange(T - take, T, device=dev)
+        dst = src % W if W else src - (T - take)
+        cache.k[:, dst] = k[:, src]
+        cache.v[:, dst] = v[:, src]
+        return
+    # the key each of the rank's slots holds (none past T); by arithmetic,
+    # since a mask's shape would be unknown on the dry run's fake tensors
+    S_l = cache.k.shape[1]
+    d = torch.arange(cs.r * S_l, (cs.r + 1) * S_l, device=dev)
+    src = T - take + ((d - (T - take)) % W if W else d)
+    held = (src < T)[None, :, None, None]
+    src = src.clamp(max=T - 1)
+    cache.k.copy_(torch.where(held, k[:, src], 0))
+    cache.v.copy_(torch.where(held, v[:, src], 0))
 
 
 def attn_prefill(p, cfg: ArchConfig, x: torch.Tensor, cache_len: int,
@@ -156,31 +284,44 @@ def attn_prefill(p, cfg: ArchConfig, x: torch.Tensor, cache_len: int,
     which is the same ring only when ``T <= window`` or ``T % window ==
     0``: past that its decode evicts the wrong key."""
     B, T, _ = x.shape
-    tp = split_on(tp, "wq")
-    out, k, v = _causal(p, cfg, x, backend, tp)
+    cs = cache_split(cfg, tp, cache_len)
+    sq = seq_split(tp)
+    if sq is not None:
+        out, k, v, wo = _seq_causal(p, cfg, x, backend, sq, all_kv=True)
+        y = sq.gather_rows(_out(out, wo), T)
+    else:
+        tp = split_on(tp, "wq")
+        out, k, v = _causal(p, cfg, x, backend, tp)
+        y = _out(out, p["wo"], tp)
     cache = make_cache(cfg, B, cache_len, k.dtype, device=x.device,
-                       kv_heads=k.shape[2])
-    take = min(T, cache.k.shape[1])
-    src = torch.arange(T - take, T, device=x.device)
-    dst = src % cfg.sliding_window if cfg.sliding_window else src - (T - take)
-    cache.k[:, dst] = k[:, src]
-    cache.v[:, dst] = v[:, src]
-    return _out(out, p["wo"], tp), cache
+                       kv_heads=k.shape[2], parts=1 if cs is None else cs.n)
+    _write_prefill(cfg, cache, k, v, cs, _slots(cfg, cache_len))
+    return y, cache
 
 
 def attn_decode(p, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
-                pos: torch.Tensor, tp=None) -> tuple[torch.Tensor, KVCache]:
+                pos: torch.Tensor, tp=None, cache_len: int = 0
+                ) -> tuple[torch.Tensor, KVCache]:
     """One-token decode. ``pos``: absolute position of the new token [B].
 
     Full attention: cache slot ``pos`` is written, attention masked to
     ``<= pos``.  Sliding window: ring of ``window`` slots (slot =
     pos % window), the slots ``<= min(pos, S - 1)`` attended.
+    ``cache_len``: the cache's length as made (``cache_split`` decides
+    from it whether the cache's slots are split over ``model``).
     """
     B, T, _ = x.shape
     if T != 1:
         raise ValueError(f"decode takes one token, got T={T}")
+    if not cache_len and cache_split(cfg, tp, cache.k.shape[1]):
+        raise ValueError("a decode under cache_seq_shard needs the cache's "
+                         "cache_len")
+    cs = cache_split(cfg, tp, cache_len) if cache_len else None
     tp = split_on(tp, "wq")
     q, k, v = _project_qkv(p, cfg, x, pos[:, None], tp)
+    if cs is not None:
+        return _decode_split(p, cfg, q, k, v, cache, pos, tp, cs,
+                             _slots(cfg, cache_len))
     S = cache.k.shape[1]
     window = cfg.sliding_window
     slot = (pos % window) if window else pos
@@ -204,12 +345,54 @@ def attn_decode(p, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
     return _out(out, p["wo"], tp), cache
 
 
+def _decode_split(p, cfg: ArchConfig, q, k, v, cache: KVCache,
+                  pos: torch.Tensor, tp, cs, S: int
+                  ) -> tuple[torch.Tensor, KVCache]:
+    """Decode over a cache whose ``S`` slots are split over ``model``
+    (``cs``; module docstring): the new key and value on the rank that
+    owns slot ``pos``, then the softmax over every rank's slots merged
+    by flash-decoding, in f32 as the whole softmax runs; ``tp``: the q
+    heads' split, when they split."""
+    B = q.shape[0]
+    S_l = cache.k.shape[1]
+    lo = cs.r * S_l
+    window = cfg.sliding_window
+    slot = ((pos % window) if window else pos).long() - lo
+    mine = (slot >= 0) & (slot < S_l)
+    at = slot.clamp(0, S_l - 1)
+    rows = torch.arange(B, device=q.device)
+    for c, new in ((cache.k, k), (cache.v, v)):
+        c[rows, at] = torch.where(mine[:, None, None], new[:, 0],
+                                  c[rows, at])
+    hq = q.shape[2]
+    if tp is not None:  # every q head reads every rank's slots
+        q = tp.all_gather(q, 2)
+    hkv = cache.k.shape[2]
+    qg = q.reshape(B, 1, hkv, q.shape[2] // hkv, -1)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qg, cache.k) / (
+        q.shape[-1] ** 0.5)
+    last = torch.clamp(pos, max=S - 1) if window else pos
+    valid = (lo + torch.arange(S_l, device=q.device))[None, :] <= \
+        last[:, None]
+    logits = logits.masked_fill(~valid[:, None, None, None, :],
+                                float("-inf")).float()
+    top = cs.max(logits.amax(dim=-1, keepdim=True))  # rank 0 holds slot 0
+    e = torch.exp(logits - top)
+    probs = (e / cs.all_reduce(e.sum(dim=-1, keepdim=True))).to(q.dtype)
+    out = cs.all_reduce(torch.einsum("bhgqs,bshd->bqhgd", probs, cache.v))
+    out = out.reshape(B, 1, q.shape[2], -1)
+    if tp is not None:
+        lo_h = tp.range(hq)[0]
+        out = out[:, :, lo_h:lo_h + hq]
+    return _out(out, p["wo"], tp), cache
+
+
 def make_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
-               device=None, kv_heads: int | None = None) -> KVCache:
-    """A zero cache of ``kv_heads`` heads (default: all of them)."""
-    slots = (min(cache_len, cfg.sliding_window) if cfg.sliding_window
-             else cache_len)
-    shape = (batch, slots, kv_heads or cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+               device=None, kv_heads: int | None = None,
+               parts: int = 1) -> KVCache:
+    """A zero cache of ``kv_heads`` heads (default: all of them); with
+    ``parts`` > 1, one rank's ``1 / parts`` of the slots."""
+    shape = (batch, _slots(cfg, cache_len) // parts,
+             kv_heads or cfg.num_kv_heads, cfg.resolved_head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

@@ -23,7 +23,10 @@ then ``loss_fn`` (the trainer in ``repro_torch.train`` does both).
 every layer computes only its part of what the specs split over
 ``model`` (heads, mlp, experts, Mamba's inner channels, RWKV's heads x
 dim; the vocab of the lookup and of the head, whose logits are then the
-rank's vocab range and whose loss is the vocab-parallel logsumexp).
+rank's vocab range and whose loss is the vocab-parallel logsumexp), the
+experts on ``data`` that ``tp.experts`` names (``models.moe``), and,
+under ``TUNING.attn_seq_axis`` / ``cache_seq_shard``, the attention's
+query rows and a decode cache's slots (``models.attention``).
 """
 from __future__ import annotations
 
@@ -314,18 +317,23 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                dtype=torch.bfloat16, device=None, tp=None) -> list:
     """Decode state: one ``KVCache``, ``MambaState`` or ``RWKVState`` per
     layer.  With ``tp`` a KV cache holds the kv heads the rank computes
-    (its share when they split over ``model``); the SSM states stay
+    (its share when they split over ``model``), and under ``TUNING.
+    cache_seq_shard`` the rank's ``1 / n`` of the slots where the kv
+    heads stay whole (``attention.cache_split``); the SSM states stay
     whole, as ``parallel.cache_sharding`` lays them out."""
     check_supported(cfg)
     dev = resolve_device(device)
 
-    def kv_heads(i: int) -> int:
-        wk = split_on(sub(tp, f"blocks.{i}.attn"), "wk")
-        return cfg.num_kv_heads // (1 if wk is None else wk.n)
+    def kv_cache(i: int):
+        at = sub(tp, f"blocks.{i}.attn")
+        wk = split_on(at, "wk")
+        cs = att.cache_split(cfg, at, cache_len)
+        return att.make_cache(
+            cfg, batch, cache_len, dtype, device=dev,
+            kv_heads=cfg.num_kv_heads // (1 if wk is None else wk.n),
+            parts=1 if cs is None else cs.n)
 
-    make = {"attn": lambda i: att.make_cache(cfg, batch, cache_len, dtype,
-                                             device=dev,
-                                             kv_heads=kv_heads(i)),
+    make = {"attn": kv_cache,
             "mamba": lambda i: mam.make_mamba_state(cfg, batch, dtype,
                                                     device=dev),
             "rwkv": lambda i: rwk.make_rwkv_state(cfg, batch, dtype,
@@ -367,7 +375,7 @@ def _block_apply(p, cfg: ArchConfig, i: int, x: torch.Tensor, mode: str,
                                             backend=backend, tp=at)
         else:
             h, new_state = att.attn_decode(p["attn"], cfg, h, state, pos,
-                                           tp=at)
+                                           tp=at, cache_len=cache_len)
     elif kind == "mamba":
         if mode == "decode":
             h, new_state = mam.mamba_decode(p["mamba"], cfg, h, state,

@@ -28,8 +28,24 @@ parallelism), every rank routes the whole microbatch (the router is
 whole, ``expert_unsharded``), runs only its experts' capacity slots in
 either dispatch, and the combine's partial sums (zeros for the other
 ranks' experts) are all-reduced over ``model``: an expert's weights are
-never gathered over ``model``.  The shared experts are a tensor-parallel
-MLP.
+never gathered over ``model``.  When the experts do not divide ``model``
+and their mlp does, each rank runs its mlp columns of every expert and
+the combine is all-reduced the same way.  The shared experts are a
+tensor-parallel MLP.
+
+With the experts on ``data`` (``tp.experts``, a ``tensor_parallel.
+ExpertSplit``: ``RULES_EP_DATA``, the reference's ``moe_ep_data``
+deployment) and the batch rows split over ``data``, every rank routes its
+rows as part of the whole microbatch (every ``data`` rank's counts
+gathered: the capacity, positions and aux loss of ``routed_over``), sends
+each expert's kept tokens to the rank that holds the expert (an
+all-to-all over ``data``; ``_expert_parallel``), runs its experts over
+every rank's tokens, which fill the slots ``0 ..`` of the reference's
+``disp [Ep, C, d]`` in the whole batch's order, by either dispatch (their
+``model`` part reduced as above), and gets the outputs back by the
+reverse all-to-all; it combines its rows with ``topw``.  Dropped tokens
+never travel and gather zeros; dead padded experts get no token; the
+dump row stays on the rank that runs the dispatch.
 
 ``lax.top_k`` breaks ties toward the lower index; ``torch.topk`` does not
 promise to.  Router probabilities from real inputs do not tie.
@@ -151,8 +167,10 @@ def _dispatch_2d(p, xf, sorted_e, flat_e, order, pos_sorted, counts,
     cap_e = cap if isinstance(cap, int) else cap[e_lo:e_lo + E]
     valid = ar[None, :] < torch.clamp(counts[e_lo:e_lo + E],
                                       max=cap_e)[:, None]
-    src = torch.where(valid, order[torch.clamp(slot_idx, 0, n - 1)], n)
-    tok_of = torch.where(src < n, src // (n // Tt), Tt)
+    k = n // Tt if Tt else 1
+    order_z = torch.cat([order, order.new_zeros(1)])  # n may be 0
+    src = torch.where(valid, order_z[torch.clamp(slot_idx, 0, n)], n)
+    tok_of = torch.where(src < n, src // k, Tt)
     disp = torch.cat([xf, xf.new_zeros((1, d))])[tok_of]  # [E, C, d]
     ye = _experts_apply(p, disp)
     ye = torch.cat([ye, ye.new_zeros((E, 1, d))], dim=1)  # [E, C+1, d]
@@ -164,10 +182,63 @@ def _dispatch_2d(p, xf, sorted_e, flat_e, order, pos_sorted, counts,
     return ye[torch.where(mine, le, 0), torch.where(mine, pos, C)]
 
 
+def _run_received(p, rows, le, C: int) -> torch.Tensor:
+    """Rows that arrived at the rank holding their experts (``le``: the
+    local expert of each; an expert's rows in slot order) through
+    ``p``'s experts by the dispatch ``TUNING`` picks -> [rows, d]."""
+    order = torch.argsort(le, stable=True)
+    sorted_e = le[order]
+    counts = torch.zeros(p["wi_gate"].shape[0], dtype=torch.long,
+                         device=le.device).index_add_(0, le,
+                                                      torch.ones_like(le))
+    starts = torch.cumsum(counts, 0) - counts
+    pos_sorted = torch.arange(le.numel(), device=le.device) - \
+        starts[sorted_e]
+    if TUNING.moe_shard_dispatch:
+        return _dispatch_2d(p, rows, sorted_e, le, order, pos_sorted,
+                            counts, starts, C, C)
+    return _dispatch_scatter(p, rows, sorted_e, order, pos_sorted, C, C)
+
+
+def _expert_parallel(p, xs, xd, flat_e, order, pos_sorted, sorted_e,
+                     per, C: int, k: int) -> torch.Tensor:
+    """Experts on ``data`` (``xs``, a ``tensor_parallel.ExpertSplit``):
+    ``per`` [n, Ep] is every rank's expert counts in ``data`` order.  A
+    source rank s keeps ``min(per[s, e], C - before)`` of expert e's
+    tokens, ``before`` the counts of the ranks ahead of it, so the kept
+    tokens of an expert hold its slots ``0 ..`` in rank order, as the
+    whole batch's sort puts them (the reference's ``disp [Ep, C, d]``).
+    This rank sends each kept token to the rank that holds its expert
+    (all-to-all), runs its experts over every rank's tokens by the
+    dispatch ``TUNING`` picks, and the outputs come back by the reverse
+    all-to-all -> [Tt*k, d], zeros for dropped tokens."""
+    n, r = xs.n, xs.r
+    El = p["wi_gate"].shape[0]
+    d = xd.shape[1]
+    before = torch.cumsum(per, 0) - per
+    kept = torch.clamp(torch.minimum(per, C - before), min=0)  # [n, Ep]
+    lo, hi = xs.range(El)
+    mine = kept[:, lo:hi]  # [n, El]: the tokens of this rank's experts
+    send, recv = xs.sizes(kept.view(n, n, El).sum(2), flat_e.numel())
+    # this rank's kept assignments, in sorted (expert) order: grouped by
+    # the rank that holds the expert
+    keep = pos_sorted < kept[r][sorted_e]
+    idx = order[torch.argsort((~keep).to(torch.int8), stable=True)[
+        :sum(send)]]
+    rows = xs.all_to_all(xd[idx // k], send, recv)
+    # the received rows: expert e's, rank by rank, fill its slots 0 ..
+    le = torch.arange(El, device=xd.device).repeat(n).repeat_interleave(
+        mine.reshape(-1), output_size=sum(recv))
+    out = _run_received(p, rows, le, C)
+    back = xs.all_to_all(out, recv, send)
+    return back.new_zeros((flat_e.numel(), d)).index_put((idx,), back)
+
+
 def moe_apply(p, cfg: MoECfg, x: torch.Tensor, tp=None
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [B, T, d] -> (y [B, T, d], the load-balance aux loss f32).
-    ``tp``: expert parallelism over ``model`` (module docstring)."""
+    ``tp``: expert or tensor parallelism over ``model``, and the experts
+    on ``data`` (module docstring)."""
     B, T, d = x.shape
     xf = x.reshape(-1, d)
     Tt = B * T
@@ -186,27 +257,37 @@ def moe_apply(p, cfg: MoECfg, x: torch.Tensor, tp=None
         0, flat_e, torch.ones_like(flat_e))  # no host sync, unlike bincount
     starts = torch.cumsum(counts, 0) - counts  # exclusive
     pos_sorted = torch.arange(Tt * k, device=dev) - starts[sorted_e]
-    if _ROUTE is None:
+    xs = None if tp is None else tp.experts_on_data("wi_gate")
+    if xs is not None:  # every data rank's counts: they decide the sends
+        per = xs.counts(counts)
+        total, n = per.sum(0), xs.n
+        C = capacity(cfg, Tt * n)
+    elif _ROUTE is None:
         total, n = counts, 1
         C = cap = capacity(cfg, Tt)
     else:  # the slots that the row slices before this one left
         before, total, n = _ROUTE(counts)
         C = capacity(cfg, Tt * n)
         cap = torch.clamp(C - before, min=0)
-    ep = split_on(tp, "wi_gate")
+    # over model: the experts (dim 0) or each expert's mlp (dim 2)
+    mp = split_on(tp, "wi_gate")
     e_lo, xd = 0, xf
-    if ep is not None:  # this rank's experts; their gradients are partial
-        e_lo = ep.range(p["wi_gate"].shape[0])[0]
-        xd, topw = ep.copy(xf), ep.copy(topw)
-    if TUNING.moe_shard_dispatch:
+    if mp is not None:  # the products' gradients are partial sums
+        xd, topw = mp.copy(xf), mp.copy(topw)
+        if mp.dim("wi_gate") == 0:  # this rank's experts
+            e_lo = mp.range(p["wi_gate"].shape[0])[0]
+    if xs is not None:
+        gathered = _expert_parallel(p, xs, xd, flat_e, order, pos_sorted,
+                                    sorted_e, per, C, k)
+    elif TUNING.moe_shard_dispatch:
         gathered = _dispatch_2d(p, xd, sorted_e, flat_e, order, pos_sorted,
                                 counts, starts, C, cap, e_lo)
     else:
         gathered = _dispatch_scatter(p, xd, sorted_e, order, pos_sorted, C,
                                      cap, e_lo)
     y = (gathered.view(Tt, k, d) * topw[..., None]).sum(dim=1)
-    if ep is not None:
-        y = ep.reduce(y)
+    if mp is not None:
+        y = mp.reduce(y)
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, sub(tp, "shared")).reshape(Tt, d)
 

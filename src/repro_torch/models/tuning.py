@@ -26,18 +26,41 @@ Knobs that change numbers, computed as the JAX package computes them:
                        ``ops.mamba_scan`` as the JAX mixer passes it; it
                        only sets the JAX scan's checkpoint boundaries.
 
-Knobs that are only a ``with_sharding_constraint`` in JAX feed the port's
-sharding plan where it has a counterpart: ``cache_seq_shard`` in
-``parallel.sharding.cache_sharding``; ``batch_axes`` and
-``attn_seq_axis`` in ``seq_spec``.  ``residual_spec``,
-``moe_expert_axis`` and ``attn_seq_axis`` pin activations of the JAX
-program to mesh axes; the port's step splits the batch over the rows'
-axes and a layer's heads, mlp, experts or channels over ``model`` by the
-parameters' specs, and keeps the residual stream whole on each rank: it
-runs no sequence-parallel attention and no expert parallelism over
-``data`` (experts are gathered over ``data`` as any FSDP leaf, the same
-numbers with more bytes), so these have no effect on it.  The dry run
-records every knob's value.
+Knobs that place the work of a meshed step (JAX pins activations to
+mesh axes by ``with_sharding_constraint``; the port computes what the pin
+puts on each rank):
+
+  attn_seq_axis        "model": sequence-parallel attention where the
+                       query heads are whole over ``model`` (they do not
+                       divide it; the dry run clears the knob per cell
+                       otherwise, as the reference does).  A rank attends
+                       for its slice of the query rows and the rows are
+                       all-gathered over ``model`` (``models.attention``).
+                       ``seq_spec`` states the JAX pin.
+  cache_seq_shard      a decode KV cache whose kv heads do not divide
+                       ``model`` holds ``S / n`` of its slots a rank,
+                       merged by flash-decoding (``models.attention``;
+                       ``parallel.sharding.cache_sharding`` states the
+                       JAX spec).
+  batch_axes           set per dry-run cell to the rows' split.
+
+Knobs that the port's step never reads (``SHARDING_ONLY``):
+
+  moe_expert_axis      in the reference it only pins the dispatch
+                       buffers to a mesh axis.  Where the experts live
+                       comes from the rules (``RULES_EP_DATA`` puts
+                       ``expert`` on ``data``), and the port's dispatch
+                       follows the expert leaves' specs: experts on
+                       ``data`` get an all-to-all over ``data``
+                       (``models.moe``), experts on ``model`` their
+                       rank's slots.  The knob adds nothing to that.
+  residual_spec        the residual stream's pin inside the JAX layer
+                       scan; set by no preset and no entry point, only by
+                       ``set_tuning``.  The port keeps the residual
+                       stream whole on each rank.
+
+The dry run records every knob's value and names the set
+``SHARDING_ONLY`` knobs in ``tuning_inert``.
 """
 from __future__ import annotations
 
@@ -69,10 +92,9 @@ class Tuning:
 TUNING = Tuning()
 
 # Knobs that are only a ``with_sharding_constraint`` in the JAX package and
-# that the port's step never reads: it splits the batch by
-# ``token_sharding`` and a layer's compute over ``model`` by the specs.
-# (The dry run sets ``batch_axes`` per cell to that same split.)
-SHARDING_ONLY = ("attn_seq_axis", "residual_spec", "moe_expert_axis")
+# that the port's step never reads (module docstring): the experts' place
+# comes from the specs, and the residual stream stays whole.
+SHARDING_ONLY = ("residual_spec", "moe_expert_axis")
 
 
 def inert_knobs() -> list[str]:

@@ -26,6 +26,12 @@ the spec's other axes, the FSDP axes (``fsdp_axes``: ``data`` and
 ``pod``), are all-gathered before a layer's forward and reduce-scattered
 after its backward.  A dimension that ``spec_for`` leaves whole is
 computed whole, as in the reference.
+
+Under ``RULES_EP_DATA`` the experts of an MoE leaf lie on ``data``
+(``expert_data_leaves``): such a leaf's ``data`` part is what the rank
+computes with, so it is never gathered (nor its gradient reduce-scattered);
+the tokens travel to the experts instead (an all-to-all over ``data``,
+``tensor_parallel.ExpertSplit``).
 """
 from __future__ import annotations
 
@@ -150,6 +156,21 @@ def model_dim(spec) -> int | None:
         if a == MODEL_AXIS:
             return d
     return None
+
+
+def expert_data_leaves(specs: Mapping) -> frozenset:
+    """The names of the parameters (``specs``: ``{name: PartitionSpec}``)
+    whose ``expert`` dimension the spec puts on ``data``:
+    ``RULES_EP_DATA``'s MoE leaves, ``("data", None, "model")`` for
+    ``wi_gate``/``wi_up`` and ``("data", "model")`` for ``wo``."""
+    from ..models.model import param_axes
+
+    out = set()
+    for name, spec in specs.items():
+        for d, a in enumerate(param_axes(name)):
+            if a == "expert" and d < len(spec) and spec[d] == "data":
+                out.add(name)
+    return frozenset(out)
 
 
 def fsdp_spec(spec) -> PartitionSpec:

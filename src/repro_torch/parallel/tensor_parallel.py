@@ -29,10 +29,32 @@ Collectives run in the tensor's dtype (bf16 at the default compute type:
 the wire carries bf16, as JAX's psum of bf16 partial products does).  A
 forward given no ``ModelSplit`` (``tp=None``) runs none of this: it is
 the unsharded forward, bit for bit.
+
+Sequence-parallel attention (``TUNING.attn_seq_axis == "model"``, where
+the query heads do not divide ``model``) reads the same split: a rank
+attends for its slice of the query rows (``seq_range``: the even split,
+ceil-sized, the last rank shorter, as GSPMD pads it) and ``gather_rows``
+all-gathers the rows over ``model``; ``cache_seq_shard``'s decode cache
+holds ``S / n`` slots a rank and its softmax is merged across ``model``
+(``max`` and two all-reduces, flash-decoding).  ``models.attention``
+computes both.
+
+An ``ExpertSplit`` is the expert dimension on ``data`` (``logical.
+RULES_EP_DATA``): the MoE leaves whose spec puts ``expert`` on ``data``
+(``logical.expert_data_leaves``), this rank's ``data`` coordinate ``r``
+of ``n`` (its experts are ``[r * E / n, (r + 1) * E / n)``), and an
+all-to-all over the ``data`` group (the ranks with this rank's other
+coordinates, in ``data`` order).  ``all_to_all(x, send, recv)`` is an
+autograd pair whose backward is the reverse all-to-all.  A
+``ModelSplit`` carries it as ``experts`` (``sub`` keeps it), so that
+``models.moe`` finds it beside the ``model`` split; the collectives run
+in the tensor's dtype over gloo, and a sum crosses the ranks in gloo's
+order, not XLA's.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 class ModelSplit:
@@ -41,18 +63,33 @@ class ModelSplit:
     flat tensor)`` runs "all_reduce", "all_reduce_max", "gather" (->
     every rank's tensor, concatenated) or "reduce_scatter" (-> this
     rank's chunk of the sum) over the ``model`` group.  ``sub(key)``
-    scopes the plan's names to a module (``blocks.3``, then ``attn``)."""
+    scopes the plan's names to a module (``blocks.3``, then ``attn``).
+    ``rows_split``: whether the batch rows are split over the mesh's
+    (pod, data) axes (the reference's ``dp``); a decode cache's slots
+    split over ``model`` only then, as ``parallel.cache_sharding`` lays
+    them out."""
 
     def __init__(self, n: int, r: int, plan: dict, collective,
-                 prefix: str = ""):
+                 prefix: str = "", experts: "ExpertSplit | None" = None,
+                 rows_split: bool = True):
         self.n, self.r = n, r
         self.plan = plan
         self.collective = collective
         self.prefix = prefix
+        self.experts = experts
+        self.rows_split = rows_split
 
     def sub(self, key: str) -> "ModelSplit":
         return ModelSplit(self.n, self.r, self.plan, self.collective,
-                          f"{self.prefix}{key}.")
+                          f"{self.prefix}{key}.", self.experts,
+                          self.rows_split)
+
+    def experts_on_data(self, key: str) -> "ExpertSplit | None":
+        """The ``ExpertSplit`` when parameter ``key`` (in this scope) has
+        its experts on ``data``, else None."""
+        xs = self.experts
+        return xs if xs is not None and self.prefix + key in xs.leaves \
+            else None
 
     def dim(self, key: str) -> int | None:
         """The dimension of parameter ``key`` (in this scope) split over
@@ -68,6 +105,26 @@ class ModelSplit:
         """This rank's ``[lo, hi)`` of a dimension held ``local`` a
         rank."""
         return self.r * local, (self.r + 1) * local
+
+    def seq_range(self, T: int) -> tuple[int, int]:
+        """This rank's ``[lo, hi)`` of ``T`` query rows under
+        sequence-parallel attention: slices of ``ceil(T / n)`` rows, the
+        last ones shorter (empty when ``T`` is short)."""
+        size = -(-T // self.n)
+        return min(T, self.r * size), min(T, (self.r + 1) * size)
+
+    def gather_rows(self, x: torch.Tensor, T: int,
+                    dim: int = 1) -> torch.Tensor:
+        """Every rank's ``seq_range(T)`` rows (``x``: this rank's, along
+        ``dim``) -> all ``T`` rows on every rank; backward: this rank's
+        rows of the gradient (every rank goes on computing the same thing
+        from the whole tensor).  A shorter slice is padded to the ceil
+        size for the gather; autograd drops the padding."""
+        dim %= x.dim()
+        short = -(-T // self.n) - x.shape[dim]
+        if short:
+            x = F.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, short])
+        return self.gather(x, dim).narrow(dim, 0, T)
 
     # ---- the autograd pairs
     def copy(self, x: torch.Tensor) -> torch.Tensor:
@@ -98,6 +155,72 @@ class ModelSplit:
         parts = torch.stack(t.chunk(self.n, dim=dim))  # [n, *local]
         mine = self.collective("reduce_scatter", parts.view(-1))
         return mine.view(parts.shape[1:])
+
+
+class ExpertSplit:
+    """The expert dimension on ``data`` as ``models.moe`` reads it:
+    ``leaves``, the names of the parameters whose experts lie on
+    ``data``; ``n`` ranks in the ``data`` group and this rank's
+    coordinate ``r``; ``collective(kind, flat tensor, extra)`` runs
+    "gather" (every rank's tensor, concatenated) or "all_to_all" (extra:
+    the rows sent to and received from each rank) over that group."""
+
+    def __init__(self, n: int, r: int, leaves, collective):
+        self.n, self.r = n, r
+        self.leaves = frozenset(leaves)
+        self.collective = collective
+
+    def range(self, local: int) -> tuple[int, int]:
+        """This rank's ``[lo, hi)`` of the experts, ``local`` a rank."""
+        return self.r * local, (self.r + 1) * local
+
+    @torch.no_grad()
+    def counts(self, c: torch.Tensor) -> torch.Tensor:
+        """This rank's expert counts ``[E]`` -> every rank's ``[n, E]``,
+        in ``data`` order."""
+        every = self.collective("gather", c.contiguous().view(-1), None)
+        return every.view(self.n, *c.shape)
+
+    def sizes(self, kd: torch.Tensor, assignments: int
+              ) -> tuple[list, list]:
+        """``kd [n, n]``, the rows rank s sends rank q -> (this rank's
+        sends, its receives) as ints.  On the dry run's ``FakeTensor``s
+        the counts are unknown: ``assignments`` (this rank's expanded
+        tokens) spread evenly, the balanced load the capacity is sized
+        for."""
+        from torch._subclasses.fake_tensor import is_fake
+
+        if is_fake(kd):
+            even = assignments // self.n
+            return [even] * self.n, [even] * self.n
+        rows = kd.tolist()
+        return rows[self.r], [row[self.r] for row in rows]
+
+    def all_to_all(self, x: torch.Tensor, send: list,
+                   recv: list) -> torch.Tensor:
+        """Rows ``x [sum(send), ...]``, ``send[q]`` of them for rank q in
+        order -> ``[sum(recv), ...]``, ``recv[q]`` from rank q in order.
+        Backward: the reverse all-to-all."""
+        return _AllToAll.apply(self, x, tuple(send), tuple(recv))
+
+    def exchange(self, x: torch.Tensor, send, recv) -> torch.Tensor:
+        """The all-to-all itself, outside autograd."""
+        rest = x.shape[1:]
+        width = rest.numel()
+        out = self.collective("all_to_all", x.contiguous().view(-1), (
+            [s * width for s in send], [r * width for r in recv]))
+        return out.view(sum(recv), *rest)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split: ExpertSplit, x, send, recv):
+        ctx.split, ctx.send, ctx.recv = split, send, recv
+        return split.exchange(x, send, recv)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.split.exchange(g, ctx.recv, ctx.send), None, None
 
 
 class _Copy(torch.autograd.Function):

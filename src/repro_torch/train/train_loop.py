@@ -72,7 +72,20 @@ what it computes:
   * an MoE layer routes a rank's rows as part of the whole microbatch, as
     the reference's SPMD step routes them: each layer all-gathers the
     ranks' expert counts (``models.moe.routed_over``), so the capacity,
-    the drops and the load-balance loss are the whole microbatch's.
+    the drops and the load-balance loss are the whole microbatch's;
+  * under ``RULES_EP_DATA`` an expert leaf's experts lie on ``data``
+    (``("data", None, "model")`` for ``wi_gate``/``wi_up``, ``("data",
+    "model")`` for ``wo``): the leaf stays out of the FSDP buckets, its
+    ``data`` part is what the rank computes with (never gathered) and its
+    gradient is whole on its rank (never reduce-scattered); its ``model``
+    part is split as any.  The tokens travel instead: an all-to-all over
+    the ``data`` group a layer, each way (``parallel.tensor_parallel.
+    ExpertSplit``, counted in ``stats`` under ``ep_``; ``models.moe``).
+    Only a ``(data, model)`` mesh takes it: the rows of a ``pod`` axis
+    would not reach the experts;
+  * under ``TUNING.attn_seq_axis == "model"``, where the query heads do
+    not divide ``model``, a rank attends for its slice of the query rows
+    and all-gathers the rows over ``model`` (``models.attention``).
 
 There is one step loop: ``MeshTrainStep`` shards the state and runs
 ``make_train_step``'s step with itself as the step's hooks (the gathered
@@ -91,6 +104,12 @@ key paths (``{"params": JAX value tree, "opt": AdamWState}``, the moments
 restacked as the parameters), so either package resumes the other's run;
 ``MeshTrainStep.sharded.full_state`` gathers a mesh step's state for
 ``jax_state``.
+
+Where the numbers differ from the reference's SPMD step by design: a
+collective sums its ranks' values in gloo's order, not XLA's (the f32
+CPU tests hold every gradient leaf within 2e-5 relative of JAX's); the
+row-parallel partial sums travel in f32 unless ``tp_reduce_dtype`` asks
+for the bf16 wire.
 """
 from __future__ import annotations
 
@@ -107,7 +126,7 @@ from ..models.model import (
 )
 from ..models.layers import cast
 from ..models.moe import routed_over
-from ..parallel.tensor_parallel import ModelSplit
+from ..parallel.tensor_parallel import ExpertSplit, ModelSplit
 from .optimizer import AdamW, AdamWState, decay_mask, global_norm
 
 def make_train_step(cfg: ArchConfig, opt: AdamW, microbatches: int = 1,
@@ -430,17 +449,31 @@ class ShardedParams:
 
     def __init__(self, cfg: ArchConfig, mesh, specs: dict, split=(),
                  per_layer: bool = True):
-        from ..parallel.logical import fsdp_axes, fsdp_spec, model_parts
+        from ..parallel.logical import (
+            expert_data_leaves, fsdp_axes, fsdp_spec, model_parts,
+        )
 
         meta = dict(abstract_params(cfg).named_parameters())
         if set(specs) != set(meta):
             raise ValueError("the specs must name every parameter")
         self.cfg, self.mesh, self.specs = cfg, mesh, dict(specs)
+        # the MoE leaves with their experts on ``data``: never gathered
+        self.expert_leaves = expert_data_leaves(self.specs)
+        if self.expert_leaves and any(
+                a not in ("data", "model") and mesh.shape[a] > 1
+                for a in mesh.axes):
+            raise ValueError("experts on data take a (data, model) mesh: "
+                             "the batch rows of another axis would not "
+                             "reach them")
         self.layouts = {n: _Layout(t.shape, self.specs[n], mesh)
                         for n, t in meta.items()}
         self.split = tuple(split)
         self.rep = all(mesh.coord(a) == 0 for a in mesh.axes
                        if a not in self.split)
+        self.ndp = math.prod(mesh.shape[a] for a in self.split)
+        self.row_slice = 0  # this rank's slice of the batch rows
+        for a in self.split:
+            self.row_slice = self.row_slice * mesh.shape[a] + mesh.coord(a)
         self.fsdp = mesh.sub(fsdp_axes(mesh))
         self.model = mesh.sub(("model",))
         self.parts = model_parts({n: tuple(t.shape) for n, t in meta.items()},
@@ -462,22 +495,26 @@ class ShardedParams:
         def bucket(names, whole: bool) -> _Bucket:
             if whole:
                 return _Bucket(names, self.layouts, mesh, self.rep, self)
-            return _Bucket(names, self.compute_layouts, self.fsdp, frep,
-                           self)
+            return _Bucket([n for n in names if n not in self.expert_leaves],
+                           self.compute_layouts, self.fsdp, frep, self)
 
         self.top = bucket(top, False)
         self.layer_buckets = ([bucket(ns, False) for ns in layer_names]
                               if per_layer else [bucket(blocks, False)])
         self._whole = [bucket(top, True)] + [bucket(ns, True)
                                              for ns in layer_names]
+        # the all-to-alls' group: the ranks with this rank's other coords
+        self.data = mesh.sub(("data",)) if self.expert_leaves else None
         self.stats: dict = {}
 
     def _collective(self, kind: str, t: torch.Tensor, mesh=None,
-                    label: str = "") -> torch.Tensor:
-        """``kind`` ("gather", "reduce_scatter", "all_reduce" or
-        "all_reduce_max") of the flat ``t`` over ``mesh``'s group (default:
-        the whole mesh), staged through the host for CUDA tensors
-        (gloo); counted in ``stats`` under ``label + kind``."""
+                    label: str = "", splits=None) -> torch.Tensor:
+        """``kind`` ("gather", "reduce_scatter", "all_reduce",
+        "all_reduce_max" or "all_to_all", whose ``splits`` are the
+        elements sent to and received from each rank) of the flat ``t``
+        over ``mesh``'s group (default: the whole mesh), staged through
+        the host for CUDA tensors (gloo); counted in ``stats`` under
+        ``label + kind``."""
         import torch.distributed as dist
 
         mesh = self.mesh if mesh is None else mesh
@@ -495,6 +532,11 @@ class ShardedParams:
             elif kind == "reduce_scatter":
                 out = src.new_empty(src.numel() // mesh.size)
                 dist.reduce_scatter_tensor(out, src, group=mesh.group)
+            elif kind == "all_to_all":
+                send, recv = splits
+                out = src.new_empty(sum(recv))
+                dist.all_to_all_single(out, src, list(recv), list(send),
+                                       group=mesh.group)
             else:
                 out = src.clone()
                 dist.all_reduce(out, op=dist.ReduceOp.MAX
@@ -510,13 +552,51 @@ class ShardedParams:
 
     def model_split(self):
         """The forward's ``parallel.tensor_parallel.ModelSplit`` over this
-        rank's ``model`` group, or None when ``model`` has one rank."""
-        if self.model.size == 1:
+        rank's ``model`` group, carrying the ``ExpertSplit`` over its
+        ``data`` group when experts lie on ``data`` (all-to-alls counted
+        under ``ep_``); None when ``model`` has one rank and no expert
+        lies on ``data``.  ``rows_split``: whether the batch rows are
+        split (``attention.cache_split`` reads it).  Experts on ``data``
+        take rows split over ``data``: every rank routes its own rows as
+        a share of the batch, and rows repeated on the ranks of ``data``
+        would be counted once a rank."""
+        experts = None
+        if self.expert_leaves:
+            if self.data.size > 1 and "data" not in self.split:
+                raise ValueError(
+                    "experts on data take the batch rows split over data; "
+                    f"they are split over {self.split or 'no axis'}")
+            experts = ExpertSplit(
+                self.data.size, self.data.rank, self.expert_leaves,
+                lambda kind, t, splits: self._collective(
+                    kind, t, self.data, "ep_", splits))
+        elif self.model.size == 1:
             return None
         return ModelSplit(
             self.model.size, self.model.rank,
             {n: None if p is None else p.dim for n, p in self.parts.items()},
-            lambda kind, t: self._collective(kind, t, self.model, "tp_"))
+            lambda kind, t: self._collective(kind, t, self.model, "tp_"),
+            experts=experts, rows_split=bool(self.split))
+
+    @property
+    def route(self):
+        """The MoE layers' routing of this rank's rows as part of the
+        whole batch (``models.moe.routed_over``), or None when the batch
+        is not split."""
+        return None if self.ndp == 1 else self._route
+
+    def _route(self, counts: torch.Tensor):
+        mesh = self.mesh
+        every = self._collective("gather", counts, label="route_").view(
+            *mesh.sizes, -1)
+        # the ranks with this rank's coordinates off the split axes hold
+        # every row slice once; order them as the rows are numbered
+        per = every[tuple(slice(None) if a in self.split else mesh.coord(a)
+                          for a in mesh.axes)]
+        axes = [a for a in mesh.axes if a in self.split]
+        per = per.permute(*[axes.index(a) for a in self.split],
+                          len(axes)).reshape(self.ndp, -1)
+        return per[:self.row_slice].sum(0), per.sum(0), self.ndp
 
     @torch.no_grad()
     def shard(self, params):
@@ -585,17 +665,20 @@ class ShardedParams:
                 buckets[0], *(named[n] for n in buckets[0].names))))
 
         def layer(i: int, dtype=None) -> dict:
+            pre = f"blocks.{i}."
             if len(buckets) > 1:
                 b = buckets[i]
                 shards = [named[n] for n in b.names]
                 if dtype is not None:  # cast while still sharded
                     shards = [cast(t, dtype) if t.is_floating_point() else t
                               for t in shards]
-                full = zip(b.names, _GatherFn.apply(b, *shards))
+                full = list(zip(b.names, _GatherFn.apply(b, *shards)))
             else:
-                pre = f"blocks.{i}."
-                full = ((n, t) for n, t in whole.items()
-                        if n.startswith(pre))
+                full = [(n, t) for n, t in whole.items()
+                        if n.startswith(pre)]
+            # experts on data: the rank's own slice is what it computes
+            full += [(n, named[n] if dtype is None else cast(named[n], dtype))
+                     for n in sorted(self.expert_leaves) if n.startswith(pre)]
             out: dict = {}
             for name, t in full:
                 _put(out, tuple(name.split(".")[2:]), t)
@@ -640,10 +723,7 @@ class MeshTrainStep:
         self.tp = self.sharded.model_split()
         self.step, self.mesh, self.donate = step, mesh, donate
         self.split = split
-        self.ndp = math.prod(mesh.shape[a] for a in split)
-        self.row_slice = 0
-        for a in split:
-            self.row_slice = self.row_slice * mesh.shape[a] + mesh.coord(a)
+        self.ndp, self.row_slice = self.sharded.ndp, self.sharded.row_slice
         self._top = None
 
     @property
@@ -691,21 +771,7 @@ class MeshTrainStep:
     def route(self):
         """The MoE layers' routing over the row slices (``models.moe.
         routed_over``), or None when the batch is not split."""
-        return None if self.ndp == 1 else self._route
-
-    def _route(self, counts: torch.Tensor):
-        mesh = self.mesh
-        every = self.sharded._collective("gather", counts,
-                                         label="route_").view(
-            *mesh.sizes, -1)
-        # the ranks with this rank's coordinates off the split axes hold
-        # every row slice once; order them as ``rows`` numbers them
-        per = every[tuple(slice(None) if a in self.split else mesh.coord(a)
-                          for a in mesh.axes)]
-        axes = [a for a in mesh.axes if a in self.split]
-        per = per.permute(*[axes.index(a) for a in self.split],
-                          len(axes)).reshape(self.ndp, -1)
-        return per[:self.row_slice].sum(0), per.sum(0), self.ndp
+        return self.sharded.route
 
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         """A metric's mean over the row slices."""

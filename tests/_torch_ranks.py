@@ -193,27 +193,32 @@ def train_ranks(g_all, e_all, steps: int, ws, xs) -> dict:
 
 def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
                steps: int, arch: str = "qwen2-7b",
-               dts: tuple = ("f32", "bf16")) -> dict:
+               dts: tuple = ("f32", "bf16"), rules: str = "tp_fsdp",
+               tune: str = "", token_key: str = "") -> dict:
     """The mesh train step on this world's ranks as a ``shape`` ``(data,
     model)`` mesh, from the JAX init values and batch in ``inputs_path``
-    (``_mesh_cfg(arch)``), 2 microbatches, at each compute dtype of
-    ``dts`` (the f32 forward by a partial of ``models.model.forward``, as
-    the JAX side does it): each step's loss and grad norm, every gradient
-    leaf gathered to its JAX layout, the rank's resident bytes against
-    the specs' share; after the f32 run rank 0 writes ``jax_state`` of
-    the gathered state to ``ckpt_dir`` at step ``steps``."""
+    (``_mesh_cfg(arch)``; ``token_key`` names another batch there), 2
+    microbatches, at each compute dtype of ``dts`` (the f32 forward by a
+    partial of ``models.model.forward``, as the JAX side does it), under
+    the rule set ``rules`` and the tuning presets ``tune``: each step's
+    loss and grad norm, every gradient leaf gathered to its JAX layout,
+    the rank's resident bytes against the specs' share, the names in its
+    gather buckets; after the f32 run rank 0 writes ``jax_state`` of the
+    gathered state to ``ckpt_dir`` at step ``steps``."""
     import functools
     import math
 
     import numpy as np
     import torch
 
+    import dataclasses
+
     import repro_torch.models.model as mm
+    from repro_torch.launch.dryrun import RULES
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import from_jax_params
-    from repro_torch.parallel import (
-        RULES_TP_FSDP, param_shardings, token_sharding,
-    )
+    from repro_torch.models.tuning import TUNING, Tuning, apply_preset
+    from repro_torch.parallel import param_shardings, token_sharding
     from repro_torch.train import AdamW, make_train_step, jit_train_step
     from repro_torch.train import save
     from repro_torch.train.train_loop import jax_state
@@ -227,8 +232,8 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[k]
-    tokens = torch.from_numpy(data["tokens"])
-    labels = torch.from_numpy(data["labels"])
+    tokens = torch.from_numpy(data[f"tokens{token_key}"])
+    labels = torch.from_numpy(data[f"labels{token_key}"])
     cfg = _mesh_cfg(arch)
     grads_seen: list = []
 
@@ -240,6 +245,8 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
     mesh = make_host_mesh(shape, ("data", "model"), device="cpu")
     forward = mm.forward
     out = {}
+    saved = dataclasses.asdict(TUNING)
+    apply_preset(tune)
     try:
         for dt in dts:
             mm.forward = (functools.partial(forward,
@@ -248,7 +255,7 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
             params = from_jax_params(cfg, values, device="cpu")
             params.requires_grad_(True)
             opt = Capture(lr=1e-3, warmup=0)
-            specs = param_shardings(params, RULES_TP_FSDP, mesh)
+            specs = param_shardings(params, RULES[rules], mesh)
             blocks = {n: s for n, s in specs.items()
                       if n.startswith("blocks.")}
             step = make_train_step(cfg, opt, microbatches=2,
@@ -271,7 +278,13 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
             res = {"runs": runs, "resident": js.sharded.resident_bytes(
                 params, state), "share": 3 * share,
                    "compute_shapes": {n: lay.shape for n, lay in
-                                      js.sharded.compute_layouts.items()}}
+                                      js.sharded.compute_layouts.items()},
+                   "bucket_names": sorted(
+                       n for b in [js.sharded.top, *js.sharded.layer_buckets]
+                       for n in b.names),
+                   "expert_leaves": sorted(js.sharded.expert_leaves),
+                   "local_shapes": {n: lay.local for n, lay in
+                                    js.sharded.layouts.items()}}
             if dt == "f32":
                 fp, fst = js.sharded.full_state(params, state)
                 if mesh.rank == 0:
@@ -280,6 +293,8 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
             out[dt] = res
     finally:
         mm.forward = forward
+        for k, v in saved.items():
+            setattr(TUNING, k, v)
     return out
 
 
@@ -308,3 +323,109 @@ def _mesh_cfg(arch: str = "qwen2-7b"):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=1.0))
     return cfg
+
+
+def ep_data_train(inputs_path: str, ckpt_dir: str, steps: int) -> dict:
+    """The 2 x 2 step of the reduced qwen2-moe-a2.7b under
+    ``RULES_EP_DATA`` and the ``moe_ep_data`` preset at f32 compute."""
+    return mesh_train(inputs_path, ckpt_dir, (2, 2), steps,
+                      "qwen2-moe-a2.7b", ("f32",), rules="ep_data",
+                      tune="moe_ep_data")
+
+
+def seq_parallel(inputs_path: str, ckpt_dir: str, steps: int,
+                 serve: dict) -> dict:
+    """On three ranks as a ``(data 1, model 3)`` mesh: the reduced
+    qwen2-7b's step under ``seq_parallel_attn`` on the batch at T
+    divisible by 3 and on the one at T % 3 != 0 (``_b``), the serving
+    forward of ``serve_split`` under each of ``serve``'s preset lists, and
+    under ``cache_seq_shard`` with 6 q heads, which split over ``model``
+    while the 2 kv heads do not."""
+    train = {key: mesh_train(inputs_path, ckpt_dir + key, (1, 3), steps,
+                             "qwen2-7b", ("f32",), tune="seq_parallel_attn",
+                             token_key=key)["f32"]
+             for key in ("", "_b")}
+    tunes = serve.pop("tunes")
+    return {"train": train,
+            "serve": {tune: serve_split(inputs_path, tune, **serve)
+                      for tune in tunes},
+            "heads": serve_split(inputs_path, "cache_seq_shard", heads=6,
+                                 **serve)}
+
+
+def serve_split(inputs_path: str, tune: str, prompt: int, cache_len: int,
+                decode: int, heads: int = 4) -> dict:
+    """The reduced qwen2-7b's serving forward on this world's ranks as a
+    ``(data 1, model n)`` mesh under the presets ``tune``, at f32
+    compute: a prefill of the first ``prompt`` tokens of the batch in
+    ``inputs_path`` into a ``cache_len``-slot cache, then ``decode``
+    steps fed the batch's next tokens -> every step's logits, each KV
+    cache's shape and its spec by ``parallel.cache_sharding``, and
+    whether ``wq`` splits.  ``heads``: the q heads (the JAX init values
+    ``values/``, or ``values{heads}/`` for another count)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import from_jax_params
+    from repro_torch.models.model import (
+        abstract_cache, forward, init_cache, named_tensors,
+    )
+    from repro_torch.models.tuning import TUNING, apply_preset
+    from repro_torch.parallel import (
+        RULES_TP_FSDP, cache_sharding, param_shardings, token_sharding,
+    )
+    from repro_torch.train.train_loop import ShardedParams
+
+    data = np.load(inputs_path)
+    tag = "values/" if heads == 4 else f"values{heads}/"
+    values: dict = {}
+    for k in data.files:
+        if k.startswith(tag):
+            node = values
+            parts = k.split("/")[1:]
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[k]
+    tokens = torch.from_numpy(data["tokens"])
+    cfg = dataclasses.replace(_mesh_cfg("qwen2-7b"), num_heads=heads)
+    mesh = make_host_mesh((1, dist.get_world_size()), ("data", "model"),
+                          device="cpu")
+    saved = dataclasses.asdict(TUNING)
+    apply_preset(tune)
+    try:
+        params = from_jax_params(cfg, values, device="cpu")
+        specs = param_shardings(params, RULES_TP_FSDP, mesh)
+        B = tokens.shape[0]
+        sp = ShardedParams(cfg, mesh, specs,
+                           (token_sharding(mesh, B)[0],))
+        sp.shard(params)
+        tp = sp.model_split()
+        tree = sp.tree(named_tensors(params))
+        caches = init_cache(cfg, B, cache_len, torch.float32, device="cpu",
+                            tp=tp)
+        shapes = [list(c.k.shape) for c in caches]
+        specs_c = [list(c.k) for c in cache_sharding(
+            cfg, mesh, B, cache_len)(abstract_cache(cfg, B, cache_len))]
+        kw = dict(cache_len=cache_len, backend="ref",
+                  compute_dtype=torch.float32, tp=tp)
+        with torch.no_grad():
+            logits, caches, _ = forward(tree, cfg, tokens[:, :prompt],
+                                        mode="prefill", caches=caches,
+                                        last_only=True, **kw)
+            steps = [logits[:, -1].numpy()]
+            for i in range(decode):
+                pos = torch.full((B,), prompt + i, dtype=torch.int32)
+                logits, caches, _ = forward(
+                    tree, cfg, tokens[:, prompt + i:prompt + i + 1],
+                    mode="decode", caches=caches, pos=pos, **kw)
+                steps.append(logits[:, -1].numpy())
+    finally:
+        for k, v in saved.items():
+            setattr(TUNING, k, v)
+    return {"logits": steps, "cache_shapes": shapes, "cache_specs": specs_c,
+            "stats": dict(sp.stats),
+            "q_split": sp.parts["blocks.0.attn.wq"] is not None}

@@ -13,7 +13,14 @@ counterpart of ``hlo_cost``), ``roofline``, ``quant_roofline``,
     decode_32k`` on a 4 x 4 mesh give records with no error, a compute
     term, a rank's total bytes under the card's 80 GB, and a rank's
     parameter bytes equal to what JAX's ``param_shardings`` shard shapes
-    give; ``report`` renders them.
+    give; ``report`` renders them;
+  * the tuned cells: ``qwen2-7b prefill_32k`` on 16 x 16 under ``opt``
+    (28 heads on a 16-way ``model`` axis: sequence-parallel attention)
+    attends over at most 1/8 of the untuned cell's query-key pairs a rank
+    and its ``decode_32k`` cache holds 1/16 of the slots; ``qwen2-moe-
+    a2.7b decode_32k`` under ``--rules ep_data --tune moe_ep_data``
+    gathers exactly its non-expert leaves' bytes and sends the tokens to
+    the experts by all-to-alls over ``data``.
 
 JAX is imported inside the test that compares with it; the CUDA case
 (``--measure``) runs where JAX is not installed.
@@ -146,6 +153,84 @@ def test_dryrun_decode_cell(arch, mesh, tmp_path):
     assert arch in dryrun.fmt_row(rec)
 
 
+@pytest.fixture
+def tuned():
+    """Apply presets inside a test; every knob is restored after it."""
+    from repro_torch.models import tuning
+
+    saved = dataclasses.asdict(tuning.TUNING)
+    yield tuning.apply_preset
+    for k, v in saved.items():
+        setattr(tuning.TUNING, k, v)
+
+
+def test_dryrun_opt_splits_attention_and_cache(tuned, monkeypatch):
+    """qwen2-7b on 16 x 16 (module docstring): rank 0's query-key pairs
+    under ``opt`` against the untuned prefill's (the plain attention is
+    wrapped to count them), both decode caches' bytes, and neither
+    record names ``attn_seq_axis`` inert."""
+    from repro_torch.kernels import ops
+
+    pairs = []
+    flash = ops.flash_attention
+
+    def counted(q, k, v, *a, **kw):
+        pairs.append(q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2])
+        return flash(q, k, v, *a, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", counted)
+    mesh = make_production_mesh()
+    base = dryrun.build_cell("qwen2-7b", "prefill_32k", mesh)
+    base_pairs = sum(pairs)
+    dec = dryrun.build_cell("qwen2-7b", "decode_32k", mesh)
+    pairs.clear()
+    tuned("opt")
+    rec = dryrun.build_cell("qwen2-7b", "prefill_32k", mesh)
+    opt_dec = dryrun.build_cell("qwen2-7b", "decode_32k", mesh)
+    for r in (base, dec, rec, opt_dec):
+        assert "error" not in r, r
+    assert 0 < sum(pairs) <= base_pairs / 8, (sum(pairs), base_pairs)
+    assert rec["hlo_flops_per_device"] < base["hlo_flops_per_device"]
+    assert rec["tuning"]["attn_seq_axis"] == "model"
+    assert rec["tuning_inert"] == [] and opt_dec["tuning_inert"] == []
+    assert rec["rank_collectives"]["tp_gather_n"] > 0
+    assert opt_dec["memory"]["cache_bytes"] * 16 == \
+        dec["memory"]["cache_bytes"]
+    assert "KVCache.k: ['data', 'model', None, None]" in \
+        opt_dec["cache_specs"]
+
+
+def test_dryrun_ep_data_gathers_no_expert(tuned):
+    """qwen2-moe-a2.7b decode_32k on 16 x 16 under ``--rules ep_data
+    --tune moe_ep_data``: rank 0's gathers carry the top-level leaves in
+    f32 and each layer's non-expert leaves in bf16, once each; the expert
+    leaves (4 of the 64 padded experts a rank) are in no bucket; the
+    all-to-alls ran; ``moe_expert_axis`` is named inert."""
+    from repro_torch.models.model import abstract_params
+    from repro_torch.parallel import RULES_EP_DATA, param_shardings
+    from repro_torch.train.train_loop import ShardedParams
+
+    tuned("moe_ep_data")
+    mesh = make_production_mesh()
+    rec = dryrun.build_cell("qwen2-moe-a2.7b", "decode_32k", mesh,
+                            "ep_data")
+    assert "error" not in rec, rec
+    cfg = dryrun.get_arch("qwen2-moe-a2.7b")
+    specs = param_shardings(abstract_params(cfg), RULES_EP_DATA, mesh)
+    with dryrun._fake_world(mesh) as rmesh:
+        sp = ShardedParams(cfg, rmesh, specs, ("data",))
+    names = {n for b in [sp.top, *sp.layer_buckets] for n in b.names}
+    assert sp.expert_leaves and not sp.expert_leaves & names
+    assert all(sp.layouts[n].local[0] == 4 for n in sp.expert_leaves)
+    lay = sp.compute_layouts
+    want = sum(lay[n].chunk * 4 for n in sp.top.names) + sum(
+        lay[n].chunk * 2 for b in sp.layer_buckets for n in b.names)
+    st = rec["rank_collectives"]
+    assert st["gather_bytes"] == want, (st, want)
+    assert st["ep_all_to_all_n"] > 0 and st["ep_all_to_all_bytes"] > 0
+    assert rec["tuning_inert"] == ["moe_expert_axis"]
+
+
 def test_dryrun_cli_skips_and_writes(tmp_path):
     """``main`` writes a record per cell; a quadratic arch's long_500k is
     skipped with the reference's reason."""
@@ -157,19 +242,25 @@ def test_dryrun_cli_skips_and_writes(tmp_path):
 
 @pytest.mark.parametrize("preset, inert", [
     ("moe_ep_data", ["moe_expert_axis"]),
-    ("seq_parallel_attn,bf16_reduce", ["attn_seq_axis"]),
-    ("opt", ["attn_seq_axis"]),
+    ("seq_parallel_attn,bf16_reduce", []),
+    ("opt", []),
     ("blocked_attn,moe2d,cache_seq_shard", []),
+    ({"residual_spec": (("data", "model"), None, None)}, ["residual_spec"]),
 ])
 def test_tuning_names_the_knobs_the_port_does_not_read(preset, inert):
     """A preset's sharding-only knobs (``tuning.SHARDING_ONLY``) are named
     in the dry-run record's ``tuning_inert``; the knobs that change the
-    port's numbers or plan are not."""
+    port's numbers or plan are not: ``attn_seq_axis`` is read since the
+    port runs sequence-parallel attention.  ``residual_spec`` is set by
+    no preset, only by ``set_tuning`` (the dict case)."""
     from repro_torch.models import tuning
 
     saved = dataclasses.asdict(tuning.TUNING)
     try:
-        tuning.apply_preset(preset)
+        if isinstance(preset, dict):
+            tuning.set_tuning(**preset)
+        else:
+            tuning.apply_preset(preset)
         assert tuning.inert_knobs() == inert
     finally:
         for k, v in saved.items():
