@@ -415,10 +415,21 @@ before the path and reads the counters just after it:
      1e-3 and grad norm within 2e-2 relative, step 2's within 5e-3 and
      2e-2); resident bytes half of phase 7b's within the leaves that
      stay whole over ``model`` (the norms); no parameter gather in
-     either step.  Both legs: both ranks report the same metrics.
-     Prints each step's ms, the gathers', reduce-scatters' and
-     all-reduces' n, ms and bytes (the ``model`` group's all-reduces
-     apart), each rank's peak device bytes;
+     either step.  Leg (c), after it in the same spawn: the (data 1,
+     model 2) leg again under ``residual_spec = RES_SPEC`` (the batch
+     rows of the residual stream split over ``model`` between the
+     layers, 2 rows a rank a microbatch: each product's input gathered
+     and its output reduce-scattered), with leg (b)'s bars and checks;
+     then, on the same ranks with the trained weights at f32 compute,
+     RES_SERVE: a prefill of 2 x 510 seeded tokens (one row a rank
+     between the layers, ``flash_attention`` on the gathered rows, one
+     launch a layer a rank) into a 516-slot cache of the rank's 2 kv
+     heads and one greedy decode step, held to the one-rank forward on
+     the card within LM_REL_TOL of max |logit|; the launches join the
+     ``flash_attention`` row.  All legs: both ranks report the same
+     metrics.  Prints each step's ms, the gathers', reduce-scatters' and
+     all-reduces' n, ms and bytes (the ``model`` group's by kind, with
+     the ring model's wire bytes a rank), each rank's peak device bytes;
   7d. expert parallelism over ``data`` and sequence-parallel attention
      (cut in depth as phase 7b cuts it, full width; each leg prints an
      ``ok`` line with the card's name and power limit).  Leg (a) runs in
@@ -454,7 +465,7 @@ before the path and reads the counters just after it:
      CUDA ``flash_attention`` at ``q_offset`` > 0 (one launch a layer a
      rank), then 4 greedy decode steps on the split cache (flash-decoding
      across ``model``), held to the one-rank forward on the card (rank 0,
-     the vocab-split leaves sent to it) fed the same tokens: every step's
+     the split leaves sent to it) fed the same tokens: every step's
      logits within LM_REL_TOL of max |logit|, tokens equal or a near tie
      at that tolerance, each rank's cache ``[2, 172, 4, 128]`` a layer;
      the kernel's launches join the ``flash_attention`` row;
@@ -549,6 +560,9 @@ EP_TUNE = "moe_ep_data"
 SEQ_RANKS = 3  # phase 7d (b): a (data 1, model 3) mesh on the one card
 SEQ_TUNE = "seq_parallel_attn,cache_seq_shard"
 SEQ_SERVE = (2, 510, 516, 4)  # batch, prompt tokens, cache slots, decodes
+# phase 7c leg (c): the residual stream's batch rows split over model
+RES_SPEC = (("data", "model"), None, None)
+RES_SERVE = (2, 510, 516, 1)  # batch, prompt tokens, cache slots, decodes
 LM_MODELS = {  # run -> arch, kernel launches per prefill or embed, the
     # tensors given seeded noise (JAX's zero inits, and the rwkv bonus u),
     # the weights' and compute type, and the depth cut (layers, or None)
@@ -3238,9 +3252,11 @@ def _mesh_rank(rank: int, world: int, store: str, legs: tuple,
 
 
 def _leg_setup(kind: str):
-    """A leg's model, rules, presets and optimizer: "tp" phase 7b's
-    (phase 7c), "ep" phase 7d (a)'s MoE under ``RULES_EP_DATA``, "seq"
-    phase 7b's model under SEQ_TUNE (phase 7d (b))."""
+    """A leg's model, rules, presets (or a dict of knobs) and optimizer:
+    "tp" phase 7b's (phase 7c), "res" the same under ``residual_spec =
+    RES_SPEC`` (phase 7c leg (c)), "ep" phase 7d (a)'s MoE under
+    ``RULES_EP_DATA``, "seq" phase 7b's model under SEQ_TUNE (phase 7d
+    (b))."""
     from repro_torch.parallel import RULES_EP_DATA, RULES_TP_FSDP
     from repro_torch.train import AdamW
 
@@ -3248,7 +3264,8 @@ def _leg_setup(kind: str):
         return (_ep_cfg(), RULES_EP_DATA, EP_TUNE,
                 AdamW(lr=3e-4, warmup=2, total_steps=100,
                       state_dtype="bfloat16"))
-    return (_train_cfg(), RULES_TP_FSDP, SEQ_TUNE if kind == "seq" else "",
+    tune = {"seq": SEQ_TUNE, "res": {"residual_spec": RES_SPEC}}.get(kind, "")
+    return (_train_cfg(), RULES_TP_FSDP, tune,
             AdamW(lr=3e-4, warmup=2, total_steps=100))  # phase 7b's
 
 
@@ -3269,11 +3286,11 @@ def _mesh_leg(shape: tuple, kind: str = "tp") -> dict:
     for "seq" the serving leg, ``_seq_serve``)."""
     import dataclasses
 
-    from repro_torch.models.tuning import TUNING, apply_preset
+    from repro_torch.models.tuning import TUNING, apply_preset, set_tuning
 
     cfg, rules, tune, opt = _leg_setup(kind)
     saved = dataclasses.asdict(TUNING)
-    apply_preset(tune)
+    set_tuning(**tune) if isinstance(tune, dict) else apply_preset(tune)
     try:
         return _run_leg(cfg, rules, opt, shape, kind)
     finally:
@@ -3352,8 +3369,9 @@ def _run_leg(cfg, rules, opt, shape: tuple, kind: str) -> dict:
            "expert_leaves": len(sp.expert_leaves),
            "experts_in_buckets": len(sp.expert_leaves & {
                n for b in [sp.top, *sp.layer_buckets] for n in b.names})}
-    if kind == "seq":
-        out["serve"] = _seq_serve(cfg, js, params)
+    if kind in ("seq", "res"):
+        out["serve"] = _seq_serve(cfg, js, params,
+                                  SEQ_SERVE if kind == "seq" else RES_SERVE)
     del params, state, js, step, sp
     gc.collect()
     torch.cuda.empty_cache()
@@ -3366,8 +3384,8 @@ def _check_leg(train: dict, shape: tuple, ranks: list, wall: float,
     ``shape`` mesh) held to the one-rank steps ``train`` (phase 7b's, or
     phase 7d (a)'s for "ep"; see the module docstring)."""
     tp = shape[1] > 1
-    name = {"tp": "mesh train", "ep": "ep data",
-            "seq": "seq parallel"}[kind] + \
+    name = {"tp": "mesh train", "ep": "ep data", "seq": "seq parallel",
+            "res": "residual split"}[kind] + \
         f" (data {shape[0]}, model {shape[1]})"
     ref = train["full_width"]["steps"][0]
     r0 = ranks[0]
@@ -3437,6 +3455,16 @@ def _check_leg(train: dict, shape: tuple, ranks: list, wall: float,
               f"{s.get('ep_all_to_all_ms', 0):.1f} ms "
               f"({s.get('ep_all_to_all_bytes', 0) / 1e9:.4f} GB); loss "
               f"{s['loss']:.6f}, grad norm {s['grad_norm']:.6f}")
+    if tp:  # the model group's collectives a rank, by kind
+        for i, s in enumerate(r0["steps"]):
+            kinds = "; ".join(
+                f"{k} {s.get(f'tp_{k}_n', 0)} in "
+                f"{s.get(f'tp_{k}_ms', 0):.1f} ms "
+                f"({s.get(f'tp_{k}_bytes', 0) / 1e9:.4f} GB given, "
+                f"{s.get(f'tp_{k}_wire', 0) / 1e9:.4f} GB on the wire)"
+                for k in ("all_reduce", "reduce_scatter", "gather",
+                          "all_reduce_max"))
+            print(f"{name} step {i + 1} model collectives a rank: {kinds}")
     if kind == "ep":
         print(f"{name}: gathered bytes a step "
               f"{[[s.get('gather_bytes', 0) for s in r['steps']] for r in ranks]}"
@@ -3523,36 +3551,62 @@ def phase_mesh_train(train: dict) -> dict:
     ep_ref = _ep_one_rank()
     ep_ref_s = time.perf_counter() - t0
     legs = (("tp", (MESH_RANKS, 1)), ("tp", (1, MESH_RANKS)),
-            ("ep", (MESH_RANKS, 1)))
+            ("res", (1, MESH_RANKS)), ("ep", (MESH_RANKS, 1)))
     t0 = time.perf_counter()
     ranks = _spawn_ranks(_mesh_rank, MESH_RANKS, "mesh-train", (legs,))
     wall = time.perf_counter() - t0
     out = {}
     for i, (kind, (d, m)) in enumerate(legs):
+        leg = [r[i] for r in ranks]
         out[f"{kind}_data{d}_model{m}"] = _check_leg(
-            ep_ref if kind == "ep" else train, (d, m),
-            [r[i] for r in ranks], wall, kind)
+            ep_ref if kind == "ep" else train, (d, m), leg, wall, kind)
+        if kind == "res":
+            out["res_serve"] = _res_serve(leg)
     out["wall_s"] = wall
     out["ep_one_rank"] = ep_ref
     out["ep_one_rank_s"] = ep_ref_s
     return out
 
 
-def _seq_serve(cfg, js, params) -> dict:
-    """Phase 7d (b)'s serving leg on this rank: the trained weights at
-    f32 compute, a prefill of SEQ_SERVE's batch x prompt (seeded tokens,
-    the same on every rank) into a cache of its slots, split over
-    ``model`` (``cache_seq_shard``), with sequence-parallel attention
-    through the kernel, then its decode steps, greedy on the logits
-    gathered over ``model``.  Rank 0 then runs the one-rank forward on
-    the card (the top-level leaves gathered whole) fed the same tokens:
-    each step's max |logit| gap and scale, the tokens and its top-2
-    margins."""
+def _res_serve(ranks: list) -> dict:
+    """Phase 7c leg (c)'s serving check (``_check_serve``): RES_SERVE's
+    prefill and decode under ``residual_spec``, the batch rows split over
+    ``model`` between the layers and gathered for the attention, against
+    the one-rank forward within LM_REL_TOL; the kv heads split over
+    ``model``."""
+    B, T, S, steps = RES_SERVE
+    name = f"residual split (data 1, model {MESH_RANKS}) serve"
+    s0, launches = _check_serve(name, ranks, RES_SERVE, LM_REL_TOL,
+                                [B, S, 4 // MESH_RANKS, 128])
+    print(f"ok {name} on {CARD[0]}: prefill B {B} x T {T} ({B // MESH_RANKS}"
+          f" row a rank between the layers, flash_attention on the "
+          f"gathered rows) into {S} slots, {steps} decode step(s) in "
+          f"{s0['serve_ms']:.1f} ms; max |logit| gaps "
+          f"{[f'{g:.3e}' for g in s0['gaps']]} against the one-rank "
+          f"forward (limits "
+          f"{[f'{LM_REL_TOL * c:.3e}' for c in s0['scales']]}), tokens "
+          f"{s0['tokens']}; flash_attention launched "
+          f"{[r['serve']['launches'] for r in ranks]} + "
+          f"{s0['ref_launches']}")
+    return {"flash_launches": launches, "gaps": s0["gaps"],
+            "scales": s0["scales"], "serve_ms": s0["serve_ms"]}
+
+
+def _seq_serve(cfg, js, params, shape: tuple = SEQ_SERVE) -> dict:
+    """The serving leg of phase 7d (b) (and of phase 7c leg (c)) on this
+    rank, under the presets already applied: the trained weights at f32
+    compute, a prefill of ``shape``'s batch x prompt (seeded tokens, the
+    same on every rank) into a cache of its slots (split over ``model``
+    under ``cache_seq_shard``), its attention through the kernel, then
+    its decode steps, greedy on the logits gathered over ``model``.  Rank
+    0 then runs the one-rank forward on the card (every leaf gathered
+    whole) fed the same tokens: each step's max |logit| gap and scale,
+    the tokens and its top-2 margins."""
     from repro_torch.models.model import (
         forward, init_cache, named_tensors, tree_from_named,
     )
 
-    B, T, S, steps = SEQ_SERVE
+    B, T, S, steps = shape
     sp = js.sharded
     tp = sp.model_split()
     named = {n: t.detach() for n, t in named_tensors(params).items()}
@@ -3596,8 +3650,7 @@ def _seq_serve(cfg, js, params) -> dict:
         res = {"launches": launches, "cache_shapes": shapes,
                "serve_ms": serve_ms, "tokens": [t.tolist() for t in toks]}
         if sp.mesh.rank == 0:
-            whole = tree_from_named({**top, **{
-                n: t for n, t in named.items() if n not in top}})
+            whole = tree_from_named(top)
             fed[:] = toks
             ref, _, ref_launches, _ = run(whole, None)
             gaps, scales, margins, same = [], [], [], []
@@ -3615,13 +3668,13 @@ def _seq_serve(cfg, js, params) -> dict:
 
 
 def _gather_to_rank0(sp, named: dict) -> dict:
-    """The top-level leaves whole on rank 0 of a ``(data 1, model n)``
-    mesh (``{}`` elsewhere): the ``model`` parts sent to rank 0 alone
+    """Every leaf whole on rank 0 of a ``(data 1, model n)`` mesh (``{}``
+    elsewhere): the ``model`` parts sent to rank 0 alone
     (``torch.distributed.gather`` through the host), concatenated."""
     import torch.distributed as dist
 
     out = {}
-    for n in sp.top.names:
+    for n in named:
         part, t = sp.parts[n], named[n]
         if part is None:
             out[n] = t
@@ -3640,6 +3693,37 @@ def _seq_rank(rank: int, world: int, store: str, results) -> None:
     _mesh_rank(rank, world, store, (("seq", (1, SEQ_RANKS)),), results)
 
 
+def _check_serve(name: str, ranks: list, shape: tuple, rel_tol: float,
+                 cache: list) -> tuple:
+    """A serving leg's checks (``_seq_serve``'s results of every rank on
+    ``shape``): the ranks decoded the same tokens, each rank's KV cache
+    a layer is ``cache`` and each rank and the one-rank prefill launched
+    ``flash_attention`` once a layer, and every step's logits lie within
+    ``rel_tol`` x max |logit| of the one-rank forward's (tokens equal or
+    a near tie at that tolerance) -> (rank 0's result, the launches)."""
+    serves = [r["serve"] for r in ranks]
+    s0 = serves[0]
+    if any(s["tokens"] != s0["tokens"] for s in serves):
+        fail(f"{name}: the ranks decoded different tokens")
+    for r, s in zip(ranks, serves):
+        want = [cache] * TRAIN_LAYERS
+        if s["cache_shapes"] != want or s["launches"] != TRAIN_LAYERS:
+            fail(f"{name}: rank {r['coord']} cache {s['cache_shapes']}"
+                 f" (want {want}), flash_attention launched "
+                 f"{s['launches']} times in its prefill")
+    if s0["ref_launches"] != TRAIN_LAYERS:
+        fail(f"{name}: the one-rank prefill launched "
+             f"{s0['ref_launches']} flash_attention")
+    for i, (gap, scale, margin, same) in enumerate(zip(
+            s0["gaps"], s0["scales"], s0["margins"], s0["same"])):
+        tol = rel_tol * scale
+        if gap > tol or not all(ok or m < tol
+                                for ok, m in zip(same, margin)):
+            fail(f"{name}: step {i} logits {gap:.3e} apart (limit "
+                 f"{tol:.3e}), tokens equal {same}, margins {margin}")
+    return s0, sum(s["launches"] for s in serves) + s0["ref_launches"]
+
+
 def phase_seq_parallel(train: dict) -> dict:
     """Phase 7d (b) (see the module docstring): one spawn of SEQ_RANKS
     ranks, phase 7b's model under SEQ_TUNE, 2 steps held to phase 7b's,
@@ -3649,27 +3733,8 @@ def phase_seq_parallel(train: dict) -> dict:
     wall = time.perf_counter() - t0
     out = _check_leg(train, (1, SEQ_RANKS), ranks, wall, "seq")
     B, T, S, steps = SEQ_SERVE
-    serves = [r["serve"] for r in ranks]
-    s0 = serves[0]
-    if any(s["tokens"] != s0["tokens"] for s in serves):
-        fail("seq parallel: the ranks decoded different tokens")
-    for r, s in zip(ranks, serves):
-        want = [[B, S // SEQ_RANKS, 4, 128]] * TRAIN_LAYERS
-        if s["cache_shapes"] != want or s["launches"] != TRAIN_LAYERS:
-            fail(f"seq parallel: rank {r['coord']} cache {s['cache_shapes']}"
-                 f" (want {want}), flash_attention launched "
-                 f"{s['launches']} times in its prefill")
-    if s0["ref_launches"] != TRAIN_LAYERS:
-        fail(f"seq parallel: the one-rank prefill launched "
-             f"{s0['ref_launches']} flash_attention")
-    for i, (gap, scale, margin, same) in enumerate(zip(
-            s0["gaps"], s0["scales"], s0["margins"], s0["same"])):
-        tol = LM_REL_TOL * scale
-        if gap > tol or not all(ok or m < tol
-                                for ok, m in zip(same, margin)):
-            fail(f"seq parallel: step {i} logits {gap:.3e} apart (limit "
-                 f"{tol:.3e}), tokens equal {same}, margins {margin}")
-    launches = sum(s["launches"] for s in serves) + s0["ref_launches"]
+    s0, launches = _check_serve("seq parallel", ranks, SEQ_SERVE,
+                                LM_REL_TOL, [B, S // SEQ_RANKS, 4, 128])
     print(f"ok seq parallel serve on {CARD[0]}: {SEQ_RANKS} ranks, prefill "
           f"B {B} x T {T} (rows {T // SEQ_RANKS} a rank, the kernel at "
           f"q_offset > 0) into {S} slots ({S // SEQ_RANKS} a rank), {steps} "
@@ -3677,7 +3742,8 @@ def phase_seq_parallel(train: dict) -> dict:
           f"{[f'{g:.3e}' for g in s0['gaps']]} against the one-rank "
           f"forward (limits {[f'{LM_REL_TOL * c:.3e}' for c in s0['scales']]}"
           f"), tokens {s0['tokens']}; flash_attention launched "
-          f"{[s['launches'] for s in serves]} + {s0['ref_launches']}; the "
+          f"{[r['serve']['launches'] for r in ranks]} + "
+          f"{s0['ref_launches']}; the "
           f"phase {wall:.1f} s with the spawn")
     out["flash_launches"] = launches
     out["wall_s"] = wall
@@ -4216,7 +4282,8 @@ def main() -> int:
     # each LM kernel's launches over every model that runs it
     lm_launches = {k: sum(r["launches"].get(k, 0) for r in lm.values())
                    for k in ("flash_attention", "wkv6", "mamba_scan")}
-    lm_launches["flash_attention"] += seq["flash_launches"]
+    lm_launches["flash_attention"] += seq["flash_launches"] + \
+        mesh_train["res_serve"]["flash_launches"]
     report = {"kernels": [
         {"name": "gather_norm_dot", "route": "cuda",
          "source": "src/repro_torch/csrc/gather_norm_dot.cu",
@@ -4295,7 +4362,8 @@ def main() -> int:
              "rag": lm[RAG_ARCH_RUN]["rag"]["launches"]["flash_attention"],
              "rag_durable": lm[RAG_ARCH_RUN]["rag"]["durable"]["launches"][
                  "flash_attention"],
-             "seq_parallel": seq["flash_launches"]},
+             "seq_parallel": seq["flash_launches"],
+             "residual_split": mesh_train["res_serve"]["flash_launches"]},
          "traced": lm["qwen2-7b"]["trace"]["shares"],
          "traced_bf16": {r: lm[r]["trace"]["shares"]
                          for r in ("qwen2-7b-bf16", JAMBA)},

@@ -26,7 +26,12 @@ routes each rank's rows as part of the whole batch (``models.moe.
 routed_over``), as the train step does.  Under ``--tune
 seq_parallel_attn`` (or ``opt``) a cell whose query heads do not divide
 ``model`` attends for rank 0's slice of the query rows and all-gathers
-the rows (``models.attention``).  A decode or prefill cache follows
+the rows (``models.attention``).  Under ``residual_spec`` (set by
+``set_tuning``; ``model`` on the batch or the sequence) the residual
+stream is split over ``model`` inside the layer stack, so the record
+counts the gathers and reduce-scatters that replace the ``model``
+all-reduces and the smaller unit inputs that remat keeps.  A decode or
+prefill cache follows
 ``cache_specs``, the plan's spec of each state: a KV cache holds the
 rank's kv heads when they divide ``model``, else under
 ``cache_seq_shard`` its ``1 / n`` of the slots; the SSM states stay
@@ -45,11 +50,12 @@ allocated, gradients included), ``output_bytes`` (what it allocated and
 returned), ``alias_bytes`` 0 (the step updates in place) and
 ``total_bytes = argument_bytes + temp_bytes``.  ``rank_collectives``
 holds rank 0's collectives by kind as ``ShardedParams.stats`` counts
-them (calls and bytes sent; ``tp_`` the ``model`` group's, ``ep_`` the
-experts' all-to-alls and counts over ``data``, ``route_`` the MoE
-counts).  ``tuning`` states every knob; ``tuning_inert`` names those set
-that have no effect on the port's step (``models.tuning.
-SHARDING_ONLY``).  A cell that fails is written as ``error``.
+them (calls, bytes given and the ring model's wire bytes; ``tp_`` the
+``model`` group's, ``ep_`` the experts' all-to-alls and counts over
+``data``, ``route_`` the MoE counts).  ``tuning`` states every knob;
+``tuning_inert`` names those set that have no effect on the port's step
+(``models.tuning.inert_knobs``).  A cell that fails is written as
+``error``.
 """
 from __future__ import annotations
 

@@ -22,7 +22,13 @@ heads; when they do not divide ``model`` (``spec_for`` leaves them whole)
 a rank computes every kv head and its q heads read the ones that GQA
 maps them to.  A cache holds the kv heads the rank computes, as
 ``parallel.cache_sharding`` lays it out (heads over ``model`` only when
-they divide).
+they divide).  Under the residual row split (``tp.rows``,
+``TUNING.residual_spec``) ``x`` is the rank's rows: they are gathered
+before the projections (``tp.enter``) and ``wo``'s partial sums are
+reduce-scattered to the rank's rows (``tp.leave``), so the cache is
+written from every row as without the split.  With the query heads whole
+over ``model`` (sequence-parallel attention too) the layer runs whole on
+every rank on the gathered rows (``models.model._block_apply``).
 
 Sequence-parallel attention (``TUNING.attn_seq_axis == "model"``, the
 ``seq_parallel_attn`` preset) takes over when the query heads are whole
@@ -107,14 +113,14 @@ def _out(o: torch.Tensor, wo: torch.Tensor, tp=None) -> torch.Tensor:
 def _project_qkv(p, cfg: ArchConfig, x: torch.Tensor,
                  positions: torch.Tensor, tp=None):
     """-> q (this rank's heads with ``tp``), k and v (the kv heads the
-    rank computes: its share, or all of them when they do not split)."""
+    rank computes: its share, or all of them when they do not split).
+    ``x`` has entered the split (``tp.enter``)."""
     wk, wv = p["wk"], p["wv"]
     q_norm, k_norm = p.get("q_norm"), p.get("k_norm")
     bk, bv = p.get("bk"), p.get("bv")
     if tp is not None:
-        # every rank's products read x and these whole leaves: their
-        # gradients are partial sums
-        x = tp.copy(x)
+        # every rank's products read these whole leaves: their gradients
+        # are partial sums
         if tp.dim("wk") is None:
             wk, wv = tp.copy(wk), tp.copy(wv)
             if cfg.qkv_bias:
@@ -202,6 +208,8 @@ def _kv_of_q(cfg: ArchConfig, tp, hq: int, k: torch.Tensor,
 
 
 def _causal(p, cfg: ArchConfig, x: torch.Tensor, backend: str, tp=None):
+    if tp is not None:  # every rank's products read x
+        x = tp.enter(x)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     q, k, v = _project_qkv(p, cfg, x, positions, tp)
@@ -283,18 +291,18 @@ def attn_prefill(p, cfg: ArchConfig, x: torch.Tensor, cache_len: int,
     writing.  The JAX version puts the window's keys from slot 0 too,
     which is the same ring only when ``T <= window`` or ``T % window ==
     0``: past that its decode evicts the wrong key."""
-    B, T, _ = x.shape
     cs = cache_split(cfg, tp, cache_len)
     sq = seq_split(tp)
     if sq is not None:
         out, k, v, wo = _seq_causal(p, cfg, x, backend, sq, all_kv=True)
-        y = sq.gather_rows(_out(out, wo), T)
+        y = sq.gather_rows(_out(out, wo), x.shape[1])
     else:
         tp = split_on(tp, "wq")
         out, k, v = _causal(p, cfg, x, backend, tp)
         y = _out(out, p["wo"], tp)
-    cache = make_cache(cfg, B, cache_len, k.dtype, device=x.device,
-                       kv_heads=k.shape[2], parts=1 if cs is None else cs.n)
+    cache = make_cache(cfg, k.shape[0], cache_len, k.dtype,
+                       device=x.device, kv_heads=k.shape[2],
+                       parts=1 if cs is None else cs.n)
     _write_prefill(cfg, cache, k, v, cs, _slots(cfg, cache_len))
     return y, cache
 
@@ -310,14 +318,16 @@ def attn_decode(p, cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
     ``cache_len``: the cache's length as made (``cache_split`` decides
     from it whether the cache's slots are split over ``model``).
     """
-    B, T, _ = x.shape
-    if T != 1:
-        raise ValueError(f"decode takes one token, got T={T}")
     if not cache_len and cache_split(cfg, tp, cache.k.shape[1]):
         raise ValueError("a decode under cache_seq_shard needs the cache's "
                          "cache_len")
     cs = cache_split(cfg, tp, cache_len) if cache_len else None
     tp = split_on(tp, "wq")
+    if tp is not None:
+        x = tp.enter(x)
+    B, T, _ = x.shape
+    if T != 1:
+        raise ValueError(f"decode takes one token, got T={T}")
     q, k, v = _project_qkv(p, cfg, x, pos[:, None], tp)
     if cs is not None:
         return _decode_split(p, cfg, q, k, v, cache, pos, tp, cs,

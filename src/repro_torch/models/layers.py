@@ -95,14 +95,16 @@ def sub(tp, key: str):
     return None if tp is None else tp.sub(key)
 
 
-def reduce_product(x: torch.Tensor, w: torch.Tensor, tp) -> torch.Tensor:
+def reduce_product(x: torch.Tensor, w: torch.Tensor,
+                   reduce) -> torch.Tensor:
     """``x @ w`` whose contraction runs over this rank's part, summed over
-    ``model``: the partial products leave the product in f32 (its
-    accumulator), are all-reduced in f32 and rounded once to ``x``'s
-    dtype, so a split product rounds as the whole one does.  (The
-    reference's compiled step on the host all-reduces in f32 too: XLA
-    promotes a bf16 all-reduce, after rounding each partial to bf16.)"""
-    return tp.reduce(x.float() @ w.float()).to(x.dtype)
+    ``model`` by ``reduce`` (a ``ModelSplit``'s ``reduce`` or ``leave``):
+    the partial products leave the product in f32 (its accumulator), are
+    summed in f32 and rounded once to ``x``'s dtype, so a split product
+    rounds as the whole one does.  (The reference's compiled step on the
+    host all-reduces in f32 too: XLA promotes a bf16 all-reduce, after
+    rounding each partial to bf16.)"""
+    return reduce(x.float() @ w.float()).to(x.dtype)
 
 
 def rp_matmul(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
@@ -111,30 +113,46 @@ def rp_matmul(x: torch.Tensor, w: torch.Tensor, tp=None) -> torch.Tensor:
     once, then cast back to ``x``'s (JAX's ``preferred_element_type``
     rounds its f32 accumulation once); a no-op for bf16 inputs.  With
     ``tp`` (a ``ModelSplit``) the contraction runs over this rank's part
-    and the partial products are all-reduced over ``model``: in that
-    dtype when it is set (the wire dtype of JAX's psum), else by
-    ``reduce_product``."""
+    and the partial products are summed over ``model`` (``tp.leave``: an
+    all-reduce, or under the residual row split a reduce-scatter to the
+    rank's rows): in that dtype when it is set (the wire dtype of JAX's
+    psum), else in f32 and rounded once, as ``reduce_product``."""
     reduce_dtype = TUNING.tp_reduce_dtype
     if tp is not None and reduce_dtype is None:
-        return reduce_product(x, w, tp)
+        return reduce_product(x, w, tp.leave)
     out = x @ w
     if reduce_dtype is not None:
         out = out.to(getattr(torch, reduce_dtype))
         if tp is not None:
-            out = tp.reduce(out)
+            out = tp.leave(out)
         out = out.to(x.dtype)
     return out
+
+
+def whole_rows(tp, fn, x: torch.Tensor) -> tuple:
+    """``fn(x, tp)`` -> ``(out, *rest)`` for a module that runs whole on
+    every rank, given this rank's rows ``x`` under the residual row split
+    (``tp.rows``): the rows gathered, the module run with the split
+    without rows, this rank's rows of ``out`` taken.  Without the row
+    split, ``fn(x, tp)``."""
+    if tp is None or tp.rows is None:
+        return fn(x, tp)
+    out, *rest = fn(tp.rows_gather(x), tp.whole())
+    return (tp.take_rows(out), *rest)
 
 
 def mlp_apply(p, x: torch.Tensor, tp=None) -> torch.Tensor:
     """SwiGLU; with ``tp`` (scoped to this MLP) and ``mlp`` split over
     ``model``, column-parallel ``wi_gate``/``wi_up`` into row-parallel
-    ``wo``."""
-    tp = split_on(tp, "wo")
-    if tp is not None:
-        x = tp.copy(x)
+    ``wo`` (under the residual row split: ``x`` is the rank's rows,
+    gathered in, and the output its rows, reduce-scattered out)."""
+    sp = split_on(tp, "wo")
+    if sp is None and tp is not None and tp.rows is not None:
+        return whole_rows(tp, lambda h, t: (mlp_apply(p, h),), x)[0]
+    if sp is not None:
+        x = sp.enter(x)
     return rp_matmul(F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"]), p["wo"],
-                     tp)
+                     sp)
 
 
 # ------------------------------------------------------------- embeddings
@@ -142,15 +160,16 @@ def embed_apply(table: torch.Tensor, tokens: torch.Tensor,
                 compute_dtype, tp=None) -> torch.Tensor:
     """The lookup; with ``tp`` (the table's vocab split over ``model``)
     a rank looks up the tokens of its vocab range (zeros for the rest)
-    and the rows are all-reduced: the same values as the whole table's
-    lookup."""
+    and the rows are all-reduced (``tp.leave``: under the residual row
+    split, reduce-scattered to the rank's rows): the same values as the
+    whole table's lookup."""
     if tp is None:
         return table[tokens.long()].to(compute_dtype)
     V = table.shape[0]
     local = tokens.long() - tp.range(V)[0]
     inside = (local >= 0) & (local < V)
     rows = table[local.clamp(0, V - 1)].to(compute_dtype)
-    return tp.reduce(rows.masked_fill(~inside[..., None], 0))
+    return tp.leave(rows.masked_fill(~inside[..., None], 0))
 
 
 def logits_apply(table_or_head: torch.Tensor, x: torch.Tensor,

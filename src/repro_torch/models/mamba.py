@@ -22,9 +22,13 @@ over ``model`` and each rank takes its channels' ``x`` and ``z`` (the
 exchange XLA's resharding makes; the backward reduce-scatters).  The
 conv, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and the scan run per
 channel; ``x_proj`` is row-parallel, so dt, B and C are all-reduced
-(``layers.reduce_product``); so is ``out_proj``.  A prefill or decode state stays whole over ``model`` (as
-``parallel.cache_sharding`` lays it out): a rank reads its channels of it
-and the new state is all-gathered.
+(``layers.reduce_product``); so is ``out_proj``.  A prefill or decode
+state stays whole over ``model`` (as ``parallel.cache_sharding`` lays it
+out): a rank reads its channels of it and the new state is all-gathered.
+Under the residual row split (``tp.rows``) ``x`` is the rank's rows:
+they are gathered before ``in_proj`` (``tp.enter``), so the conv and
+the scan see every row, and ``out_proj``'s partial sums are
+reduce-scattered to the rank's rows.
 """
 from __future__ import annotations
 
@@ -98,7 +102,7 @@ def _ssm_inputs(p, cfg: ArchConfig, xc: torch.Tensor, tp=None):
     if tp is None:
         dbc = xc @ p["x_proj"]
     else:  # every rank's channels read dt, B and C
-        dbc = tp.copy(reduce_product(xc, p["x_proj"], tp))
+        dbc = tp.copy(reduce_product(xc, p["x_proj"], tp.reduce))
     dt_r, Bm, Cm = torch.split(dbc, [dtr, N, N], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"] + p["dt_bias"]).float()
     A = -torch.exp(p["A_log"])  # [di, N] in the parameters' type
@@ -108,19 +112,26 @@ def _ssm_inputs(p, cfg: ArchConfig, xc: torch.Tensor, tp=None):
 def _in_proj(p, x: torch.Tensor, tp=None):
     """``x @ in_proj`` -> (x half, z half) of the channels the rank
     runs: all of them without ``tp``; with ``in_proj`` split over
-    ``model`` the rank's product is all-gathered and the rank takes its
-    inner channels' x and z (every channel when ``inner`` is whole)."""
+    ``model`` (``x`` has entered the split, ``_enter``) the rank's
+    product is all-gathered and the rank takes its inner channels' x and
+    z (every channel when ``inner`` is whole)."""
     proj = split_on(tp, "in_proj")
     if proj is None:
         return torch.chunk(x @ p["in_proj"], 2, dim=-1)
     inner = split_on(tp, "conv_w")
-    u = proj.gather(proj.copy(x) @ p["in_proj"], -1,
-                    partial=inner is not None)
+    u = proj.gather(x @ p["in_proj"], -1, partial=inner is not None)
     xin, z = torch.chunk(u, 2, dim=-1)
     if inner is None:
         return xin, z
     lo, hi = inner.range(p["conv_w"].shape[1])
     return xin[..., lo:hi], z[..., lo:hi]
+
+
+def _enter(tp, x: torch.Tensor) -> torch.Tensor:
+    """``x`` as ``in_proj``'s product reads it: entered into the split
+    (``ModelSplit.enter``) when ``in_proj`` splits over ``model``."""
+    proj = split_on(tp, "in_proj")
+    return x if proj is None else proj.enter(x)
 
 
 def _channels(tp, p, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -137,6 +148,7 @@ def mamba_train(p, cfg: ArchConfig, x: torch.Tensor,
     """The mixer over a whole sequence x [B, T, d] -> (out [B, T, d], the
     state after it, or None without ``state``)."""
     mc, di, _ = _dims(cfg)
+    x = _enter(tp, x)
     B, T, _ = x.shape
     xin, z = _in_proj(p, x, tp)
     tp = split_on(tp, "conv_w")
@@ -169,6 +181,7 @@ def mamba_decode(p, cfg: ArchConfig, x: torch.Tensor, state: MambaState,
                  tp=None) -> tuple[torch.Tensor, MambaState]:
     """One-token step, x [B, 1, d]: the conv over the state's trailing
     inputs and the exact single-step recurrence."""
+    x = _enter(tp, x)
     xin, z = _in_proj(p, x, tp)  # [B, 1, di]
     tp = split_on(tp, "conv_w")
     window = torch.cat([_channels(tp, p, state.conv, 2).to(x.dtype), xin],

@@ -26,7 +26,16 @@ dim; the vocab of the lookup and of the head, whose logits are then the
 rank's vocab range and whose loss is the vocab-parallel logsumexp), the
 experts on ``data`` that ``tp.experts`` names (``models.moe``), and,
 under ``TUNING.attn_seq_axis`` / ``cache_seq_shard``, the attention's
-query rows and a decode cache's slots (``models.attention``).
+query rows and a decode cache's slots (``models.attention``).  Under
+``TUNING.residual_spec`` with ``model`` on the batch or the sequence
+(``tuning.residual_dim``), the reference's pin at the entry of every JAX
+scan unit, the residual stream is split over ``model`` from the first
+unit to the last in every mode: a rank holds its rows (``ModelSplit.
+residual``; the lookup's sum lands split when no leading layer runs
+first), the norms and residual adds run on them, and under remat a unit
+saves the rank's rows only; after the last unit the final norm runs on
+them and the rows are gathered for the head (its backward reduce-scatters
+the head's partial gradients).  The numbers are the unsplit ones.
 """
 from __future__ import annotations
 
@@ -42,9 +51,10 @@ from . import mamba as mam
 from . import rwkv as rwk
 from .layers import (
     cast, dense, embed_apply, logits_apply, mlp_apply, mlp_init, normal,
-    rms_norm, split_on, sub,
+    rms_norm, split_on, sub, whole_rows,
 )
 from .moe import moe_apply, moe_init
+from .tuning import residual_dim
 
 MIXERS = ("attn", "mamba", "rwkv")
 
@@ -361,44 +371,70 @@ def _cast_tree(p, dtype) -> dict:
 def _block_apply(p, cfg: ArchConfig, i: int, x: torch.Tensor, mode: str,
                  state, pos, cache_len: int, backend: str, tp=None):
     """One layer (``tp`` scoped to it). Returns (x, new_state, MoE aux
-    loss or None)."""
+    loss or None).  Under the residual row split (``tp.rows``) ``x`` is
+    the rank's rows: the norms and residual adds run on them (a norm's
+    scale through ``row_param``), a mixer whose products split over
+    ``model`` gathers its input and reduce-scatters its output itself,
+    and one that runs whole on every rank (RWKV's, attention with whole
+    query heads, Mamba with whole inner channels) runs on the gathered
+    rows and hands back the rank's (``layers.whole_rows``)."""
     kind = cfg.mixer_kind(i)
     aux = None
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    new_state = state
+    rows = tp is not None and tp.rows is not None
+
+    def norm(x, scale):
+        return rms_norm(x, tp.row_param(scale) if rows else scale,
+                        cfg.norm_eps)
+
+    h = norm(x, p["norm1"])
     if kind == "attn":
-        at = sub(tp, "attn")
-        if mode == "train":
-            h = att.attn_train(p["attn"], cfg, h, backend=backend, tp=at)
-        elif mode == "prefill":
-            h, new_state = att.attn_prefill(p["attn"], cfg, h, cache_len,
-                                            backend=backend, tp=at)
-        else:
-            h, new_state = att.attn_decode(p["attn"], cfg, h, state, pos,
-                                           tp=at, cache_len=cache_len)
+        def mix(h, t):
+            at = sub(t, "attn")
+            if mode == "train":
+                return att.attn_train(p["attn"], cfg, h, backend=backend,
+                                      tp=at), state
+            if mode == "prefill":
+                return att.attn_prefill(p["attn"], cfg, h, cache_len,
+                                        backend=backend, tp=at)
+            return att.attn_decode(p["attn"], cfg, h, state, pos, tp=at,
+                                   cache_len=cache_len)
+        ready = split_on(sub(tp, "attn"), "wq") is not None
     elif kind == "mamba":
-        if mode == "decode":
-            h, new_state = mam.mamba_decode(p["mamba"], cfg, h, state,
-                                            tp=sub(tp, "mamba"))
-        else:
-            h, new_state = mam.mamba_train(
+        def mix(h, t):
+            if mode == "decode":
+                return mam.mamba_decode(p["mamba"], cfg, h, state,
+                                        tp=sub(t, "mamba"))
+            return mam.mamba_train(
                 p["mamba"], cfg, h, state=state if mode == "prefill"
-                else None, backend=backend, tp=sub(tp, "mamba"))
+                else None, backend=backend, tp=sub(t, "mamba"))
+        mt = sub(tp, "mamba")
+        ready = None not in (split_on(mt, "in_proj"),
+                             split_on(mt, "conv_w"))
     else:
-        st = state if mode != "train" else None
-        if mode == "prefill" and st is None:
-            st = rwk.make_rwkv_state(cfg, x.shape[0], x.dtype,
-                                     device=x.device)
-        h, carry = rwk.rwkv_time_mix(p["rwkv_tm"], cfg, h, state=st,
-                                     backend=backend, tp=sub(tp, "rwkv_tm"))
+        def mix(h, t):
+            st = state if mode != "train" else None
+            if mode == "prefill" and st is None:
+                st = rwk.make_rwkv_state(cfg, h.shape[0], h.dtype,
+                                         device=h.device)
+            return rwk.rwkv_time_mix(p["rwkv_tm"], cfg, h, state=st,
+                                     backend=backend,
+                                     tp=sub(t, "rwkv_tm"))
+        ready = False
+    h, new_state = mix(h, tp) if ready else whole_rows(tp, mix, h)
     x = x + h
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    h = norm(x, p["norm2"])
     if kind == "rwkv":
-        x_last_in = None if mode == "train" else (
-            state.x_ffn if mode == "decode" else torch.zeros_like(x[:, 0]))
-        h, x_ffn_last = rwk.rwkv_channel_mix(p["rwkv_cm"], cfg, h,
-                                             x_last=x_last_in,
-                                             tp=sub(tp, "rwkv_cm"))
+        carry = new_state
+
+        def channel_mix(h, t):
+            x_last_in = None if mode == "train" else (
+                state.x_ffn if mode == "decode" else
+                torch.zeros_like(h[:, 0]))
+            return rwk.rwkv_channel_mix(p["rwkv_cm"], cfg, h,
+                                        x_last=x_last_in,
+                                        tp=sub(t, "rwkv_cm"))
+        h, x_ffn_last = whole_rows(tp, channel_mix, h)
+        new_state = state
         if mode != "train":
             new_state = rwk.RWKVState(x_att=carry[0], x_ffn=x_ffn_last,
                                       s=carry[1])
@@ -443,22 +479,27 @@ def forward(
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    pk = _prefix_len(cfg)
+    rdim = residual_dim()
+    rs = (tp.residual(rdim, inputs.shape[rdim]) if tp is not None and
+          tp.n > 1 and rdim is not None else None)
+    emb = None
     if inputs.is_floating_point():
         x = inputs.to(compute_dtype)
-    else:
-        x = embed_apply(params["embed"], inputs, compute_dtype,
-                        split_on(tp, "embed"))
+    else:  # with no leading layer the lookup's sum lands split
+        emb = split_on(rs if rs is not None and pk == 0 else tp, "embed")
+        x = embed_apply(params["embed"], inputs, compute_dtype, emb)
     blocks = params["blocks"]
     at = getattr(blocks, "at", None)
     new_caches = [] if caches is not None else None
 
-    def span(lo: int, hi: int, x, aux):
+    def span(lo: int, hi: int, x, aux, split):
         for i in range(lo, hi):
             st = caches[i] if caches is not None else None
             p = blocks[i] if at is None else at(i, compute_dtype)
             x, nst, a = _block_apply(_cast_tree(p, compute_dtype),
                                      cfg, i, x, mode, st, pos, cache_len,
-                                     backend, sub(tp, f"blocks.{i}"))
+                                     backend, sub(split, f"blocks.{i}"))
             if caches is not None:
                 new_caches.append(nst)
             if a is not None:
@@ -466,19 +507,28 @@ def forward(
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    pk, n = _prefix_len(cfg), len(blocks)
-    x, aux = span(0, pk, x, aux)  # JAX runs these outside its scan
+    n = len(blocks)
+    x, aux = span(0, pk, x, aux, tp)  # JAX runs these outside its scan
+    if rs is not None and (emb is None or emb.rows is None):
+        x = rs.take_rows(x)
     remat = remat and mode == "train" and torch.is_grad_enabled()
+    split = tp if rs is None else rs
     for lo in range(pk, n, cfg.scan_unit):
         hi = min(lo + cfg.scan_unit, n)
         if remat:
-            x, aux = checkpoint(span, lo, hi, x, aux, use_reentrant=False)
+            x, aux = checkpoint(span, lo, hi, x, aux, split,
+                                use_reentrant=False)
         else:
-            x, aux = span(lo, hi, x, aux)
+            x, aux = span(lo, hi, x, aux, split)
+    head = _head_split(cfg, tp)
+    if rs is not None:  # the final norm on the rank's rows, then all rows
+        x = rms_norm(x, rs.row_param(params["final_norm"]), cfg.norm_eps)
+        x = rs.rows_gather(x, partial=head is not None)
+        head = None  # the gather's backward sums the head's partials
     if last_only:
         x = x[:, -1:, :]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = _head_split(cfg, tp)
+    if rs is None:
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = logits_apply(params["embed"], x, transpose=True, tp=head)
     else:

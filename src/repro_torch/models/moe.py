@@ -31,7 +31,12 @@ ranks' experts) are all-reduced over ``model``: an expert's weights are
 never gathered over ``model``.  When the experts do not divide ``model``
 and their mlp does, each rank runs its mlp columns of every expert and
 the combine is all-reduced the same way.  The shared experts are a
-tensor-parallel MLP.
+tensor-parallel MLP.  Under the residual row split (``tp.rows``) ``x`` is
+the rank's rows: the router runs on them (its gradient summed over
+``model``, ``ModelSplit.row_param``) and its logits are gathered, so
+every rank routes every row as without the split; the dispatch input is
+the rows gathered (``tp.enter``) and the combine's partial sums are
+reduce-scattered to the rank's rows (``tp.leave``).
 
 With the experts on ``data`` (``tp.experts``, a ``tensor_parallel.
 ExpertSplit``: ``RULES_EP_DATA``, the reference's ``moe_ep_data``
@@ -59,7 +64,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import MoECfg
-from .layers import dense, mlp_apply, mlp_init, normal, split_on, sub
+from .layers import (
+    dense, mlp_apply, mlp_init, normal, split_on, sub, whole_rows,
+)
 from .tuning import TUNING
 
 
@@ -239,13 +246,25 @@ def moe_apply(p, cfg: MoECfg, x: torch.Tensor, tp=None
     """x [B, T, d] -> (y [B, T, d], the load-balance aux loss f32).
     ``tp``: expert or tensor parallelism over ``model``, and the experts
     on ``data`` (module docstring)."""
+    # over model: the experts (dim 0) or each expert's mlp (dim 2)
+    mp = split_on(tp, "wi_gate")
+    if mp is None and tp is not None and tp.rows is not None:
+        return whole_rows(tp, lambda h, t: moe_apply(p, cfg, h, t), x)
+    rows = mp is not None and mp.rows is not None
+    x_in = x
+    if rows:  # the router on this rank's rows, the routing on all rows
+        logits = mp.rows_gather((x @ mp.row_param(p["router"]).to(
+            x.dtype)).float())
+        x = mp.enter(x)
     B, T, d = x.shape
     xf = x.reshape(-1, d)
     Tt = B * T
     E, Ep, k = cfg.num_experts, cfg.padded_experts, cfg.top_k
     dev = x.device
 
-    probs = torch.softmax((xf @ p["router"]).float(), dim=-1)  # [Tt, E]
+    if not rows:
+        logits = (xf @ p["router"]).float()
+    probs = torch.softmax(logits.reshape(Tt, -1), dim=-1)  # [Tt, E]
     topw, topi = torch.topk(probs, k, dim=-1)
     topw = (topw / topw.sum(-1, keepdim=True).clamp(min=1e-9)).to(x.dtype)
 
@@ -269,11 +288,11 @@ def moe_apply(p, cfg: MoECfg, x: torch.Tensor, tp=None
         before, total, n = _ROUTE(counts)
         C = capacity(cfg, Tt * n)
         cap = torch.clamp(C - before, min=0)
-    # over model: the experts (dim 0) or each expert's mlp (dim 2)
-    mp = split_on(tp, "wi_gate")
     e_lo, xd = 0, xf
     if mp is not None:  # the products' gradients are partial sums
-        xd, topw = mp.copy(xf), mp.copy(topw)
+        topw = mp.copy(topw)
+        if not rows:  # else x entered the split above
+            xd = mp.copy(xf)
         if mp.dim("wi_gate") == 0:  # this rank's experts
             e_lo = mp.range(p["wi_gate"].shape[0])[0]
     if xs is not None:
@@ -285,15 +304,16 @@ def moe_apply(p, cfg: MoECfg, x: torch.Tensor, tp=None
     else:
         gathered = _dispatch_scatter(p, xd, sorted_e, order, pos_sorted, C,
                                      cap, e_lo)
-    y = (gathered.view(Tt, k, d) * topw[..., None]).sum(dim=1)
+    y = (gathered.view(Tt, k, d) * topw[..., None]).sum(dim=1).view(
+        B, T, d)
     if mp is not None:
-        y = mp.reduce(y)
+        y = mp.leave(y)
     if "shared" in p:
-        y = y + mlp_apply(p["shared"], x, sub(tp, "shared")).reshape(Tt, d)
+        y = y + mlp_apply(p["shared"], x_in, sub(tp, "shared"))
 
     # switch-style load-balance loss; over row slices, each takes the
     # whole batch's fractions and its own rows' mean probabilities, so the
     # mean over the slices (and its gradient) is the whole batch's loss
     frac_tokens = total[:E].float() / max(Tt * n * k, 1)
     aux = E * torch.sum(frac_tokens * probs.mean(dim=0))
-    return y.reshape(B, T, d), aux
+    return y, aux

@@ -43,6 +43,22 @@ puts on each rank):
                        ``parallel.sharding.cache_sharding`` states the
                        JAX spec).
   batch_axes           set per dry-run cell to the rows' split.
+  residual_spec        the residual stream's pin inside the JAX layer
+                       scan (``(("data", "model"), None, None)``: DP over
+                       both axes); set by no preset and no entry point,
+                       only by ``set_tuning``.  Where it puts ``model`` on
+                       the batch or the sequence dimension
+                       (``residual_dim``), the port splits that dimension
+                       of the residual stream over ``model`` from the
+                       first scan unit to the last (``models.model.
+                       forward``): norms and residual adds run on a
+                       rank's rows, a split product's input is gathered
+                       and its output reduce-scattered
+                       (``parallel.tensor_parallel``).  ``data``/``pod``
+                       on the batch follow the rows' split the step
+                       already has; ``model`` on the embed dimension
+                       keeps the residual whole (inert: it would add a
+                       norm all-reduce to every block).
 
 Knobs that the port's step never reads (``SHARDING_ONLY``):
 
@@ -54,13 +70,10 @@ Knobs that the port's step never reads (``SHARDING_ONLY``):
                        ``data`` get an all-to-all over ``data``
                        (``models.moe``), experts on ``model`` their
                        rank's slots.  The knob adds nothing to that.
-  residual_spec        the residual stream's pin inside the JAX layer
-                       scan; set by no preset and no entry point, only by
-                       ``set_tuning``.  The port keeps the residual
-                       stream whole on each rank.
 
 The dry run records every knob's value and names the set
-``SHARDING_ONLY`` knobs in ``tuning_inert``.
+``SHARDING_ONLY`` knobs, and a ``residual_spec`` that splits neither
+the batch nor the sequence over ``model``, in ``tuning_inert``.
 """
 from __future__ import annotations
 
@@ -93,16 +106,35 @@ TUNING = Tuning()
 
 # Knobs that are only a ``with_sharding_constraint`` in the JAX package and
 # that the port's step never reads (module docstring): the experts' place
-# comes from the specs, and the residual stream stays whole.
-SHARDING_ONLY = ("residual_spec", "moe_expert_axis")
+# comes from the specs.
+SHARDING_ONLY = ("moe_expert_axis",)
+
+
+def residual_dim() -> int | None:
+    """The dimension of the residual stream ``[B, T, d]`` that
+    ``TUNING.residual_spec`` puts on ``model``: 0 (the batch) or 1 (the
+    sequence); None when the knob is unset or puts ``model`` on the embed
+    dimension or nowhere."""
+    spec = TUNING.residual_spec
+    for dim, entry in enumerate(tuple(spec or ())[:2]):
+        axes = (() if entry is None else (entry,) if isinstance(entry, str)
+                else tuple(entry))
+        if "model" in axes:
+            return dim
+    return None
 
 
 def inert_knobs() -> list[str]:
-    """The sharding-only knobs set away from their defaults: a dry-run
+    """The knobs set away from their defaults that change nothing in the
+    port's step: the sharding-only ones, and a ``residual_spec`` that
+    splits neither the batch nor the sequence over ``model``.  A dry-run
     record made under them has the untuned record's terms."""
     default = Tuning()
-    return [k for k in SHARDING_ONLY
-            if getattr(TUNING, k) != getattr(default, k)]
+    inert = [k for k in SHARDING_ONLY
+             if getattr(TUNING, k) != getattr(default, k)]
+    if TUNING.residual_spec is not None and residual_dim() is None:
+        inert.insert(0, "residual_spec")
+    return inert
 
 
 def set_tuning(**kw) -> Tuning:

@@ -39,6 +39,30 @@ holds ``S / n`` slots a rank and its softmax is merged across ``model``
 (``max`` and two all-reduces, flash-decoding).  ``models.attention``
 computes both.
 
+Under ``TUNING.residual_spec`` with ``model`` on the batch or the
+sequence dimension (``models.tuning.residual_dim``), the residual stream
+between the layers of the JAX scan units is split over ``model`` as the
+reference's pin puts it: ``residual(dim, size)`` is this split with
+``rows = (dim, size)``, and a rank holds ``seq_range(size)`` of that
+dimension (the ceil split, as GSPMD pads an uneven one).  Three more
+autograd pairs carry it, Megatron-style sequence parallelism:
+
+  * ``take_rows(x)``: this rank's rows of a tensor every rank holds
+    whole; backward all-gathers the rows' gradients.
+  * ``rows_gather(x, partial)``: every rank's rows -> the whole tensor;
+    backward reduce-scatters (``partial=True``, the ranks go on
+    computing different parts) or takes this rank's rows.
+  * ``reduce_rows(x)``: a row-parallel product's partial sums,
+    reduce-scattered over the rows; backward all-gathers.
+
+``enter``/``leave`` are what a split product's input and output use:
+under the row split a gather and a reduce-scatter (the all-reduce split
+in two), else ``copy`` and ``reduce``.  ``row_param(w)`` is a whole
+parameter that only this rank's rows read (a norm's scale): ``copy`` in
+f32, so its gradient, a partial sum over the rank's rows, is summed over
+``model`` in f32.  ``whole()`` drops the row split, for a module that
+runs whole on every rank (``models.model._block_apply``).
+
 An ``ExpertSplit`` is the expert dimension on ``data`` (``logical.
 RULES_EP_DATA``): the MoE leaves whose spec puts ``expert`` on ``data``
 (``logical.expert_data_leaves``), this rank's ``data`` coordinate ``r``
@@ -67,22 +91,36 @@ class ModelSplit:
     ``rows_split``: whether the batch rows are split over the mesh's
     (pod, data) axes (the reference's ``dp``); a decode cache's slots
     split over ``model`` only then, as ``parallel.cache_sharding`` lays
-    them out."""
+    them out.  ``rows``: ``(dim, size)`` when the residual stream's
+    dimension ``dim`` of ``size`` is split over ``model`` (module
+    docstring), else None."""
 
     def __init__(self, n: int, r: int, plan: dict, collective,
                  prefix: str = "", experts: "ExpertSplit | None" = None,
-                 rows_split: bool = True):
+                 rows_split: bool = True, rows: tuple | None = None):
         self.n, self.r = n, r
         self.plan = plan
         self.collective = collective
         self.prefix = prefix
         self.experts = experts
         self.rows_split = rows_split
+        self.rows = rows
+
+    def _with(self, prefix: str, rows) -> "ModelSplit":
+        return ModelSplit(self.n, self.r, self.plan, self.collective,
+                          prefix, self.experts, self.rows_split, rows)
 
     def sub(self, key: str) -> "ModelSplit":
-        return ModelSplit(self.n, self.r, self.plan, self.collective,
-                          f"{self.prefix}{key}.", self.experts,
-                          self.rows_split)
+        return self._with(f"{self.prefix}{key}.", self.rows)
+
+    def residual(self, dim: int, size: int) -> "ModelSplit":
+        """This split with the residual stream's ``dim`` (of ``size``)
+        split over ``model``."""
+        return self._with(self.prefix, (dim, size))
+
+    def whole(self) -> "ModelSplit":
+        """This split without the row split."""
+        return self._with(self.prefix, None)
 
     def experts_on_data(self, key: str) -> "ExpertSplit | None":
         """The ``ExpertSplit`` when parameter ``key`` (in this scope) has
@@ -113,18 +151,59 @@ class ModelSplit:
         size = -(-T // self.n)
         return min(T, self.r * size), min(T, (self.r + 1) * size)
 
-    def gather_rows(self, x: torch.Tensor, T: int,
-                    dim: int = 1) -> torch.Tensor:
+    def gather_rows(self, x: torch.Tensor, T: int, dim: int = 1,
+                    partial: bool = False) -> torch.Tensor:
         """Every rank's ``seq_range(T)`` rows (``x``: this rank's, along
         ``dim``) -> all ``T`` rows on every rank; backward: this rank's
         rows of the gradient (every rank goes on computing the same thing
-        from the whole tensor).  A shorter slice is padded to the ceil
-        size for the gather; autograd drops the padding."""
+        from the whole tensor), or with ``partial`` the reduce-scatter of
+        the ranks' gradients.  A shorter slice is padded to the ceil size
+        for the gather; autograd drops the padding."""
         dim %= x.dim()
         short = -(-T // self.n) - x.shape[dim]
         if short:
             x = F.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, short])
-        return self.gather(x, dim).narrow(dim, 0, T)
+        return self.gather(x, dim, partial).narrow(dim, 0, T)
+
+    # ---- the residual stream's rows (``rows``)
+    def take_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``x``, whole on every rank; backward: the
+        rows' gradients all-gathered."""
+        return _TakeRows.apply(self, x, self.rows[0])
+
+    def rows_gather(self, x: torch.Tensor,
+                    partial: bool = False) -> torch.Tensor:
+        """This rank's rows -> the whole tensor (``gather_rows``)."""
+        dim, size = self.rows
+        return self.gather_rows(x, size, dim, partial)
+
+    def reduce_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The partial sums ``x`` (whole rows) -> this rank's rows of
+        their sum over ``model``: padded to ``n`` ceil-sized slices and
+        reduce-scattered; backward: all-gathered."""
+        dim, size = self.rows
+        lo, hi = self.seq_range(size)
+        short = -(-size // self.n) * self.n - size
+        if short:
+            x = F.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, short])
+        return _ReduceScatter.apply(self, x, dim).narrow(dim, 0, hi - lo)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of products that each rank computes on its part:
+        ``copy``, or under the row split the rows gathered (backward: the
+        ranks' partial gradients reduce-scattered)."""
+        return self.copy(x) if self.rows is None else \
+            self.rows_gather(x, partial=True)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's partial sums: ``reduce``, or under the
+        row split this rank's rows of the sum (``reduce_rows``)."""
+        return self.reduce(x) if self.rows is None else self.reduce_rows(x)
+
+    def row_param(self, w: torch.Tensor) -> torch.Tensor:
+        """A whole parameter read by this rank's rows alone, in f32: its
+        gradient is summed over ``model`` in f32."""
+        return self.copy(w.float())
 
     # ---- the autograd pairs
     def copy(self, x: torch.Tensor) -> torch.Tensor:
@@ -242,6 +321,30 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return None, g
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split: ModelSplit, x, dim: int):
+        ctx.split, ctx.dim = split, dim
+        lo, hi = split.seq_range(split.rows[1])
+        return x.narrow(dim, lo, hi - lo)
+
+    @staticmethod
+    def backward(ctx, g):
+        sp = ctx.split
+        return None, sp.gather_rows(g, sp.rows[1], ctx.dim), None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split: ModelSplit, x, dim: int):
+        ctx.split, ctx.dim = split, dim
+        return split.reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.split.all_gather(g, ctx.dim), None
 
 
 class _Gather(torch.autograd.Function):

@@ -85,7 +85,18 @@ what it computes:
     would not reach the experts;
   * under ``TUNING.attn_seq_axis == "model"``, where the query heads do
     not divide ``model``, a rank attends for its slice of the query rows
-    and all-gathers the rows over ``model`` (``models.attention``).
+    and all-gathers the rows over ``model`` (``models.attention``);
+  * under ``TUNING.residual_spec`` with ``model`` on the batch or the
+    sequence, the residual stream between the scan units is split over
+    ``model`` (``models.model.forward``): each product's input
+    all-reduce becomes an all-gather of the rows before it and a
+    reduce-scatter of its gradient, each row-parallel output's
+    all-reduce a reduce-scatter to the rank's rows (Megatron-style
+    sequence parallelism), and the norm scales' gradients, partial sums
+    over a rank's rows, are all-reduced over ``model``.  ``stats``
+    counts the collectives by kind (``tp_gather_*``,
+    ``tp_reduce_scatter_*``, ``tp_all_reduce_*``), with the ring
+    model's wire bytes a rank under ``*_wire``.
 
 There is one step loop: ``MeshTrainStep`` shards the state and runs
 ``make_train_step``'s step with itself as the step's hooks (the gathered
@@ -514,8 +525,12 @@ class ShardedParams:
         elements sent to and received from each rank) of the flat ``t``
         over ``mesh``'s group (default: the whole mesh), staged through
         the host for CUDA tensors (gloo); counted in ``stats`` under
-        ``label + kind``."""
+        ``label + kind``: calls (``_n``), seconds (``_s``), the bytes
+        given (``_bytes``) and the bytes the rank puts on the wire by the
+        ring model (``_wire``, ``launch.roofline.wire_bytes``)."""
         import torch.distributed as dist
+
+        from ..launch.roofline import wire_bytes
 
         mesh = self.mesh if mesh is None else mesh
         if mesh.size == 1:
@@ -548,6 +563,10 @@ class ShardedParams:
         st[f"{key}_s"] = st.get(f"{key}_s", 0.0) + time.perf_counter() - t0
         st[f"{key}_bytes"] = (st.get(f"{key}_bytes", 0)
                               + src.numel() * src.element_size())
+        op = {"gather": "all-gather", "reduce_scatter": "reduce-scatter",
+              "all_to_all": "all-to-all"}.get(kind, "all-reduce")
+        st[f"{key}_wire"] = st.get(f"{key}_wire", 0) + wire_bytes(
+            op, out.numel() * out.element_size(), mesh.size)
         return out
 
     def model_split(self):

@@ -194,17 +194,20 @@ def train_ranks(g_all, e_all, steps: int, ws, xs) -> dict:
 def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
                steps: int, arch: str = "qwen2-7b",
                dts: tuple = ("f32", "bf16"), rules: str = "tp_fsdp",
-               tune: str = "", token_key: str = "") -> dict:
+               tune="", token_key: str = "", moe: dict | None = None
+               ) -> dict:
     """The mesh train step on this world's ranks as a ``shape`` ``(data,
     model)`` mesh, from the JAX init values and batch in ``inputs_path``
     (``_mesh_cfg(arch)``; ``token_key`` names another batch there), 2
     microbatches, at each compute dtype of ``dts`` (the f32 forward by a
     partial of ``models.model.forward``, as the JAX side does it), under
-    the rule set ``rules`` and the tuning presets ``tune``: each step's
+    the rule set ``rules`` and the tuning presets ``tune`` (or a dict
+    of knobs for ``set_tuning``): each step's
     loss and grad norm, every gradient leaf gathered to its JAX layout,
     the rank's resident bytes against the specs' share, the names in its
     gather buckets; after the f32 run rank 0 writes ``jax_state`` of the
-    gathered state to ``ckpt_dir`` at step ``steps``."""
+    gathered state to ``ckpt_dir`` at step ``steps``.  ``moe``: MoE
+    fields that replace ``_mesh_cfg``'s."""
     import functools
     import math
 
@@ -217,7 +220,9 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
     from repro_torch.launch.dryrun import RULES
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import from_jax_params
-    from repro_torch.models.tuning import TUNING, Tuning, apply_preset
+    from repro_torch.models.tuning import (
+        TUNING, Tuning, apply_preset, set_tuning,
+    )
     from repro_torch.parallel import param_shardings, token_sharding
     from repro_torch.train import AdamW, make_train_step, jit_train_step
     from repro_torch.train import save
@@ -234,7 +239,7 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
             node[parts[-1]] = data[k]
     tokens = torch.from_numpy(data[f"tokens{token_key}"])
     labels = torch.from_numpy(data[f"labels{token_key}"])
-    cfg = _mesh_cfg(arch)
+    cfg = _mesh_cfg(arch, moe)
     grads_seen: list = []
 
     class Capture(AdamW):
@@ -246,7 +251,7 @@ def mesh_train(inputs_path: str, ckpt_dir: str, shape: tuple,
     forward = mm.forward
     out = {}
     saved = dataclasses.asdict(TUNING)
-    apply_preset(tune)
+    set_tuning(**tune) if isinstance(tune, dict) else apply_preset(tune)
     try:
         for dt in dts:
             mm.forward = (functools.partial(forward,
@@ -306,11 +311,11 @@ def tp_mesh_train(cases: list, shape: tuple, steps: int) -> dict:
             for arch, inp, ckpt in cases}
 
 
-def _mesh_cfg(arch: str = "qwen2-7b"):
+def _mesh_cfg(arch: str = "qwen2-7b", moe: dict | None = None):
     """The reduced qwen2-7b of the JAX package's sharded-step test, or
     ``arch`` cut the same way (Jamba to one 8-layer scan unit); an MoE's
     capacity factor is 1.0, so that a microbatch's busier experts drop
-    tokens."""
+    tokens, and ``moe`` replaces more of its fields."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -321,7 +326,7 @@ def _mesh_cfg(arch: str = "qwen2-7b"):
         d_ff=64, num_heads=4, num_kv_heads=2, head_dim=16)
     if cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, capacity_factor=1.0))
+            cfg.moe, capacity_factor=1.0, **(moe or {})))
     return cfg
 
 
@@ -334,34 +339,66 @@ def ep_data_train(inputs_path: str, ckpt_dir: str, steps: int) -> dict:
 
 
 def seq_parallel(inputs_path: str, ckpt_dir: str, steps: int,
-                 serve: dict) -> dict:
+                 serve: dict, moe_path: str, moe: dict,
+                 moe_steps: int) -> dict:
     """On three ranks as a ``(data 1, model 3)`` mesh: the reduced
     qwen2-7b's step under ``seq_parallel_attn`` on the batch at T
-    divisible by 3 and on the one at T % 3 != 0 (``_b``), the serving
-    forward of ``serve_split`` under each of ``serve``'s preset lists, and
-    under ``cache_seq_shard`` with 6 q heads, which split over ``model``
-    while the 2 kv heads do not."""
+    divisible by 3 and on the one at T % 3 != 0 (``_b``), the latter
+    again with the residual stream's sequence split over ``model``
+    (``residual_spec``), the serving forward of ``serve_split`` under
+    each of ``serve``'s preset lists, and under ``cache_seq_shard`` with
+    6 q heads, which split over ``model`` while the 2 kv heads do not;
+    then ``moe_steps`` of Jamba's step (one 8-layer unit, its MoE fields
+    ``moe``, from the values in ``moe_path``) without a preset."""
     train = {key: mesh_train(inputs_path, ckpt_dir + key, (1, 3), steps,
                              "qwen2-7b", ("f32",), tune="seq_parallel_attn",
                              token_key=key)["f32"]
              for key in ("", "_b")}
+    train["_b_rows"] = mesh_train(
+        inputs_path, ckpt_dir + "_rows", (1, 3), steps, "qwen2-7b",
+        ("f32",), tune={"attn_seq_axis": "model",
+                        "residual_spec": (None, "model", None)},
+        token_key="_b")["f32"]
     tunes = serve.pop("tunes")
     return {"train": train,
             "serve": {tune: serve_split(inputs_path, tune, **serve)
                       for tune in tunes},
             "heads": serve_split(inputs_path, "cache_seq_shard", heads=6,
-                                 **serve)}
+                                 **serve),
+            "moe": mesh_train(moe_path, ckpt_dir + "_moe", (1, 3),
+                              moe_steps, "jamba-1.5-large-398b", ("f32",),
+                              moe=moe)["f32"]}
 
 
-def serve_split(inputs_path: str, tune: str, prompt: int, cache_len: int,
-                decode: int, heads: int = 4) -> dict:
-    """The reduced qwen2-7b's serving forward on this world's ranks as a
-    ``(data 1, model n)`` mesh under the presets ``tune``, at f32
-    compute: a prefill of the first ``prompt`` tokens of the batch in
+def residual_split(cases: list, serves: list) -> dict:
+    """On two ranks as a ``(data 1, model 2)`` mesh: ``mesh_train`` at
+    f32 compute for each ``(tag, arch, inputs_path, residual_spec or
+    None, token_key)`` of ``cases``, and ``serve_split`` for each ``(tag,
+    arch, inputs_path, residual_spec, prompt, cache_len, decode)`` of
+    ``serves`` -> ``{"train": {tag: runs}, "serve": {tag: result}}``."""
+    train = {}
+    for tag, arch, inp, spec, key in cases:
+        tune = "" if spec is None else {"residual_spec": spec}
+        train[tag] = mesh_train(inp, inp + tag, (1, 2), 2, arch, ("f32",),
+                                tune=tune, token_key=key)["f32"]["runs"]
+    serve = {tag: serve_split(inp, {"residual_spec": spec}, prompt,
+                              cache_len, decode, arch=arch)
+             for tag, arch, inp, spec, prompt, cache_len, decode in serves}
+    return {"train": train, "serve": serve}
+
+
+def serve_split(inputs_path: str, tune, prompt: int, cache_len: int,
+                decode: int, heads: int = 4, arch: str = "qwen2-7b"
+                ) -> dict:
+    """The reduced ``arch``'s (``_mesh_cfg``) serving forward on this
+    world's ranks as a ``(data 1, model n)`` mesh under the presets
+    ``tune`` (or a dict of knobs for ``set_tuning``), at f32 compute: a
+    prefill of the first ``prompt`` tokens of the batch in
     ``inputs_path`` into a ``cache_len``-slot cache, then ``decode``
-    steps fed the batch's next tokens -> every step's logits, each KV
-    cache's shape and its spec by ``parallel.cache_sharding``, and
-    whether ``wq`` splits.  ``heads``: the q heads (the JAX init values
+    steps fed the batch's next tokens -> every step's logits (gathered
+    over ``model`` where the vocab splits), each KV cache's shape and its
+    spec by ``parallel.cache_sharding``, and whether the first attention
+    layer's ``wq`` splits.  ``heads``: the q heads (the JAX init values
     ``values/``, or ``values{heads}/`` for another count)."""
     import dataclasses
 
@@ -374,7 +411,7 @@ def serve_split(inputs_path: str, tune: str, prompt: int, cache_len: int,
     from repro_torch.models.model import (
         abstract_cache, forward, init_cache, named_tensors,
     )
-    from repro_torch.models.tuning import TUNING, apply_preset
+    from repro_torch.models.tuning import TUNING, apply_preset, set_tuning
     from repro_torch.parallel import (
         RULES_TP_FSDP, cache_sharding, param_shardings, token_sharding,
     )
@@ -391,11 +428,11 @@ def serve_split(inputs_path: str, tune: str, prompt: int, cache_len: int,
                 node = node.setdefault(p, {})
             node[parts[-1]] = data[k]
     tokens = torch.from_numpy(data["tokens"])
-    cfg = dataclasses.replace(_mesh_cfg("qwen2-7b"), num_heads=heads)
+    cfg = dataclasses.replace(_mesh_cfg(arch), num_heads=heads)
     mesh = make_host_mesh((1, dist.get_world_size()), ("data", "model"),
                           device="cpu")
     saved = dataclasses.asdict(TUNING)
-    apply_preset(tune)
+    set_tuning(**tune) if isinstance(tune, dict) else apply_preset(tune)
     try:
         params = from_jax_params(cfg, values, device="cpu")
         specs = param_shardings(params, RULES_TP_FSDP, mesh)
@@ -407,25 +444,33 @@ def serve_split(inputs_path: str, tune: str, prompt: int, cache_len: int,
         tree = sp.tree(named_tensors(params))
         caches = init_cache(cfg, B, cache_len, torch.float32, device="cpu",
                             tp=tp)
-        shapes = [list(c.k.shape) for c in caches]
+        shapes = [list(c.k.shape) for c in caches if hasattr(c, "k")]
         specs_c = [list(c.k) for c in cache_sharding(
-            cfg, mesh, B, cache_len)(abstract_cache(cfg, B, cache_len))]
+            cfg, mesh, B, cache_len)(abstract_cache(cfg, B, cache_len))
+            if hasattr(c, "k")]
         kw = dict(cache_len=cache_len, backend="ref",
                   compute_dtype=torch.float32, tp=tp)
+
+        def whole(lg):
+            lg = lg[:, -1]
+            return (tp.all_gather(lg, -1) if lg.shape[-1] < cfg.vocab_size
+                    else lg).numpy()
+
         with torch.no_grad():
             logits, caches, _ = forward(tree, cfg, tokens[:, :prompt],
                                         mode="prefill", caches=caches,
                                         last_only=True, **kw)
-            steps = [logits[:, -1].numpy()]
+            steps = [whole(logits)]
             for i in range(decode):
                 pos = torch.full((B,), prompt + i, dtype=torch.int32)
                 logits, caches, _ = forward(
                     tree, cfg, tokens[:, prompt + i:prompt + i + 1],
                     mode="decode", caches=caches, pos=pos, **kw)
-                steps.append(logits[:, -1].numpy())
+                steps.append(whole(logits))
     finally:
         for k, v in saved.items():
             setattr(TUNING, k, v)
     return {"logits": steps, "cache_shapes": shapes, "cache_specs": specs_c,
             "stats": dict(sp.stats),
-            "q_split": sp.parts["blocks.0.attn.wq"] is not None}
+            "q_split": next((sp.parts[n] is not None for n in sp.parts
+                             if n.endswith(".attn.wq")), False)}

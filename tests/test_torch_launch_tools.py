@@ -20,7 +20,11 @@ counterpart of ``hlo_cost``), ``roofline``, ``quant_roofline``,
     and its ``decode_32k`` cache holds 1/16 of the slots; ``qwen2-moe-
     a2.7b decode_32k`` under ``--rules ep_data --tune moe_ep_data``
     gathers exactly its non-expert leaves' bytes and sends the tokens to
-    the experts by all-to-alls over ``data``.
+    the experts by all-to-alls over ``data``; ``qwen2-7b train_4k`` on a
+    1 x 2 mesh (one microbatch) under ``residual_spec = (("data",
+    "model"), None, None)`` puts the untuned cell's ``model`` wire bytes
+    on gathers and reduce-scatters, the same bytes but for the norm
+    scales' gradient all-reduces, and keeps fewer live bytes.
 
 JAX is imported inside the test that compares with it; the CUDA case
 (``--measure``) runs where JAX is not installed.
@@ -245,14 +249,18 @@ def test_dryrun_cli_skips_and_writes(tmp_path):
     ("seq_parallel_attn,bf16_reduce", []),
     ("opt", []),
     ("blocked_attn,moe2d,cache_seq_shard", []),
-    ({"residual_spec": (("data", "model"), None, None)}, ["residual_spec"]),
+    ({"residual_spec": (("data", "model"), None, None)}, []),
+    ({"residual_spec": (("data",), None, "model")}, ["residual_spec"]),
 ])
 def test_tuning_names_the_knobs_the_port_does_not_read(preset, inert):
     """A preset's sharding-only knobs (``tuning.SHARDING_ONLY``) are named
     in the dry-run record's ``tuning_inert``; the knobs that change the
     port's numbers or plan are not: ``attn_seq_axis`` is read since the
-    port runs sequence-parallel attention.  ``residual_spec`` is set by
-    no preset, only by ``set_tuning`` (the dict case)."""
+    port runs sequence-parallel attention, and ``residual_spec`` with
+    ``model`` on the batch (the residual stream split over ``model``).
+    With ``model`` on the embed dimension it stays inert: the port keeps
+    the residual whole there.  ``residual_spec`` is set by no preset,
+    only by ``set_tuning`` (the dict cases)."""
     from repro_torch.models import tuning
 
     saved = dataclasses.asdict(tuning.TUNING)
@@ -265,6 +273,45 @@ def test_tuning_names_the_knobs_the_port_does_not_read(preset, inert):
     finally:
         for k, v in saved.items():
             setattr(tuning.TUNING, k, v)
+
+
+def test_dryrun_residual_split_moves_the_same_bytes():
+    """``qwen2-7b train_4k`` on a 1 x 2 mesh in one microbatch, untuned
+    and under ``residual_spec = (("data", "model"), None, None)``: the
+    knob is not inert; its ``model`` collectives are gathers and
+    reduce-scatters where the untuned cell's are all-reduces, and their
+    ring-model wire bytes a rank equal the untuned cell's plus the norm
+    scales' gradient all-reduces (2 a layer and the final norm, d f32
+    each; the bf16 gathers and the rematerialised forward's gathers
+    make up the f32 half of each all-reduce); the peak of live bytes
+    falls (each unit's saved input is the rank's rows)."""
+    from repro_torch.models import tuning
+
+    cfg = dryrun.get_arch("qwen2-7b")
+    mesh = AbstractMesh(("data", "model"), (1, 2))
+    saved = tuning.TUNING.residual_spec
+    try:
+        base = dryrun.build_cell("qwen2-7b", "train_4k", mesh,
+                                 microbatches=1)
+        tuning.set_tuning(residual_spec=(("data", "model"), None, None))
+        rec = dryrun.build_cell("qwen2-7b", "train_4k", mesh,
+                                microbatches=1)
+    finally:
+        tuning.TUNING.residual_spec = saved
+    for r in (base, rec):
+        assert "error" not in r, r
+    assert rec["tuning_inert"] == [] and base["tuning_inert"] == []
+
+    def wire(r):
+        return sum(v for k, v in r["rank_collectives"].items()
+                   if k.startswith("tp_") and k.endswith("_wire"))
+
+    st, bt = rec["rank_collectives"], base["rank_collectives"]
+    assert bt.get("tp_reduce_scatter_n", 0) == 0
+    assert st["tp_reduce_scatter_n"] > 0 and st["tp_gather_n"] > 0
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model * 4  # 2 (n-1)/n = 1
+    assert wire(rec) == wire(base) + norms, (wire(rec), wire(base), norms)
+    assert rec["memory"]["temp_bytes"] < base["memory"]["temp_bytes"]
 
 
 def test_host_mesh_one_rank_needs_no_group():

@@ -22,8 +22,20 @@ devices.
     q heads split and the kv heads do not (6 and 2 heads on the three
     ranks), the q heads are gathered for the merge: the logits within
     1e-5 of max |logit| of JAX's unsharded forward of that config.
+  * (iv) At T = 16 under ``seq_parallel_attn`` with the residual stream's
+    sequence split over ``model`` too (``residual_spec = (None, "model",
+    None)``, rows 6/6/4): the attention runs whole on the gathered rows,
+    and the step matches the port's one-rank step with (ii)'s bars.
+  * (v) An MoE leaf whose experts do not divide ``model`` and whose mlp
+    does, under ``RULES_TP_FSDP``: Jamba's reduced step (one 8-layer
+    unit, 16 experts of mlp 48, the rest whole over a 3-way ``model``)
+    against JAX's ``(1, 3)`` step, from the same weights (the port's
+    ``init_params``, seeded): one step at (ii)'s bars (after an update
+    the Mamba leaves, whole over ``model`` here, sit 2-3e-5 from an f64
+    step in either package); each rank runs its 16 of every expert's 48
+    mlp columns.
 
-JAX is imported inside the fixture and the subprocess.
+JAX is imported inside the fixture and the subprocesses.
 """
 import math
 import os
@@ -34,7 +46,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from _torch_ranks import mesh_train, run_ranks, seq_parallel
+from _torch_ranks import _mesh_cfg, mesh_train, run_ranks, seq_parallel
 from test_torch_train_mesh import _batch, _flat, rel_l2
 
 HERE = Path(__file__).resolve().parent
@@ -115,6 +127,85 @@ print("OK jax (1, 3) seq-parallel steps and the unsharded forward")
 """
 
 
+JAX_MOE = r"""
+import dataclasses, functools, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+import repro.models.model as mm
+from repro.configs import get_arch
+from repro.models import init_params
+from repro.parallel.logical import RULES_TP_FSDP, param_shardings
+from repro.train import AdamW, make_train_step
+from repro.train.optimizer import AdamWState
+
+inp, outp, steps = sys.argv[1], sys.argv[2], int(sys.argv[3])
+experts, mlp = int(sys.argv[4]), int(sys.argv[5])
+data = np.load(inp)
+cfg = get_arch("jamba-1.5-large-398b").reduced(
+    num_layers=8, vocab_size=64, d_model=32, d_ff=64, num_heads=4,
+    num_kv_heads=2, head_dim=16)
+cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+    cfg.moe, capacity_factor=1.0, num_experts=experts, d_ff_expert=mlp))
+values = {}
+for k in data.files:
+    if k.startswith("values/"):
+        node, parts = values, k.split("/")[1:]
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = jnp.asarray(data[k])
+
+class Cap(AdamW):
+    def update(self, grads, state, params):
+        v, s, om = AdamW.update(self, grads, state, params)
+        return v, s, {**om, "grads": grads}
+
+mesh = jax.make_mesh((1, 3), ("data", "model"),
+                     axis_types=(jax.sharding.AxisType.Auto,) * 2)
+mm.forward = functools.partial(mm.forward, compute_dtype=jnp.float32)
+params = jax.eval_shape(lambda k: init_params(k, cfg), jax.random.PRNGKey(0))
+_, shardings = param_shardings(params, RULES_TP_FSDP, mesh)
+opt_sh = AdamWState(step=NamedSharding(mesh, P()), m=shardings, v=shardings)
+tok_sh = NamedSharding(mesh, P("data"))
+opt = Cap(lr=1e-3, warmup=0)
+jstep = jax.jit(make_train_step(cfg, opt, microbatches=2),
+                in_shardings=(shardings, opt_sh, tok_sh, tok_sh))
+v, s = values, opt.init(values)
+out = {}
+for i in range(steps):
+    v, s = jax.device_put(v, shardings), jax.device_put(s, opt_sh)
+    v, s, m = jstep(v, s, jnp.asarray(data["tokens"]),
+                    jnp.asarray(data["labels"]))
+    out[f"{i}/loss"] = np.asarray(m["loss"])
+    out[f"{i}/grad_norm"] = np.asarray(m["grad_norm"])
+    for path, g in jax.tree_util.tree_flatten_with_path(m["grads"])[0]:
+        out[f"{i}/grads" + jax.tree_util.keystr(path)] = np.asarray(g)
+np.savez(outp, **out)
+print("OK jax (1, 3) Jamba steps")
+"""
+MOE = dict(num_experts=16, d_ff_expert=48)  # (v): experts whole, mlp split
+# (v) takes one step: after an update, Jamba's Mamba leaves (whole over
+# model here) lie 2-3e-5 from an f64 step in either package, at the bar
+MOE_STEPS = 1
+
+
+def _moe_inputs(path: Path) -> None:
+    """(v)'s inputs: the reduced Jamba's weights (``_mesh_cfg`` with
+    MOE; the port's ``init_params``, generator seed 0) in the JAX value
+    tree's layout, and the batch at T = 18."""
+    import torch
+
+    from repro_torch.models import init_params, to_jax_values
+
+    cfg = _mesh_cfg("jamba-1.5-large-398b", MOE)
+    values = to_jax_values(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    tok, lab = _batch(T=18)
+    np.savez(path, tokens=tok, labels=lab, **{
+        "values" + k.replace("']['", "/").replace("['", "/").replace(
+            "']", ""): v for k, v in _flat(values).items()})
+
+
 def _seq_inputs(path: Path) -> None:
     """The JAX init values of the reduced qwen2-7b (``values``) and of its
     6-q-head variant (``values6``), a batch at T = 18 and one at T = 16
@@ -145,28 +236,38 @@ def runs(tmp_path_factory):
     """(the three ranks' results, JAX's arrays, the one-rank port step at
     T = 16)."""
     tmp = tmp_path_factory.mktemp("seq")
-    inp = tmp / "inputs.npz"
+    inp, moe_inp = tmp / "inputs.npz", tmp / "moe.npz"
     _seq_inputs(inp)
-    outp = tmp / "jax.npz"
+    _moe_inputs(moe_inp)
+    outp, moe_out = tmp / "jax.npz", tmp / "jax_moe.npz"
     env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_"
                "count=3", PYTHONPATH=os.pathsep.join(
                    [str(HERE.parent / "src"), str(HERE)]))
-    proc = subprocess.Popen(
-        [sys.executable, "-c", JAX_SEQ, str(inp), str(outp), str(STEPS),
-         *(str(SERVE[k]) for k in ("prompt", "cache_len", "decode"))],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, *args], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for script, args in (
+            (JAX_SEQ, [str(inp), str(outp), str(STEPS), *(
+                str(SERVE[k]) for k in ("prompt", "cache_len", "decode"))]),
+            (JAX_MOE, [str(moe_inp), str(moe_out), str(MOE_STEPS),
+                       str(MOE["num_experts"]), str(MOE["d_ff_expert"])]))]
     try:
         ranks = run_ranks(seq_parallel, 3, tmp, str(inp),
                           str(tmp / "ckpt"), STEPS,
-                          dict(SERVE, tunes=list(TUNES)))
+                          dict(SERVE, tunes=list(TUNES)), str(moe_inp), MOE,
+                          MOE_STEPS)
         one = mesh_train(str(inp), str(tmp / "one"), (1, 1), STEPS,
                          "qwen2-7b", ("f32",), token_key="_b")["f32"]
-        so, se = proc.communicate(timeout=400)
+        for proc in procs:
+            so, se = proc.communicate(timeout=400)
+            assert proc.returncode == 0, so + se
     finally:
-        if proc.poll() is None:
-            proc.kill()
-    assert proc.returncode == 0, so + se
-    return ranks, np.load(outp), one
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    want = dict(np.load(outp))
+    want.update({f"moe/{k}": v for k, v in np.load(moe_out).items()})
+    return ranks, want, one
 
 
 def _close(run: dict, want: dict) -> None:
@@ -184,6 +285,17 @@ def _close(run: dict, want: dict) -> None:
             assert rel_l2(want[f"{i}/grads{k}"], g) <= 2e-5, (i, k)
 
 
+def _one_rank(one: dict) -> dict:
+    """The one-rank step's runs as ``_close``'s ``want``."""
+    want = {}
+    for i, step in enumerate(one["runs"]):
+        want[f"{i}/loss"] = step["metrics"]["loss"]
+        want[f"{i}/grad_norm"] = step["metrics"]["grad_norm"]
+        want.update({f"{i}/grads{k}": g
+                     for k, g in _flat(step["grads"]).items()})
+    return want
+
+
 @pytest.mark.parametrize("key", ["", "_b"])
 def test_1x3_seq_parallel_step(runs, key):
     """(ii): T = 18 against JAX's (1, 3) step under ``seq_parallel_attn``;
@@ -192,14 +304,10 @@ def test_1x3_seq_parallel_step(runs, key):
     the attention rows over ``model``."""
     ranks, jax_out, one = runs
     if key:
-        want = {}
-        for i, step in enumerate(one["runs"]):
-            want[f"{i}/loss"] = step["metrics"]["loss"]
-            want[f"{i}/grad_norm"] = step["metrics"]["grad_norm"]
-            want.update({f"{i}/grads{k}": g
-                         for k, g in _flat(step["grads"]).items()})
+        want = _one_rank(one)
     else:
-        want = {k: jax_out[k] for k in jax_out.files}
+        want = {k: v for k, v in jax_out.items()
+                if not k.startswith("moe/")}
     r0 = ranks[0]["train"][key]
     _close(r0, want)
     for r in ranks:
@@ -210,6 +318,44 @@ def test_1x3_seq_parallel_step(runs, key):
             st = step["stats"]
             assert st.get("gather_n", 0) == 0, st
             assert st["tp_gather_n"] > 0, st
+
+
+def test_1x3_seq_parallel_with_residual_split(runs):
+    """(iv): the step at T = 16 under ``seq_parallel_attn`` with the
+    residual stream's sequence split over ``model`` against the port's
+    one-rank step; every rank reports the same metrics and gathers the
+    rows over ``model``."""
+    ranks, _, one = runs
+    r0 = ranks[0]["train"]["_b_rows"]
+    _close(r0, _one_rank(one))
+    for r in ranks:
+        run = r["train"]["_b_rows"]
+        assert [x["metrics"] for x in run["runs"]] == \
+            [x["metrics"] for x in r0["runs"]]
+        for step in run["runs"]:  # nothing else splits over 3: no
+            assert step["stats"]["tp_gather_n"] > 0  # reduce-scatter
+
+
+def test_1x3_moe_mlp_split_matches_jax(runs):
+    """(v): the reduced Jamba with 16 experts, which do not divide 3,
+    and their mlp of 48, which does: each rank's compute layout holds
+    every expert's 16 mlp columns, and the step matches JAX's (1, 3)
+    step with (ii)'s bars; every rank reports the same metrics."""
+    assert len(runs[0][0]["moe"]["runs"]) == MOE_STEPS
+    ranks, jax_out, _ = runs
+    want = {k[len("moe/"):]: v for k, v in jax_out.items()
+            if k.startswith("moe/")}
+    r0 = ranks[0]["moe"]
+    _close(r0, want)
+    for r in ranks:
+        assert [x["metrics"] for x in r["moe"]["runs"]] == \
+            [x["metrics"] for x in r0["runs"]]
+        shapes = {n: list(s) for n, s in r["moe"]["compute_shapes"].items()
+                  if ".moe.w" in n}
+        E, cols, d = MOE["num_experts"], MOE["d_ff_expert"] // 3, 32
+        assert shapes and all(
+            s == ([E, cols, d] if n.endswith(".wo") else [E, d, cols])
+            for n, s in shapes.items()), shapes
 
 
 @pytest.mark.parametrize("tune", TUNES)
