@@ -2256,6 +2256,7 @@ def _timed_build(vectors, attrs, backend: str, **extra) -> tuple:
     """One build of ``vectors`` on ``cuda:0`` in micro-batches of 128 (the
     parameters of phase 3), with the counts set to 0 just before it and
     read just after it -> (index, what it measured)."""
+    from repro_torch import monitoring
     from repro_torch.core import WoWIndex
     from repro_torch.core.device_search import GRAPH_CAPTURES, KERNEL_REPLAYS
     from repro_torch.persist import state_digest
@@ -2263,23 +2264,32 @@ def _timed_build(vectors, attrs, backend: str, **extra) -> tuple:
     idx = WoWIndex(dim=vectors.shape[1], device="cuda:0", **SHARDED_KW)
     reset_counts()
     caps = GRAPH_CAPTURES["chunks"]
+    n0 = len(monitoring.spans())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    idx.insert_batch(vectors, attrs, batch_size=128, backend=backend,
-                     **extra)
+    # the sharded arena's searches and their all-gathers are spans
+    with monitoring.tracing(backend == "sharded"):
+        idx.insert_batch(vectors, attrs, batch_size=128, backend=backend,
+                         **extra)
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
     counts = read_counts()
-    st = idx._arena.stats
+    spans = monitoring.spans()[n0:]
+
+    def span_s(name: str) -> float:
+        return sum(r["t1"] - r["t0"] for r in spans
+                   if r["name"] == f"repro_torch.build.{name}")
+
     run = {"backend": backend, **extra, "s": s,
            "rows_per_s": len(attrs) / s, "launches": counts,
            "replayed": KERNEL_REPLAYS["gather_norm_dot"],
            "captures": GRAPH_CAPTURES["chunks"] - caps,
            "graph": _graph_digest(idx), "digest": state_digest(idx),
            "arena": _arena_digest(idx._arena)}
-    if "search_s" in st:  # the sharded arena times its searches
-        run.update(phase1_s=st["search_s"], phase2_s=s - st["search_s"],
-                   gather_ms=st["gather_s"] * 1e3)
+    if backend == "sharded":
+        run.update(phase1_s=span_s("sharded_search"),
+                   phase2_s=s - span_s("sharded_search"),
+                   gather_ms=span_s("gather") * 1e3)
     return idx, run
 
 

@@ -86,7 +86,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels.ops import BACKENDS, gather_norm_dot, merge_src_indices
-from ..monitoring import record_event
+from ..monitoring import record_event, register_counters, span
 from .hop_reference import dedupe_pairwise, eval_materialized, merge_full_sort
 from .snapshot import Snapshot, writable
 from .store import VEC_DTYPES, quantize_rows
@@ -898,6 +898,15 @@ GRAPH_CAPTURES = {"chunks": 0}  # chunks captured (a capture launches nothing)
 # kernel launches replayed by captured hops, by kernel (the fused
 # pipeline's and the reference pipeline's)
 KERNEL_REPLAYS = {"gather_norm_dot": 0, "batched_dot": 0}
+# chunks ``_run_chunk`` ran eagerly, by cause: the seed iteration, a
+# shape's first sight, the hop cap ending the chunk early, or a state off
+# the card (no graphs there)
+EAGER_CHUNKS = {"seed": 0, "first": 0, "cap": 0, "off_card": 0}
+for _name, _counts in (("GRAPH_REPLAYS", GRAPH_REPLAYS),
+                       ("GRAPH_CAPTURES", GRAPH_CAPTURES),
+                       ("KERNEL_REPLAYS", KERNEL_REPLAYS),
+                       ("EAGER_CHUNKS", EAGER_CHUNKS)):
+    register_counters(f"device_search.{_name}", _counts)
 _GRAPH_CACHE: dict = {}  # key -> _GraphedChunk, or None once seen
 _GRAPH_CACHE_SIZE = 128
 _GRAPH_POOL = None  # the memory pool every captured chunk shares
@@ -938,21 +947,33 @@ def _run_chunk(di: DeviceIndex, st: HopState, cfg: HopCfg, h: int) -> HopState:
     eagerly, which also warms every op up for the capture, and a shape
     seen once is never captured); ``_run_hops`` elsewhere, for the seed
     iteration and where the global cap would end the chunk early.  The
-    cache keeps the ``_GRAPH_CACHE_SIZE`` most recently used shapes."""
-    if (not st.res_i.is_cuda or st.t < 1
-            or st.t + h > cfg.max_hops + 1):
+    cache keeps the ``_GRAPH_CACHE_SIZE`` most recently used shapes.
+    ``EAGER_CHUNKS`` counts the eager chunks by cause, and the
+    ``repro_torch.chunk.hops`` span names the chunk's mode."""
+    with span("repro_torch.chunk.hops", h=h) as sp:
+        if not st.res_i.is_cuda:
+            cause = "off_card"
+        elif st.t < 1:
+            cause = "seed"
+        elif st.t + h > cfg.max_hops + 1:
+            cause = "cap"
+        else:
+            key = _graph_key(di, cfg, st, h)
+            if key not in _GRAPH_CACHE:
+                if len(_GRAPH_CACHE) >= _GRAPH_CACHE_SIZE:
+                    del _GRAPH_CACHE[next(iter(_GRAPH_CACHE))]  # oldest first
+                _GRAPH_CACHE[key] = None
+                cause = "first"
+            else:
+                chunk = _GRAPH_CACHE.pop(key)  # re-insert: most recent last
+                sp.set(mode="replay" if chunk is not None else "capture")
+                if chunk is None:
+                    chunk = _GraphedChunk(di, cfg, st, h)
+                _GRAPH_CACHE[key] = chunk
+                return chunk.run(st)
+        EAGER_CHUNKS[cause] += 1
+        sp.set(mode=f"eager_{cause}")
         return _run_hops(di, st, cfg, h)
-    key = _graph_key(di, cfg, st, h)
-    if key not in _GRAPH_CACHE:
-        if len(_GRAPH_CACHE) >= _GRAPH_CACHE_SIZE:
-            del _GRAPH_CACHE[next(iter(_GRAPH_CACHE))]  # oldest first
-        _GRAPH_CACHE[key] = None
-        return _run_hops(di, st, cfg, h)
-    chunk = _GRAPH_CACHE.pop(key)  # re-insert: most recently used last
-    if chunk is None:
-        chunk = _GraphedChunk(di, cfg, st, h)
-    _GRAPH_CACHE[key] = chunk
-    return chunk.run(st)
 
 
 def _compact_rows(st: HopState, idx: torch.Tensor, act_n: int) -> HopState:

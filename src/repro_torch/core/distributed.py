@@ -39,11 +39,11 @@ space plus a halo of one top-level window on each side.
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 
 import numpy as np
 
+from ..monitoring import span
 from .device_search import (
     DeviceIndex,
     SearchResult,
@@ -104,7 +104,6 @@ def sharded_build_search(
     merge: str = "auto",
     max_hops: int | None = None,
     axis: str = BUILD_AXIS,
-    timings: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Rank-parallel twin of ``device_search.build_search``: one
     micro-batch's phase-1 candidate search, its members split over
@@ -119,8 +118,8 @@ def sharded_build_search(
     ``while_loop``).  The four result arrays are all-gathered in rank
     order, and the result contract is ``build_search``'s: host ``(res_i,
     res_d, dc, hops)`` with deleted ids masked to -1, bitwise the
-    one-device search at every shard count.  ``timings`` (a dict) gets
-    the seconds spent in the gather added under ``"gather_s"``."""
+    one-device search at every shard count.  The gather is the span
+    ``repro_torch.build.gather``."""
     prep = _prep_build_inputs(
         di, targets, ranges, eps, l_lo, l_hi, seed_ids, seed_d,
         width=width, m=m, o=o, metric=metric, seed_width=seed_width,
@@ -145,11 +144,8 @@ def sharded_build_search(
             np.concatenate([out[2], np.zeros(pad, np.int32)]),
             np.concatenate([out[3], np.zeros(pad, np.int32)]),
         )
-    t0 = time.perf_counter()
-    parts = mesh.all_gather(_pack(*out))
-    if timings is not None:
-        timings["gather_s"] = (timings.get("gather_s", 0.0)
-                               + time.perf_counter() - t0)
+    with span("repro_torch.build.gather"):
+        parts = mesh.all_gather(_pack(*out))
     return _finish_build_search(*_unpack(np.concatenate(parts), W), prep.B,
                                 deleted)
 

@@ -45,6 +45,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from .. import monitoring
 from .graph import LayeredGraph
 from .search import (
     VisitedArena2D,
@@ -554,287 +555,290 @@ class WoWIndex:
             wlo[:, l] = np.minimum(uvals[lo_idx], vals_arr)
             whi[:, l] = np.maximum(uvals[hi_idx], vals_arr)
 
-        # ---- Phase 1 (lines 5-10): batched per-layer candidate acquisition
-        # against the batch-start graph (frozen during this phase).  The
-        # carry U^{l+1} lives in padded [B, C] arrays: the window filter,
-        # the Thm-3.1 skip test and the carry/search merge (an id-sorted
-        # dedupe that keeps the carry's copy) are all row-parallel.
-        C = 2 * omega_c + 2
-        u_ids = np.full((B, C), -1, dtype=np.int64)
-        u_d = np.full((B, C), np.inf, dtype=np.float64)
-        u_lay_ids: list[np.ndarray] = [None] * (top + 1)  # type: ignore[list-item]
-        u_lay_d: list[np.ndarray] = [None] * (top + 1)  # type: ignore[list-item]
-        abb = np.arange(B)[:, None]
-        slab_full = None
-        arena = None
-        ops_table = None
-        ops_scales = None
-        if self.store.n > B:  # the pre-batch graph is non-empty
-            # the graph is frozen during phase 1; the persistent arenas are
-            # brought up to date with deltas only (allocation/rebuild is
-            # amortised over capacity growth, never per batch)
-            if backend in ("ops", "device", "sharded"):
-                arena = self._arena
-                arena.ensure(self)
-                if backend == "ops":
-                    ops_table = arena.vectors  # device-resident [rows, d]
-                    ops_scales = arena.q_scales  # f32[rows] (int8) / None
-            if backend not in ("device", "sharded"):
-                slab_full = self._slab.ensure(self.graph)
-            uw = 0  # used carry width: every [B, C] pass runs on [:, :uw]
-            for l in range(top, -1, -1):
-                # window-filter the carry (Alg. 1 line 6, all rows at once)
-                if uw:
-                    uv = u_ids[:, :uw]
-                    am = attrs_np[np.maximum(uv, 0)]
-                    inw = (
-                        (uv >= 0)
-                        & (am >= wlo[:, l, None])
-                        & (am <= whi[:, l, None])
-                    )
-                    u_ids[:, :uw] = np.where(inw, uv, -1)
-                    u_d[:, :uw] = np.where(inw, u_d[:, :uw], np.inf)
-                    skip = inw.sum(axis=1) > m  # Thm 3.1: carry suffices
-                else:
-                    skip = np.zeros(B, dtype=bool)
-                self.build_stats.searches_skipped += int(skip.sum())
-                # vectorised Alg. 1 line 7: sample entry *ranks* for every
-                # member at once (4 tries each before the linear fallback)
-                lo_r = np.searchsorted(uvals, wlo[:, l], side="left")
-                hi_r = np.searchsorted(uvals, whi[:, l], side="right") - 1
-                span = np.maximum(hi_r - lo_r + 1, 1)
-                ks = lo_r[None, :] + (
-                    self._rng.random((4, B)) * span[None, :]
-                ).astype(np.int64)
-                choice = self._rng.random((4, B))
-                # warm-start: members with a carry seed their beam with the
-                # whole in-window carried candidate set (ids + distances
-                # already known — no DC, no random-walk approach hops);
-                # members with an empty carry fall back to Alg. 1 line 7's
-                # sampled window entry.
-                if uw:
-                    has_carry = (u_ids[:, :uw] >= 0).any(axis=1)
-                else:
-                    has_carry = np.zeros(B, dtype=bool)
-                need: list[int] = []
-                eps: list[int] = []
-                for b in np.nonzero(~skip)[0].tolist():
-                    if has_carry[b]:
-                        need.append(b)
-                        eps.append(0)  # unused: the seeds replace the entry
-                        continue
-                    ep = self._pick_entry(
-                        uvals, ks[:, b], choice[:, b], lo_r[b], hi_r[b],
-                        batch_set,
-                    )
-                    if ep is not None:
-                        need.append(b)
-                        eps.append(ep)
-                if need:
-                    seeds_i = u_ids[need, :uw] if uw else None
-                    seeds_d = u_d[need, :uw] if uw else None
-                    if backend in ("device", "sharded"):
-                        # device-resident phase 1: the hop pipeline over
-                        # the frozen snapshot + delta arena, beams seeded
-                        # with the Thm-3.1 carry (the sharded arena splits
-                        # the members over its build mesh: the same
-                        # results bitwise)
-                        res_i, res_d, dcs, _ = arena.search(
-                            targets[need],
-                            np.stack([wlo[need, l], whi[need, l]], axis=1),
-                            np.asarray(eps, dtype=np.int64),
-                            l,
-                            top,
-                            seeds_i,
-                            seeds_d,
-                            width=device_width or omega_c,
-                            seed_width=C,
-                            deleted=self.deleted or None,
+        with monitoring.span("repro_torch.build.phase1", rows=B, layers=top + 1):
+            # ---- Phase 1 (lines 5-10): batched per-layer candidate acquisition
+            # against the batch-start graph (frozen during this phase).  The
+            # carry U^{l+1} lives in padded [B, C] arrays: the window filter,
+            # the Thm-3.1 skip test and the carry/search merge (an id-sorted
+            # dedupe that keeps the carry's copy) are all row-parallel.
+            C = 2 * omega_c + 2
+            u_ids = np.full((B, C), -1, dtype=np.int64)
+            u_d = np.full((B, C), np.inf, dtype=np.float64)
+            u_lay_ids: list[np.ndarray] = [None] * (top + 1)  # type: ignore[list-item]
+            u_lay_d: list[np.ndarray] = [None] * (top + 1)  # type: ignore[list-item]
+            abb = np.arange(B)[:, None]
+            slab_full = None
+            arena = None
+            ops_table = None
+            ops_scales = None
+            if self.store.n > B:  # the pre-batch graph is non-empty
+                # the graph is frozen during phase 1; the persistent arenas are
+                # brought up to date with deltas only (allocation/rebuild is
+                # amortised over capacity growth, never per batch)
+                if backend in ("ops", "device", "sharded"):
+                    arena = self._arena
+                    arena.ensure(self)
+                    if backend == "ops":
+                        ops_table = arena.vectors  # device-resident [rows, d]
+                        ops_scales = arena.q_scales  # f32[rows] (int8) / None
+                if backend not in ("device", "sharded"):
+                    slab_full = self._slab.ensure(self.graph)
+                uw = 0  # used carry width: every [B, C] pass runs on [:, :uw]
+                for l in range(top, -1, -1):
+                    # window-filter the carry (Alg. 1 line 6, all rows at once)
+                    if uw:
+                        uv = u_ids[:, :uw]
+                        am = attrs_np[np.maximum(uv, 0)]
+                        inw = (
+                            (uv >= 0)
+                            & (am >= wlo[:, l, None])
+                            & (am <= whi[:, l, None])
                         )
+                        u_ids[:, :uw] = np.where(inw, uv, -1)
+                        u_d[:, :uw] = np.where(inw, u_d[:, :uw], np.inf)
+                        skip = inw.sum(axis=1) > m  # Thm 3.1: carry suffices
                     else:
-                        res_i, res_d, dcs, _, _ = search_candidates_batch(
-                            self.store,
-                            self.graph,
-                            targets[need],
-                            np.asarray(eps, dtype=np.int64),
-                            np.stack([wlo[need, l], whi[need, l]], axis=1),
-                            l_min=l,
-                            l_max=top,
-                            width=omega_c,
-                            deleted=self.deleted or None,
-                            backend=backend,
-                            slab_cache=slab_full,
-                            ops_table=ops_table,
-                            ops_scales=ops_scales,
-                            seed_ids=seeds_i,
-                            seed_d=seeds_d,
-                            visited_arena=self._visited2d,
+                        skip = np.zeros(B, dtype=bool)
+                    self.build_stats.searches_skipped += int(skip.sum())
+                    # vectorised Alg. 1 line 7: sample entry *ranks* for every
+                    # member at once (4 tries each before the linear fallback)
+                    lo_r = np.searchsorted(uvals, wlo[:, l], side="left")
+                    hi_r = np.searchsorted(uvals, whi[:, l], side="right") - 1
+                    span = np.maximum(hi_r - lo_r + 1, 1)
+                    ks = lo_r[None, :] + (
+                        self._rng.random((4, B)) * span[None, :]
+                    ).astype(np.int64)
+                    choice = self._rng.random((4, B))
+                    # warm-start: members with a carry seed their beam with the
+                    # whole in-window carried candidate set (ids + distances
+                    # already known — no DC, no random-walk approach hops);
+                    # members with an empty carry fall back to Alg. 1 line 7's
+                    # sampled window entry.
+                    if uw:
+                        has_carry = (u_ids[:, :uw] >= 0).any(axis=1)
+                    else:
+                        has_carry = np.zeros(B, dtype=bool)
+                    need: list[int] = []
+                    eps: list[int] = []
+                    for b in np.nonzero(~skip)[0].tolist():
+                        if has_carry[b]:
+                            need.append(b)
+                            eps.append(0)  # unused: the seeds replace the entry
+                            continue
+                        ep = self._pick_entry(
+                            uvals, ks[:, b], choice[:, b], lo_r[b], hi_r[b],
+                            batch_set,
                         )
-                    self.build_stats.dc += int(dcs.sum())
-                    self.build_stats.searches += len(need)
-                    # merge found into the carry: id-sort dedupe keeping the
-                    # carry's copy (stable sort; carry columns come first)
-                    Bn = len(need)
-                    abn = np.arange(Bn)[:, None]
-                    cat_i = np.concatenate(
-                        [u_ids[need][:, :uw], res_i.astype(np.int64)], axis=1
-                    )
-                    cat_d = np.concatenate(
-                        [u_d[need][:, :uw], res_d.astype(np.float64)], axis=1
-                    )
-                    pad_key = np.where(cat_i >= 0, cat_i, np.int64(2**31))
-                    order = np.argsort(pad_key, axis=1, kind="stable")
-                    ks_s = pad_key[abn, order]
-                    ci = cat_i[abn, order]
-                    cd = cat_d[abn, order]
-                    dup = np.zeros(ci.shape, dtype=bool)
-                    dup[:, 1:] = ks_s[:, 1:] == ks_s[:, :-1]
-                    drop = dup | (ks_s == 2**31)
-                    ci = np.where(drop, -1, ci)
-                    cd = np.where(drop, np.inf, cd)
-                    # left-compact back into C columns; dropped entries sort
-                    # last (inf), survivors by distance — so a rare carry
-                    # overflow truncates the FARTHEST candidates, not the
-                    # highest vertex ids
-                    w2 = min(C, ci.shape[1])
-                    ord2 = np.argsort(
-                        np.where(drop, np.inf, cd), axis=1, kind="stable"
-                    )[:, :w2]
-                    u_ids[need, :w2] = ci[abn, ord2]
-                    u_d[need, :w2] = cd[abn, ord2]
-                    kept = int((ci.shape[1] - drop.sum(axis=1)).max())
-                    uw = max(uw, min(C, kept))
-                u_lay_ids[l] = u_ids[:, :uw].copy()
-                u_lay_d[l] = u_d[:, :uw].copy()
-        else:
-            for l in range(top + 1):
-                u_lay_ids[l] = u_ids
-                u_lay_d[l] = u_d
-
-        # ---- Phase 2 (lines 11-17): conflict-aware commit, equivalent to
-        # sequential insertion in batch order.  Member b's candidates at
-        # layer l are its searched set plus every earlier batch member
-        # inside its window with exact [B, B] cross distances (batch members
-        # are unreachable during phase 1, so there are no dupes).  Forward
-        # selections depend only on these candidate sets — never on earlier
-        # members' committed edges — so ALL (b, l) RNG prunes run as one
-        # vectorised pass; back-edges then commit in batch order, with
-        # contended vertices (full neighbor lists) resolved by one terminal
-        # batched two-stage prune per (layer, vertex).
-        if self.store.metric == "l2":
-            sq = np.einsum("bd,bd->b", targets, targets)
-            cross = sq[:, None] + sq[None, :] - 2.0 * (targets @ targets.T)
-            np.maximum(cross, 0.0, out=cross)
-        else:
-            cross = 1.0 - targets @ targets.T
-        cross = cross.astype(np.float64)
-        m_fwd = max(1, m // 2)
-        T = max(m + m // 2, 8)  # nearest-T pre-truncation (see rng_prune_rows)
-        L1 = top + 1
-        cand_ids = np.full((B * L1, T), -1, dtype=np.int64)
-        cand_d = np.full((B * L1, T), np.inf, dtype=np.float64)
-        tri = np.tri(B, B, -1, dtype=bool)  # member b sees only earlier b'
-        vids_row = np.broadcast_to(vids[None, :], (B, B))
-        for l in range(L1):
-            cw = (
-                tri
-                & (vals_arr[None, :] >= wlo[:, l, None])
-                & (vals_arr[None, :] <= whi[:, l, None])
-            )
-            self.build_stats.dc += int(cw.sum())
-            cat_i = np.concatenate([u_lay_ids[l], vids_row], axis=1)
-            cat_d = np.concatenate(
-                [u_lay_d[l], np.where(cw, cross, np.inf)], axis=1
-            )
-            kc = cat_d.shape[1]
-            if kc > T:
-                part = np.argpartition(cat_d, T - 1, axis=1)[:, :T]
-                sel_i = cat_i[abb, part]
-                sel_d = cat_d[abb, part]
+                        if ep is not None:
+                            need.append(b)
+                            eps.append(ep)
+                    if need:
+                        seeds_i = u_ids[need, :uw] if uw else None
+                        seeds_d = u_d[need, :uw] if uw else None
+                        if backend in ("device", "sharded"):
+                            # device-resident phase 1: the hop pipeline over
+                            # the frozen snapshot + delta arena, beams seeded
+                            # with the Thm-3.1 carry (the sharded arena splits
+                            # the members over its build mesh: the same
+                            # results bitwise)
+                            res_i, res_d, dcs, _ = arena.search(
+                                targets[need],
+                                np.stack([wlo[need, l], whi[need, l]], axis=1),
+                                np.asarray(eps, dtype=np.int64),
+                                l,
+                                top,
+                                seeds_i,
+                                seeds_d,
+                                width=device_width or omega_c,
+                                seed_width=C,
+                                deleted=self.deleted or None,
+                            )
+                        else:
+                            res_i, res_d, dcs, _, _ = search_candidates_batch(
+                                self.store,
+                                self.graph,
+                                targets[need],
+                                np.asarray(eps, dtype=np.int64),
+                                np.stack([wlo[need, l], whi[need, l]], axis=1),
+                                l_min=l,
+                                l_max=top,
+                                width=omega_c,
+                                deleted=self.deleted or None,
+                                backend=backend,
+                                slab_cache=slab_full,
+                                ops_table=ops_table,
+                                ops_scales=ops_scales,
+                                seed_ids=seeds_i,
+                                seed_d=seeds_d,
+                                visited_arena=self._visited2d,
+                            )
+                        self.build_stats.dc += int(dcs.sum())
+                        self.build_stats.searches += len(need)
+                        # merge found into the carry: id-sort dedupe keeping the
+                        # carry's copy (stable sort; carry columns come first)
+                        Bn = len(need)
+                        abn = np.arange(Bn)[:, None]
+                        cat_i = np.concatenate(
+                            [u_ids[need][:, :uw], res_i.astype(np.int64)], axis=1
+                        )
+                        cat_d = np.concatenate(
+                            [u_d[need][:, :uw], res_d.astype(np.float64)], axis=1
+                        )
+                        pad_key = np.where(cat_i >= 0, cat_i, np.int64(2**31))
+                        order = np.argsort(pad_key, axis=1, kind="stable")
+                        ks_s = pad_key[abn, order]
+                        ci = cat_i[abn, order]
+                        cd = cat_d[abn, order]
+                        dup = np.zeros(ci.shape, dtype=bool)
+                        dup[:, 1:] = ks_s[:, 1:] == ks_s[:, :-1]
+                        drop = dup | (ks_s == 2**31)
+                        ci = np.where(drop, -1, ci)
+                        cd = np.where(drop, np.inf, cd)
+                        # left-compact back into C columns; dropped entries sort
+                        # last (inf), survivors by distance — so a rare carry
+                        # overflow truncates the FARTHEST candidates, not the
+                        # highest vertex ids
+                        w2 = min(C, ci.shape[1])
+                        ord2 = np.argsort(
+                            np.where(drop, np.inf, cd), axis=1, kind="stable"
+                        )[:, :w2]
+                        u_ids[need, :w2] = ci[abn, ord2]
+                        u_d[need, :w2] = cd[abn, ord2]
+                        kept = int((ci.shape[1] - drop.sum(axis=1)).max())
+                        uw = max(uw, min(C, kept))
+                    u_lay_ids[l] = u_ids[:, :uw].copy()
+                    u_lay_d[l] = u_d[:, :uw].copy()
             else:
-                sel_i = cat_i
-                sel_d = cat_d
-            sel_i = np.where(np.isfinite(sel_d), sel_i, -1)
-            rows = np.arange(B) * L1 + l
-            cand_ids[rows, : sel_i.shape[1]] = sel_i
-            cand_d[rows, : sel_d.shape[1]] = sel_d
-        sel_ids, sel_d, sel_mask = rng_prune_rows(
-            self.store, cand_ids, cand_d, m_fwd
-        )
-        # ---- commit (batch order).  Forward lists: one scatter per layer.
-        # Back-edges: grouped per layer by target — a stable sort keeps the
-        # batch-order arrival sequence inside every (layer, target) run, so
-        # slot assignment (old count + within-run position) reproduces the
-        # sequential appends exactly; arrivals past slot m defer to the
-        # terminal per-vertex prune.
-        overflow: dict[tuple[int, int], list[tuple[int, float]]] = {}
-        # changed (layer, vertex) rows of this commit — the delta the
-        # persistent slab / device arena / snapshot tracker consume
-        dirty: dict[int, list[np.ndarray]] = {}
-        lay = self.graph.layers
-        cnt = self.graph.counts
-        sel3_i = sel_ids.reshape(B, L1, m_fwd)
-        sel3_d = sel_d.reshape(B, L1, m_fwd)
-        sel3_m = sel_mask.reshape(B, L1, m_fwd)
-        for l in range(L1):
-            fwd_i = sel3_i[:, l]  # [B, m_fwd] selection order, -1 padded
-            fwd_m = sel3_m[:, l]
-            deg = fwd_m.sum(axis=1).astype(np.int32)
-            lay[l][vids, :m_fwd] = np.where(fwd_m, fwd_i, -1).astype(np.int32)
-            lay[l][vids, m_fwd:] = -1
-            cnt[l][vids] = deg
-            dirty[l] = [vids]
-            # (padding holes cannot occur: sel_mask is a selection-order
-            # prefix — rng_prune_rows packs valid entries first)
-            nb2, nc2 = np.nonzero(fwd_m)
-            if nb2.size == 0:
-                continue
-            tgt = fwd_i[nb2, nc2]
-            own = vids[nb2]
-            dab = sel3_d[:, l][nb2, nc2]
-            order = np.argsort(tgt, kind="stable")  # batch order within runs
-            tgt_s, own_s, dab_s = tgt[order], own[order], dab[order]
-            run_start = np.ones(len(tgt_s), dtype=bool)
-            run_start[1:] = tgt_s[1:] != tgt_s[:-1]
-            run_id = np.cumsum(run_start) - 1
-            starts = np.nonzero(run_start)[0]
-            pos = np.arange(len(tgt_s)) - starts[run_id]
-            base = cnt[l][tgt_s]
-            slot = base + pos
-            ok = slot < self.graph.m
-            lay[l][tgt_s[ok], slot[ok]] = own_s[ok].astype(np.int32)
-            ends = np.append(starts[1:], len(tgt_s))
-            new_deg = np.minimum(base[starts] + (ends - starts), self.graph.m)
-            cnt[l][tgt_s[starts]] = new_deg.astype(np.int32)
-            dirty[l].append(tgt_s[starts])  # unique back-edge targets
-            nover = int((~ok).sum())
-            if nover:
-                self.build_stats.prunes += nover
-                for t, o_, d_ in zip(
-                    tgt_s[~ok].tolist(), own_s[~ok].tolist(), dab_s[~ok].tolist()
-                ):
-                    overflow.setdefault((l, t), []).append((o_, d_))
-        if overflow:
-            self._resolve_back_edge_overflow(overflow, uvals)
-            for l, t in overflow.keys():
-                dirty.setdefault(l, []).append(
-                    np.asarray([t], dtype=np.int64)
+                for l in range(top + 1):
+                    u_lay_ids[l] = u_ids
+                    u_lay_d[l] = u_d
+
+        with monitoring.span("repro_torch.build.phase2", rows=B, layers=top + 1):
+            # ---- Phase 2 (lines 11-17): conflict-aware commit, equivalent to
+            # sequential insertion in batch order.  Member b's candidates at
+            # layer l are its searched set plus every earlier batch member
+            # inside its window with exact [B, B] cross distances (batch members
+            # are unreachable during phase 1, so there are no dupes).  Forward
+            # selections depend only on these candidate sets — never on earlier
+            # members' committed edges — so ALL (b, l) RNG prunes run as one
+            # vectorised pass; back-edges then commit in batch order, with
+            # contended vertices (full neighbor lists) resolved by one terminal
+            # batched two-stage prune per (layer, vertex).
+            if self.store.metric == "l2":
+                sq = np.einsum("bd,bd->b", targets, targets)
+                cross = sq[:, None] + sq[None, :] - 2.0 * (targets @ targets.T)
+                np.maximum(cross, 0.0, out=cross)
+            else:
+                cross = 1.0 - targets @ targets.T
+            cross = cross.astype(np.float64)
+            m_fwd = max(1, m // 2)
+            T = max(m + m // 2, 8)  # nearest-T pre-truncation (see rng_prune_rows)
+            L1 = top + 1
+            cand_ids = np.full((B * L1, T), -1, dtype=np.int64)
+            cand_d = np.full((B * L1, T), np.inf, dtype=np.float64)
+            tri = np.tri(B, B, -1, dtype=bool)  # member b sees only earlier b'
+            vids_row = np.broadcast_to(vids[None, :], (B, B))
+            for l in range(L1):
+                cw = (
+                    tri
+                    & (vals_arr[None, :] >= wlo[:, l, None])
+                    & (vals_arr[None, :] <= whi[:, l, None])
                 )
-        # a mirror is delta-maintainable if phase 1 just (re)synced it, or
-        # if it was in sync at batch start and the arenas did not regrow
-        slab_live = slab_full is not None or (
-            slab_pre_ok
-            and self._slab.top == self.graph.top
-            and self._slab.cap == self.graph.capacity
-        )
-        arena_live = arena is not None or (
-            arena_pre_ok
-            and self._arena.num_layers == self.graph.num_layers
-            and self._arena.cap == self.graph.capacity
-        )
-        self._commit_deltas(
-            dirty, self._arena if arena_live else None, slab_live
-        )
+                self.build_stats.dc += int(cw.sum())
+                cat_i = np.concatenate([u_lay_ids[l], vids_row], axis=1)
+                cat_d = np.concatenate(
+                    [u_lay_d[l], np.where(cw, cross, np.inf)], axis=1
+                )
+                kc = cat_d.shape[1]
+                if kc > T:
+                    part = np.argpartition(cat_d, T - 1, axis=1)[:, :T]
+                    sel_i = cat_i[abb, part]
+                    sel_d = cat_d[abb, part]
+                else:
+                    sel_i = cat_i
+                    sel_d = cat_d
+                sel_i = np.where(np.isfinite(sel_d), sel_i, -1)
+                rows = np.arange(B) * L1 + l
+                cand_ids[rows, : sel_i.shape[1]] = sel_i
+                cand_d[rows, : sel_d.shape[1]] = sel_d
+            sel_ids, sel_d, sel_mask = rng_prune_rows(
+                self.store, cand_ids, cand_d, m_fwd
+            )
+        with monitoring.span("repro_torch.build.commit", rows=B, layers=top + 1):
+            # ---- commit (batch order).  Forward lists: one scatter per layer.
+            # Back-edges: grouped per layer by target — a stable sort keeps the
+            # batch-order arrival sequence inside every (layer, target) run, so
+            # slot assignment (old count + within-run position) reproduces the
+            # sequential appends exactly; arrivals past slot m defer to the
+            # terminal per-vertex prune.
+            overflow: dict[tuple[int, int], list[tuple[int, float]]] = {}
+            # changed (layer, vertex) rows of this commit — the delta the
+            # persistent slab / device arena / snapshot tracker consume
+            dirty: dict[int, list[np.ndarray]] = {}
+            lay = self.graph.layers
+            cnt = self.graph.counts
+            sel3_i = sel_ids.reshape(B, L1, m_fwd)
+            sel3_d = sel_d.reshape(B, L1, m_fwd)
+            sel3_m = sel_mask.reshape(B, L1, m_fwd)
+            for l in range(L1):
+                fwd_i = sel3_i[:, l]  # [B, m_fwd] selection order, -1 padded
+                fwd_m = sel3_m[:, l]
+                deg = fwd_m.sum(axis=1).astype(np.int32)
+                lay[l][vids, :m_fwd] = np.where(fwd_m, fwd_i, -1).astype(np.int32)
+                lay[l][vids, m_fwd:] = -1
+                cnt[l][vids] = deg
+                dirty[l] = [vids]
+                # (padding holes cannot occur: sel_mask is a selection-order
+                # prefix — rng_prune_rows packs valid entries first)
+                nb2, nc2 = np.nonzero(fwd_m)
+                if nb2.size == 0:
+                    continue
+                tgt = fwd_i[nb2, nc2]
+                own = vids[nb2]
+                dab = sel3_d[:, l][nb2, nc2]
+                order = np.argsort(tgt, kind="stable")  # batch order within runs
+                tgt_s, own_s, dab_s = tgt[order], own[order], dab[order]
+                run_start = np.ones(len(tgt_s), dtype=bool)
+                run_start[1:] = tgt_s[1:] != tgt_s[:-1]
+                run_id = np.cumsum(run_start) - 1
+                starts = np.nonzero(run_start)[0]
+                pos = np.arange(len(tgt_s)) - starts[run_id]
+                base = cnt[l][tgt_s]
+                slot = base + pos
+                ok = slot < self.graph.m
+                lay[l][tgt_s[ok], slot[ok]] = own_s[ok].astype(np.int32)
+                ends = np.append(starts[1:], len(tgt_s))
+                new_deg = np.minimum(base[starts] + (ends - starts), self.graph.m)
+                cnt[l][tgt_s[starts]] = new_deg.astype(np.int32)
+                dirty[l].append(tgt_s[starts])  # unique back-edge targets
+                nover = int((~ok).sum())
+                if nover:
+                    self.build_stats.prunes += nover
+                    for t, o_, d_ in zip(
+                        tgt_s[~ok].tolist(), own_s[~ok].tolist(), dab_s[~ok].tolist()
+                    ):
+                        overflow.setdefault((l, t), []).append((o_, d_))
+            if overflow:
+                self._resolve_back_edge_overflow(overflow, uvals)
+                for l, t in overflow.keys():
+                    dirty.setdefault(l, []).append(
+                        np.asarray([t], dtype=np.int64)
+                    )
+            # a mirror is delta-maintainable if phase 1 just (re)synced it, or
+            # if it was in sync at batch start and the arenas did not regrow
+            slab_live = slab_full is not None or (
+                slab_pre_ok
+                and self._slab.top == self.graph.top
+                and self._slab.cap == self.graph.capacity
+            )
+            arena_live = arena is not None or (
+                arena_pre_ok
+                and self._arena.num_layers == self.graph.num_layers
+                and self._arena.cap == self.graph.capacity
+            )
+            self._commit_deltas(
+                dirty, self._arena if arena_live else None, slab_live
+            )
         return vids
 
     def _commit_deltas(

@@ -59,9 +59,12 @@ Build-path delta arena:
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..monitoring import register_counters, span
 
 
 def _pow2ceil(x: int) -> int:
@@ -218,55 +221,58 @@ def take_snapshot(index, prev: Snapshot | None = None) -> Snapshot:
     still covers the interval since ``prev`` — and falls back to the full
     rebuild otherwise.  Either way the result is bitwise identical to a
     from-scratch snapshot."""
-    if _fast_refresh_ok(index, prev):
-        return _refresh_snapshot(index, prev)
-    n_all = index.store.n
-    deleted = index.deleted
-    live = np.asarray([i for i in range(n_all) if i not in deleted], dtype=np.int64)
-    n = len(live)
-    if n == 0:
-        raise ValueError("cannot snapshot an empty index")
-    remap = np.full(n_all, -1, dtype=np.int32)
-    remap[live] = np.arange(n, dtype=np.int32)
+    fast = _fast_refresh_ok(index, prev)
+    with span("repro_torch.snapshot.take",
+              mode="incremental" if fast else "full"):
+        if fast:
+            return _refresh_snapshot(index, prev)
+        n_all = index.store.n
+        deleted = index.deleted
+        live = np.asarray([i for i in range(n_all) if i not in deleted], dtype=np.int64)
+        n = len(live)
+        if n == 0:
+            raise ValueError("cannot snapshot an empty index")
+        remap = np.full(n_all, -1, dtype=np.int32)
+        remap[live] = np.arange(n, dtype=np.int32)
 
-    vectors = index.store.vectors[live].astype(np.float32)
-    sq_norms = index.store.sq_norms[live].astype(np.float32)
-    attrs = index.store.attrs[live].astype(np.float32)
+        vectors = index.store.vectors[live].astype(np.float32)
+        sq_norms = index.store.sq_norms[live].astype(np.float32)
+        attrs = index.store.attrs[live].astype(np.float32)
 
-    L = index.graph.num_layers
-    m = index.graph.m
-    rows = np.stack([lay[live] for lay in index.graph.layers])  # [L, n, m]
-    mapped = np.where(rows >= 0, remap[np.maximum(rows, 0)], -1)
-    # left-compact every row so padding is trailing: a stable argsort of the
-    # "is padding" mask keeps live entries in order and pushes -1s right —
-    # one vectorised pass over [L, n, m] instead of an O(L*n) Python loop
-    # (this is the serve-refresh hot path for ingest-while-serve).
-    order = np.argsort(mapped < 0, axis=2, kind="stable")
-    neighbors = np.take_along_axis(mapped, order, axis=2).astype(np.int32)
+        L = index.graph.num_layers
+        m = index.graph.m
+        rows = np.stack([lay[live] for lay in index.graph.layers])  # [L, n, m]
+        mapped = np.where(rows >= 0, remap[np.maximum(rows, 0)], -1)
+        # left-compact every row so padding is trailing: a stable argsort of the
+        # "is padding" mask keeps live entries in order and pushes -1s right —
+        # one vectorised pass over [L, n, m] instead of an O(L*n) Python loop
+        # (this is the serve-refresh hot path for ingest-while-serve).
+        order = np.argsort(mapped < 0, axis=2, kind="stable")
+        neighbors = np.take_along_axis(mapped, order, axis=2).astype(np.int32)
 
-    # unique values over live vertices + representative vertex per value
-    order = np.argsort(attrs, kind="stable")
-    sorted_attrs = attrs[order]
-    uniq_mask = np.ones(n, dtype=bool)
-    uniq_mask[1:] = sorted_attrs[1:] != sorted_attrs[:-1]
-    uvals = sorted_attrs[uniq_mask].astype(np.float32)
-    uval_rep = order[uniq_mask].astype(np.int32)
+        # unique values over live vertices + representative vertex per value
+        order = np.argsort(attrs, kind="stable")
+        sorted_attrs = attrs[order]
+        uniq_mask = np.ones(n, dtype=bool)
+        uniq_mask[1:] = sorted_attrs[1:] != sorted_attrs[:-1]
+        uvals = sorted_attrs[uniq_mask].astype(np.float32)
+        uval_rep = order[uniq_mask].astype(np.int32)
 
-    stamp = getattr(index, "mutations", -1)
-    _reset_tracker(index, stamp)
-    return Snapshot(
-        vectors=vectors,
-        sq_norms=sq_norms,
-        attrs=attrs,
-        neighbors=neighbors,
-        uvals=uvals,
-        uval_rep=uval_rep,
-        ids_map=live,
-        m=m,
-        o=index.params.o,
-        metric=index.params.metric,
-        stamp=stamp,
-    )
+        stamp = getattr(index, "mutations", -1)
+        _reset_tracker(index, stamp)
+        return Snapshot(
+            vectors=vectors,
+            sq_norms=sq_norms,
+            attrs=attrs,
+            neighbors=neighbors,
+            uvals=uvals,
+            uval_rep=uval_rep,
+            ids_map=live,
+            m=m,
+            o=index.params.o,
+            metric=index.params.metric,
+            stamp=stamp,
+        )
 
 
 def snapshot_from_arrays(
@@ -442,8 +448,9 @@ class DeviceBuildArena:
     __slots__ = (
         "vectors", "sq_norms", "attrs", "neighbors", "cap", "dim", "m", "o",
         "metric", "num_layers", "version", "n_synced", "stats", "_dummy_u",
-        "_dummy_r", "vec_dtype", "q_scales", "device",
+        "_dummy_r", "vec_dtype", "q_scales", "device", "__weakref__",
     )
+    STATS = ("full_uploads", "rows_scattered", "rows_appended", "searches")
 
     def __init__(self, vec_dtype: str = "f32", device=None):
         from .. import resolve_device
@@ -468,14 +475,10 @@ class DeviceBuildArena:
         self.num_layers = 0
         self.version = -1
         self.n_synced = 0
-        self.stats = {
-            "full_uploads": 0,
-            "rows_scattered": 0,
-            "rows_appended": 0,
-            "searches": 0,
-        }
+        self.stats = dict.fromkeys(self.STATS, 0)
         self._dummy_u = None
         self._dummy_r = None
+        _ARENAS.add(self)
 
     def nbytes(self) -> int:
         """Device bytes the arena holds (vectors, scales, norms, attrs,
@@ -646,8 +649,9 @@ class ShardedBuildArena(DeviceBuildArena):
     the device hop pipeline on its member slice, and the per-member
     candidate sets are all-gathered back to the host, bitwise those of
     the one-device build at any shard count, so the deterministic phase-2
-    commit needs no shard awareness.  ``stats`` adds ``search_s`` (the
-    seconds in the sharded searches, gathers included) and ``gather_s``.
+    commit needs no shard awareness.  A search is the span
+    ``repro_torch.build.sharded_search``, its all-gather
+    ``repro_torch.build.gather`` (``repro_torch.monitoring``).
     """
 
     __slots__ = ("mesh",)
@@ -655,7 +659,6 @@ class ShardedBuildArena(DeviceBuildArena):
     def __init__(self, mesh, vec_dtype: str = "f32"):
         super().__init__(vec_dtype=vec_dtype, device=mesh.device)
         self.mesh = mesh
-        self.stats.update(search_s=0.0, gather_s=0.0)
 
     @property
     def num_shards(self) -> int:
@@ -690,33 +693,42 @@ class ShardedBuildArena(DeviceBuildArena):
         visited: str = "hash",
         visited_bits: int | None = None,
     ):
-        import time
-
         from .distributed import sharded_build_search
 
         self.stats["searches"] += 1
-        t0 = time.perf_counter()
-        out = sharded_build_search(
-            self.mesh,
-            self.device_index(),
-            targets,
-            ranges,
-            eps,
-            l_lo,
-            l_hi,
-            seed_ids,
-            seed_d,
-            width=width,
-            m=self.m,
-            o=self.o,
-            metric="l2" if self.metric == "l2" else "cosine",
-            seed_width=seed_width,
-            deleted=deleted,
-            backend=backend,
-            visited=visited,
-            visited_bits=visited_bits,
-            axis=self.mesh.axis,
-            timings=self.stats,
-        )
-        self.stats["search_s"] += time.perf_counter() - t0
-        return out
+        with span("repro_torch.build.sharded_search", rows=len(targets)):
+            return sharded_build_search(
+                self.mesh,
+                self.device_index(),
+                targets,
+                ranges,
+                eps,
+                l_lo,
+                l_hi,
+                seed_ids,
+                seed_d,
+                width=width,
+                m=self.m,
+                o=self.o,
+                metric="l2" if self.metric == "l2" else "cosine",
+                seed_width=seed_width,
+                deleted=deleted,
+                backend=backend,
+                visited=visited,
+                visited_bits=visited_bits,
+                axis=self.mesh.axis,
+            )
+
+
+_ARENAS = weakref.WeakSet()  # live build arenas, for ``monitoring.counters()``
+
+
+def _arena_counters() -> dict:
+    out = dict.fromkeys(DeviceBuildArena.STATS, 0)
+    for arena in list(_ARENAS):
+        for k in out:
+            out[k] += arena.stats[k]
+    return out
+
+
+register_counters("snapshot.DeviceBuildArena", _arena_counters)

@@ -19,6 +19,7 @@ torch for CPU tensors); ``ref.py`` holds the plain torch versions the tests
 and ``chip_smoke.py`` hold the kernels against; ``_build.py`` compiles the
 CUDA sources with ``nvcc`` at first use and binds them with ctypes.
 """
+from ..monitoring import register_counters
 from . import ops, ref
 
 __all__ = ["launch_counters", "ops", "ref"]
@@ -33,3 +34,7 @@ def launch_counters() -> tuple:
 
     return (gather_distance.LAUNCHES, distance.LAUNCHES,
             flash_attention.LAUNCHES, rwkv6.LAUNCHES, mamba_scan.LAUNCHES)
+
+
+register_counters("kernels.LAUNCHES", lambda: {
+    name: n for counts in launch_counters() for name, n in counts.items()})

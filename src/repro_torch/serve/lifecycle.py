@@ -74,6 +74,7 @@ and ingest apply.
 from __future__ import annotations
 
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass
 
@@ -93,6 +94,7 @@ from ..core.device_search import (
     to_device_index,
     visited_filter_bits_from_hist,
 )
+from ..monitoring import enabled as tracing_enabled, register_counters, span
 
 
 # --------------------------------------------------------------------- stats
@@ -114,6 +116,10 @@ class ServeStats:
         self.ingest_replayed = 0  # applied from a pre-crash WAL suffix
         self.waves = 0
         self.chunks = 0
+        # snapshot refreshes that took a new snapshot; out of ``summary()``,
+        # whose keys are the reference engine's (``monitoring.counters()``
+        # reads it)
+        self.refreshes = 0
         self.shed_waves = 0  # waves assembled at the shed width cap
         self.queue_peak = 0
         self._lat = deque(maxlen=reservoir)
@@ -340,8 +346,12 @@ class _ServingSets:
             entry = self._sets[cap] = [
                 DeviceIndex(*(t.clone() for t in src)), src]
         elif entry[1] is not src:
-            for dst, t in zip(entry[0], src):
-                dst.copy_(t)
+            with span("repro_torch.chunk.bind") as sp:
+                for dst, t in zip(entry[0], src):
+                    dst.copy_(t)
+                if tracing_enabled():
+                    sp.set(bytes=sum(t.numel() * t.element_size()
+                                     for t in src))
             entry[1] = src
             self.copies += 1
         return entry[0]
@@ -375,9 +385,23 @@ class _Wave:
     next_h: int
     t_planned: int = 0
     shed: bool = False  # assembled under the shed width cap
+    wid: int = 0  # the wave's number (its spans' id)
 
 
 # -------------------------------------------------------------------- engine
+_ENGINES = weakref.WeakSet()  # live engines, for ``monitoring.counters()``
+
+
+def _engine_counters() -> dict:
+    live = list(_ENGINES)
+    stats = {id(e.stats): e.stats for e in live}.values()  # may be shared
+    return {"refreshes": sum(s.refreshes for s in stats),
+            "serving_set_copies": sum(e._sets.copies for e in live)}
+
+
+register_counters("lifecycle.ServeEngine", _engine_counters)
+
+
 class ServeEngine:
     """Single-host serve engine (see the module docstring).  Step-driven:
     ``submit``/``submit_ingest`` enqueue, ``step()`` advances the
@@ -430,6 +454,7 @@ class ServeEngine:
         self._sets = _ServingSets()
         self._hop_s = 0.0  # EWMA wall seconds per hop chunk-iteration
         self._wave_s = 0.0  # EWMA wall seconds per executed chunk
+        _ENGINES.add(self)
 
     # ---------------------------------------------------------- introspection
     @property
@@ -486,36 +511,38 @@ class ServeEngine:
                timeout_s: float | None = None):
         """Admit one query request -> a ``Ticket``, or a ``Rejected``
         carrying the retry-after estimate."""
-        now = self._now()
-        cfg = self.config
-        self.stats.submitted += 1
-        rid = self._next_rid
-        self._next_rid += 1
-        qlen = len(self._queue)
-        if qlen >= cfg.queue_cap:
-            self.stats.rejected += 1
-            self._pressure += 1
-            return Rejected(rid=rid, retry_after=self._retry_after(),
-                            queue_len=qlen)
-        if qlen >= cfg.high_water:
-            self._pressure += 1
-        elif qlen < cfg.high_water // 2:
-            self._pressure = max(0, self._pressure - 1)
-        if timeout_s is None:
-            timeout_s = cfg.default_timeout_s
-        deadline = now + timeout_s if timeout_s is not None else np.inf
-        k = int(k) if k is not None else cfg.k
-        if k > cfg.k:
-            raise ValueError(f"k={k} exceeds the engine's configured "
-                             f"k={cfg.k} (beam harvest width)")
-        self._queue.append(Request(
-            rid=rid, query=np.asarray(query, np.float32),
-            rng=(float(rng[0]), float(rng[1])), k=k, deadline=deadline,
-            arrival_t=now,
-        ))
-        self.stats.admitted += 1
-        self.stats.queue_peak = max(self.stats.queue_peak, len(self._queue))
-        return Ticket(rid=rid)
+        with span("repro_torch.engine.submit", id=self._next_rid):
+            now = self._now()
+            cfg = self.config
+            self.stats.submitted += 1
+            rid = self._next_rid
+            self._next_rid += 1
+            qlen = len(self._queue)
+            if qlen >= cfg.queue_cap:
+                self.stats.rejected += 1
+                self._pressure += 1
+                return Rejected(rid=rid, retry_after=self._retry_after(),
+                                queue_len=qlen)
+            if qlen >= cfg.high_water:
+                self._pressure += 1
+            elif qlen < cfg.high_water // 2:
+                self._pressure = max(0, self._pressure - 1)
+            if timeout_s is None:
+                timeout_s = cfg.default_timeout_s
+            deadline = now + timeout_s if timeout_s is not None else np.inf
+            k = int(k) if k is not None else cfg.k
+            if k > cfg.k:
+                raise ValueError(f"k={k} exceeds the engine's configured "
+                                 f"k={cfg.k} (beam harvest width)")
+            self._queue.append(Request(
+                rid=rid, query=np.asarray(query, np.float32),
+                rng=(float(rng[0]), float(rng[1])), k=k, deadline=deadline,
+                arrival_t=now,
+            ))
+            self.stats.admitted += 1
+            self.stats.queue_peak = max(self.stats.queue_peak,
+                                        len(self._queue))
+            return Ticket(rid=rid)
 
     #: retry_after ceiling: a hint above this means the EWMA was poisoned
     #: (virtual-clock jump, pathological chunk); clients should re-probe
@@ -550,40 +577,43 @@ class ServeEngine:
                 "ingest needs a live index (engine was built from a bare "
                 "snapshot; recover the index first)"
             )
-        vectors = np.asarray(vectors, np.float32)
-        if vectors.ndim == 1:
-            vectors = vectors.reshape(1, -1)
-        attrs = np.asarray(attrs, np.float64).reshape(-1)
-        if len(vectors) != len(attrs):
-            raise ValueError(f"{len(vectors)} vectors vs {len(attrs)} attrs")
-        keep, rejected = validate_rows(vectors, attrs, self.index.dim)
-        self.stats.ingest_rejected_rows += len(rejected)
-        vectors, attrs = vectors[keep], attrs[keep]
-        wal = self.index._wal
-        lsn = self.index._applied_lsn
-        bs = self.config.ingest_batch
-        staged = []
-        for s in range(0, len(attrs), bs):
-            vs, as_ = vectors[s : s + bs], attrs[s : s + bs]
-            if wal is not None:
-                # group commit: append now, one fsync below acks them all
-                lsn = wal.log_insert(vs, as_,
-                                     backend=self.config.build_backend,
-                                     device_width=None, shards=None,
-                                     fsync=False)
-                staged.append((lsn, vs, as_))
-            else:
-                staged.append((None, vs, as_))
-        if wal is not None and staged:
-            wal.sync()  # durability barrier: everything above is now acked
-        self._ingest_q.extend(staged)
-        self.stats.ingest_batches += len(staged)
-        self.stats.ingest_rows += len(attrs)
-        return IngestResult(
-            vids=np.empty(0, np.int64), accepted=len(attrs),
-            rejected=rejected, lsn=lsn if wal is not None else 0,
-            pending=True,
-        )
+        with span("repro_torch.engine.submit_ingest") as sp:
+            vectors = np.asarray(vectors, np.float32)
+            if vectors.ndim == 1:
+                vectors = vectors.reshape(1, -1)
+            attrs = np.asarray(attrs, np.float64).reshape(-1)
+            if len(vectors) != len(attrs):
+                raise ValueError(
+                    f"{len(vectors)} vectors vs {len(attrs)} attrs")
+            keep, rejected = validate_rows(vectors, attrs, self.index.dim)
+            self.stats.ingest_rejected_rows += len(rejected)
+            vectors, attrs = vectors[keep], attrs[keep]
+            sp.set(rows=len(attrs))
+            wal = self.index._wal
+            lsn = self.index._applied_lsn
+            bs = self.config.ingest_batch
+            staged = []
+            for s in range(0, len(attrs), bs):
+                vs, as_ = vectors[s : s + bs], attrs[s : s + bs]
+                if wal is not None:
+                    # group commit: append now, one fsync below acks them
+                    lsn = wal.log_insert(vs, as_,
+                                         backend=self.config.build_backend,
+                                         device_width=None, shards=None,
+                                         fsync=False)
+                    staged.append((lsn, vs, as_))
+                else:
+                    staged.append((None, vs, as_))
+            if wal is not None and staged:
+                wal.sync()  # durability barrier: everything above is acked
+            self._ingest_q.extend(staged)
+            self.stats.ingest_batches += len(staged)
+            self.stats.ingest_rows += len(attrs)
+            return IngestResult(
+                vids=np.empty(0, np.int64), accepted=len(attrs),
+                rejected=rejected, lsn=lsn if wal is not None else 0,
+                pending=True,
+            )
 
     def _apply_ingest_one(self) -> None:
         """Apply the oldest queued (already logged) ingest micro-batch.
@@ -593,52 +623,59 @@ class ServeEngine:
             self.fault_plan.on_ingest_apply()
         lsn, vs, as_ = self._ingest_q[0]
         idx = self.index
-        if lsn is not None:
-            # already logged at admission: the apply must not re-log
-            idx._wal_replaying = True
-            try:
+        # the batch's id: its LSN, else its number among those admitted
+        seq = lsn if lsn is not None else \
+            self.stats.ingest_batches - len(self._ingest_q)
+        with span("repro_torch.engine.ingest_apply", id=seq, rows=len(as_)):
+            if lsn is not None:
+                # already logged at admission: the apply must not re-log
+                idx._wal_replaying = True
+                try:
+                    idx.insert_batch(vs, as_, batch_size=max(len(as_), 1),
+                                     backend=self.config.build_backend)
+                finally:
+                    idx._wal_replaying = False
+                idx._applied_lsn = lsn
+            else:
                 idx.insert_batch(vs, as_, batch_size=max(len(as_), 1),
                                  backend=self.config.build_backend)
-            finally:
-                idx._wal_replaying = False
-            idx._applied_lsn = lsn
-        else:
-            idx.insert_batch(vs, as_, batch_size=max(len(as_), 1),
-                             backend=self.config.build_backend)
-        self._ingest_q.popleft()
-        if not self._ingest_q:
-            # the cadence check is deferred until the queue is empty so a
-            # triggered COMPACT record lands after every already-logged
-            # insert — live apply order must equal log order for replay
-            idx._maybe_auto_compact()
+            self._ingest_q.popleft()
+            if not self._ingest_q:
+                # the cadence check is deferred until the queue is empty so
+                # a triggered COMPACT record lands after every already-
+                # logged insert — live apply order must equal log order for
+                # replay
+                idx._maybe_auto_compact()
 
     # -------------------------------------------------------------- scheduler
     def step(self) -> list[Reply]:
         """One scheduler turn: expire stale queued requests, give ingest
         its fair share, assemble a wave if there is capacity, run one hop
         chunk of one in-flight wave.  Returns the replies produced."""
-        now = self._now()
-        replies: list[Reply] = []
-        self._expire_queued(now, replies)
-        if self._ingest_q:
-            self._ingest_credit += self.config.ingest_share
-            if self._ingest_credit >= 1.0 or not (self._queue or self._waves):
-                self._ingest_credit = max(0.0, self._ingest_credit - 1.0)
-                self._apply_ingest_one()
-        free = self.config.max_slots - self.in_flight
-        # batching policy: while waves are in flight, let arrivals
-        # accumulate into a full-width wave; once the engine is idle, take
-        # whatever is queued (cannot starve: when the last wave retires the
-        # next step assembles a partial wave)
-        full = self.config.shed_wave if self.overloaded() else \
-            self.config.max_wave
-        if self._queue and free > 0 and (
-            not self._waves or len(self._queue) >= full
-        ):
-            self._assemble_wave(free)
-        if self._waves:
-            replies.extend(self._run_chunk())
-        return replies
+        with span("repro_torch.engine.step"):
+            now = self._now()
+            replies: list[Reply] = []
+            self._expire_queued(now, replies)
+            if self._ingest_q:
+                self._ingest_credit += self.config.ingest_share
+                if self._ingest_credit >= 1.0 or not (self._queue
+                                                      or self._waves):
+                    self._ingest_credit = max(0.0, self._ingest_credit - 1.0)
+                    self._apply_ingest_one()
+            free = self.config.max_slots - self.in_flight
+            # batching policy: while waves are in flight, let arrivals
+            # accumulate into a full-width wave; once the engine is idle,
+            # take whatever is queued (cannot starve: when the last wave
+            # retires the next step assembles a partial wave)
+            full = self.config.shed_wave if self.overloaded() else \
+                self.config.max_wave
+            if self._queue and free > 0 and (
+                not self._waves or len(self._queue) >= full
+            ):
+                self._assemble_wave(free)
+            if self._waves:
+                replies.extend(self._run_chunk())
+            return replies
 
     def drain(self, max_steps: int = 1_000_000) -> list[Reply]:
         """Step until idle; the step bound turns a scheduler deadlock into
@@ -658,18 +695,20 @@ class ServeEngine:
     def _expire_queued(self, now: float, replies: list[Reply]) -> None:
         if not self._queue:
             return
-        keep: deque[Request] = deque()
-        for req in self._queue:
-            if req.deadline < now:
-                self.stats.expired += 1
-                replies.append(self._reply(
-                    req, np.full(req.k, -1, np.int64),
-                    np.full(req.k, np.inf, np.float32), hops=0, dc=0,
-                    now=now, degraded=True, reason="queue_deadline",
-                ))
-            else:
-                keep.append(req)
-        self._queue = keep
+        with span("repro_torch.engine.expire") as sp:
+            keep: deque[Request] = deque()
+            for req in self._queue:
+                if req.deadline < now:
+                    self.stats.expired += 1
+                    replies.append(self._reply(
+                        req, np.full(req.k, -1, np.int64),
+                        np.full(req.k, np.inf, np.float32), hops=0, dc=0,
+                        now=now, degraded=True, reason="queue_deadline",
+                    ))
+                else:
+                    keep.append(req)
+            sp.set(expired=len(self._queue) - len(keep))
+            self._queue = keep
 
     def _refresh_snapshot(self) -> None:
         if self.index is None:
@@ -680,13 +719,16 @@ class ServeEngine:
         if self._di is None or self._snap is None or self._snap_key != key:
             from ..core.snapshot import take_snapshot
 
-            self._snap = take_snapshot(self.index, prev=self._snap)
-            self._di = to_device_index(
-                self._snap, vec_dtype=self.config.vec_dtype,
-                device=self.device,
-            )
-            self._snap_key = key
-            self._sets.retain([self._di] + [w.di for w in self._waves])
+            with span("repro_torch.engine.refresh"):
+                self._snap = take_snapshot(self.index, prev=self._snap)
+                with span("repro_torch.snapshot.upload"):
+                    self._di = to_device_index(
+                        self._snap, vec_dtype=self.config.vec_dtype,
+                        device=self.device,
+                    )
+                self._snap_key = key
+                self._sets.retain([self._di] + [w.di for w in self._waves])
+            self.stats.refreshes += 1
 
     def _visited_bits(self) -> int | None:
         cfg = self.config
@@ -726,7 +768,8 @@ class ServeEngine:
         so the hops really run (see the module docstring).  Adaptive
         engines can still meet new chunk lengths or filter sizes as the
         histogram shifts; a static one captures nothing after this.
-        Touches no scheduler state (stats, queue, histograms) and returns
+        Touches no scheduler state (queue, waves, histograms; of the stats
+        only ``refreshes``, where it takes the first snapshot) and returns
         the wall seconds spent."""
         t0 = time.perf_counter()
         self._refresh_snapshot()
@@ -762,27 +805,33 @@ class ServeEngine:
         if take <= 0:
             return
         self._refresh_snapshot()
-        snap, di = self._snap, self._di
-        reqs = [self._queue.popleft() for _ in range(take)]
-        wcfg = self._wave_cfg(snap)
-        chunk = self._chunk_schedule()
-        Bp = _pow2ceil(max(take, _MIN_BUCKET))
-        qp = np.zeros((Bp, snap.vectors.shape[1]), np.float32)
-        rp = np.tile(np.asarray([[1.0, 0.0]], np.float32), (Bp, 1))
-        dl = np.full(Bp, np.inf)
-        for i, r in enumerate(reqs):
-            qp[i] = r.query
-            rp[i] = r.rng
-            dl[i] = r.deadline
-        st = _init_state(di, torch.from_numpy(qp).to(self.device),
-                         torch.from_numpy(rp).to(self.device), wcfg)
-        orig = np.concatenate(
-            [np.arange(take), np.full(Bp - take, -1)]
-        ).astype(np.int64)
-        self._waves.append(_Wave(
-            st=st, cfg=wcfg, di=di, ids_map=snap.ids_map, reqs=reqs,
-            orig=orig, dl=dl, chunk=chunk, next_h=chunk[0], shed=shed,
-        ))
+        wid = self.stats.waves
+        with span("repro_torch.engine.assemble", id=wid, rows=take) as sp:
+            snap, di = self._snap, self._di
+            reqs = [self._queue.popleft() for _ in range(take)]
+            if tracing_enabled():  # each request's wait since admission
+                now = self._now()
+                sp.set(waits_s=np.array([now - r.arrival_t for r in reqs]))
+            wcfg = self._wave_cfg(snap)
+            chunk = self._chunk_schedule()
+            Bp = _pow2ceil(max(take, _MIN_BUCKET))
+            qp = np.zeros((Bp, snap.vectors.shape[1]), np.float32)
+            rp = np.tile(np.asarray([[1.0, 0.0]], np.float32), (Bp, 1))
+            dl = np.full(Bp, np.inf)
+            for i, r in enumerate(reqs):
+                qp[i] = r.query
+                rp[i] = r.rng
+                dl[i] = r.deadline
+            st = _init_state(di, torch.from_numpy(qp).to(self.device),
+                             torch.from_numpy(rp).to(self.device), wcfg)
+            orig = np.concatenate(
+                [np.arange(take), np.full(Bp - take, -1)]
+            ).astype(np.int64)
+            self._waves.append(_Wave(
+                st=st, cfg=wcfg, di=di, ids_map=snap.ids_map, reqs=reqs,
+                orig=orig, dl=dl, chunk=chunk, next_h=chunk[0], shed=shed,
+                wid=wid,
+            ))
         self.stats.waves += 1
         if shed:
             self.stats.shed_waves += 1
@@ -792,9 +841,20 @@ class ServeEngine:
             self.fault_plan.on_chunk()
         w = self._waves[self._rr % len(self._waves)]
         h = w.next_h
+        with span("repro_torch.engine.chunk", id=w.wid, bucket=len(w.orig),
+                  h=h):
+            replies = self._chunk_of(w, h)
+        self._rr += 1
+        return replies
+
+    def _chunk_of(self, w: _Wave, h: int) -> list[Reply]:
+        """Run one chunk of ``h`` hops of wave ``w``, reply to the requests
+        it finished (or whose deadline cannot afford the next chunk), and
+        compact the survivors into their bucket."""
         t0 = self._now()
         w.st = _run_hop_chunk(self._sets.bind(w.di), w.st, w.cfg, h)
-        act = w.st.active.cpu().numpy()  # the chunk-boundary sync point
+        with span("repro_torch.chunk.sync"):
+            act = w.st.active.cpu().numpy()  # the chunk-boundary sync point
         now = self._now()
         self.stats.chunks += 1
         w.t_planned += h
@@ -818,37 +878,40 @@ class ServeEngine:
         harvest = finished | blown | (real & act & budget_out)
         replies: list[Reply] = []
         if harvest.any():
-            res_i = w.st.res_i.cpu().numpy()
-            res_d = w.st.res_d.cpu().numpy()
-            dc = w.st.dc.cpu().numpy()
-            hops = w.st.hops.cpu().numpy()
-            hist = np.bincount(hops[harvest], minlength=1)
-            self._recent_hists.append(hist.astype(np.int64))
-            for slot in np.flatnonzero(harvest):
-                req = w.reqs[w.orig[slot]]
-                truncated = bool(act[slot]) and bool(blown[slot])
-                late = now > req.deadline
-                ids = res_i[slot, : req.k]
-                mapped = np.where(
-                    ids >= 0, w.ids_map[np.clip(ids, 0, None)], -1
-                ).astype(np.int64)
-                replies.append(self._reply(
-                    req, mapped, res_d[slot, : req.k].copy(),
-                    hops=int(hops[slot]), dc=int(dc[slot]), now=now,
-                    degraded=truncated or late,
-                    reason="deadline" if (truncated or late) else None,
-                ))
+            with span("repro_torch.chunk.harvest", id=w.wid) as sp:
+                res_i = w.st.res_i.cpu().numpy()
+                res_d = w.st.res_d.cpu().numpy()
+                dc = w.st.dc.cpu().numpy()
+                hops = w.st.hops.cpu().numpy()
+                hist = np.bincount(hops[harvest], minlength=1)
+                self._recent_hists.append(hist.astype(np.int64))
+                for slot in np.flatnonzero(harvest):
+                    req = w.reqs[w.orig[slot]]
+                    truncated = bool(act[slot]) and bool(blown[slot])
+                    late = now > req.deadline
+                    ids = res_i[slot, : req.k]
+                    mapped = np.where(
+                        ids >= 0, w.ids_map[np.clip(ids, 0, None)], -1
+                    ).astype(np.int64)
+                    replies.append(self._reply(
+                        req, mapped, res_d[slot, : req.k].copy(),
+                        hops=int(hops[slot]), dc=int(dc[slot]), now=now,
+                        degraded=truncated or late,
+                        reason="deadline" if (truncated or late) else None,
+                    ))
+                sp.set(replies=len(replies))
         live = real & act & ~harvest
         nlive = int(np.sum(live))
         if nlive == 0:
             self._waves.remove(w)
-        else:
-            # pow2 buckets (not the 1.5x granularity of _drive_chunked):
-            # engine waves are narrow, so fewer chunk shapes beats tighter
-            # padding
-            Bn = min(len(w.orig), _pow2ceil(max(nlive, _MIN_BUCKET)))
-            rows = np.flatnonzero(live)
-            if Bn < len(w.orig):  # bucket shrinks: gather the survivors
+            return replies
+        # pow2 buckets (not the 1.5x granularity of _drive_chunked): engine
+        # waves are narrow, so fewer chunk shapes beats tighter padding
+        Bn = min(len(w.orig), _pow2ceil(max(nlive, _MIN_BUCKET)))
+        rows = np.flatnonzero(live)
+        if Bn < len(w.orig):  # bucket shrinks: gather the survivors
+            with span("repro_torch.chunk.compact", id=w.wid,
+                      bucket_from=len(w.orig), bucket_to=Bn):
                 idx = np.concatenate(
                     [rows, np.full(Bn - nlive, rows[0])]
                 )
@@ -856,10 +919,9 @@ class ServeEngine:
                     w.st, torch.as_tensor(idx, device=self.device), nlive)
                 w.orig = np.where(np.arange(Bn) < nlive, w.orig[idx], -1)
                 w.dl = w.dl[idx]
-            else:  # same bucket: just retire the harvested slots
-                w.orig[harvest] = -1
-            w.next_h = w.chunk[1]
-        self._rr += 1
+        else:  # same bucket: just retire the harvested slots
+            w.orig[harvest] = -1
+        w.next_h = w.chunk[1]
         return replies
 
     def _reply(self, req: Request, ids: np.ndarray, dists: np.ndarray,
